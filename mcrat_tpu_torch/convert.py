@@ -1,0 +1,61 @@
+"""Carry state from the JAX package into the port, through numpy.
+
+The JAX package's objects are passed in as numpy arrays (``np.asarray`` of
+each field), so this module needs no jax: tests and tools use it to feed
+both packages the same photons, frames and grids.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from mcrat_tpu.config import Config
+
+from .grid import HydroFrameHost, RectilinearIndex, build_rectilinear_index
+from .transport import Photons
+
+PHOTON_FIELDS = tuple(f.name for f in dataclasses.fields(Photons))
+_INT_FIELDS = ("cell", "ptype")
+
+
+def photons_from_numpy(arrays: dict, device="cpu", dtype=torch.float32) -> Photons:
+    """Photons from a dict holding the fields of ``mcrat_tpu.transport.
+    Photons`` (p, comv_p, pos, s, weight, num_scatt, cell, ptype) as numpy
+    arrays."""
+    return Photons(**{
+        k: torch.as_tensor(np.array(arrays[k]),
+                           dtype=torch.int32 if k in _INT_FIELDS else dtype,
+                           device=device)
+        for k in PHOTON_FIELDS
+    })
+
+
+def photons_to_numpy(ph: Photons) -> dict:
+    """The inverse of :func:`photons_from_numpy`: a dict of numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in ph.fields().items()}
+
+
+def frame_from_numpy_fields(cfg: Config, fields: dict) -> HydroFrameHost:
+    """A host frame from the fields of ``mcrat_tpu.grid.HydroFrameHost``
+    (r0 ... domain as numpy arrays, optional nonthermal_dens and jet_axis);
+    other keys (such as ``cfg``) are ignored."""
+    names = [f.name for f in dataclasses.fields(HydroFrameHost) if f.name != "cfg"]
+    kw = {}
+    for name in names:
+        if name not in fields:
+            continue
+        val = fields[name]
+        kw[name] = val if name == "jet_axis" or val is None else np.array(val, dtype=np.float64)
+    return HydroFrameHost(cfg=cfg, **kw)
+
+
+def index_from_edges(edges0, edges1, edges2=None, dtype=torch.float32,
+                     device="cpu") -> RectilinearIndex:
+    """A RectilinearIndex over the edge arrays of ``mcrat_tpu.grid.
+    RectilinearIndex`` (numpy; ``edges2`` None for 2-D grids)."""
+    return build_rectilinear_index(
+        np.asarray(edges0, dtype=np.float64), np.asarray(edges1, dtype=np.float64),
+        None if edges2 is None else np.asarray(edges2, dtype=np.float64),
+        dtype=dtype, device=device)

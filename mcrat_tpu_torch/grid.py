@@ -1,0 +1,281 @@
+"""Hydro frames and the rectilinear spatial index (port of ``mcrat_tpu.grid``).
+
+:class:`HydroFrameHost` is the host (numpy float64) view that frame
+construction and injection work on; :meth:`HydroFrameHost.to_device` makes the torch
+:class:`HydroFrame`, including the slim 8-row matrix ``packed_slim``
+(``PCOL_SLIM``) and, for the fused-round kernel, the 4-row physics table
+``phys = [v0, v1, ne_lab, temp]`` (``packed_slim[4:8]``).
+
+:class:`RectilinearIndex` locates photons on structured grids: uniform axes
+by ``floor((x - lo) * inv_d)``, others by ``searchsorted``; cell order is the
+C-order raveled meshgrid, ``idx = (i * n1 + j) * n2 + k``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mcrat_tpu.config import Config, Dims, Geometry
+from mcrat_tpu.constants import A_RAD, M_P
+
+from . import geometry as geo
+
+# Slim row layout (HydroFrame.packed_slim): the per-cell state of the 2-D
+# cartesian/cylindrical fused round (mcrat_tpu.grid.PCOL_SLIM).
+PCOL_SLIM = dict(r0=0, r1=1, dr0=2, dr1=3, v0=4, v1=5, ne_lab=6, temp=7)
+SLIM_WIDTH = 8
+
+
+@dataclasses.dataclass
+class HydroFrame:
+    """One hydro snapshot as (Ncell,) tensors on one device.
+
+    Field names mirror the reference hydro_dataframe (Src/mcrat.h:205-225).
+    ``packed_slim`` (8, Ncell) and ``phys`` (4, Ncell) exist for 2-D
+    cartesian/cylindrical/spherical frames without a phi-hat velocity.
+    """
+
+    r0: torch.Tensor
+    r1: torch.Tensor
+    r2: torch.Tensor
+    dr0: torch.Tensor
+    dr1: torch.Tensor
+    dr2: torch.Tensor
+    r: torch.Tensor
+    theta: torch.Tensor
+    v0: torch.Tensor
+    v1: torch.Tensor
+    v2: torch.Tensor
+    dens: torch.Tensor
+    dens_lab: torch.Tensor
+    pres: torch.Tensor
+    temp: torch.Tensor
+    gamma: torch.Tensor
+    domain: torch.Tensor  # (3, 2) hydro-coordinate bounds
+    nonthermal_dens: torch.Tensor
+    packed_slim: Optional[torch.Tensor] = None
+    phys: Optional[torch.Tensor] = None
+
+    @property
+    def num_elements(self) -> int:
+        return self.r0.shape[0]
+
+
+def frame_from_numpy(cfg: Config, arrays: dict, domain=None) -> "HydroFrameHost":
+    """Build a host frame from a dict of numpy arrays.
+
+    Required keys: r0, r1, dr0, dr1, v0, v1, dens, pres.  Optional: r2, dr2,
+    v2, B0, B1, B2, dens_lab, temp, gamma.  Derived quantities follow the
+    reference readers (Src/mclib_flash.c:377-379): gamma = 1/sqrt(1 - v^2),
+    dens_lab = rho gamma, temp = (3 p / a)^(1/4).
+    """
+    n = len(arrays["r0"])
+    z = np.zeros(n)
+
+    def f64(key, default=None):
+        val = arrays[key] if default is None else arrays.get(key, default)
+        return np.asarray(val, dtype=np.float64)
+
+    r0, r1, r2 = f64("r0"), f64("r1"), f64("r2", z)
+    dr0, dr1, dr2 = f64("dr0"), f64("dr1"), f64("dr2", z)
+    v0, v1, v2 = f64("v0"), f64("v1"), f64("v2", z)
+    dens, pres = f64("dens"), f64("pres")
+    if "gamma" in arrays:
+        gamma = f64("gamma")
+    else:
+        v2sum = v0 * v0 + v1 * v1 + (v2 * v2 if cfg.dims is not Dims.TWO else 0.0)
+        gamma = 1.0 / np.sqrt(np.maximum(1.0 - v2sum, 1e-30))
+    dens_lab = np.asarray(arrays.get("dens_lab", dens * gamma), dtype=np.float64)
+    temp = np.asarray(arrays.get("temp", (3.0 * pres / A_RAD) ** 0.25), dtype=np.float64)
+    sph_r, sph_theta = geo.hydro_to_spherical(cfg, r0, r1, r2)
+    if domain is None:
+        three = cfg.dims is Dims.THREE
+        domain = np.array([
+            [(r0 - dr0 / 2).min(), (r0 + dr0 / 2).max()],
+            [(r1 - dr1 / 2).min(), (r1 + dr1 / 2).max()],
+            [(r2 - dr2 / 2).min() if three else 0.0, (r2 + dr2 / 2).max() if three else 0.0],
+        ])
+    return HydroFrameHost(
+        cfg=cfg, r0=r0, r1=r1, r2=r2, dr0=dr0, dr1=dr1, dr2=dr2,
+        r=np.asarray(sph_r), theta=np.asarray(sph_theta),
+        v0=v0, v1=v1, v2=v2, dens=dens, dens_lab=dens_lab, pres=pres,
+        temp=temp, gamma=gamma,
+        B0=f64("B0", z), B1=f64("B1", z), B2=f64("B2", z),
+        domain=np.asarray(domain, dtype=np.float64),
+    )
+
+
+@dataclasses.dataclass
+class HydroFrameHost:
+    """Host (numpy, float64) view of a frame: construction and injection
+    work here."""
+
+    cfg: Config
+    r0: np.ndarray
+    r1: np.ndarray
+    r2: np.ndarray
+    dr0: np.ndarray
+    dr1: np.ndarray
+    dr2: np.ndarray
+    r: np.ndarray
+    theta: np.ndarray
+    v0: np.ndarray
+    v1: np.ndarray
+    v2: np.ndarray
+    dens: np.ndarray
+    dens_lab: np.ndarray
+    pres: np.ndarray
+    temp: np.ndarray
+    gamma: np.ndarray
+    B0: np.ndarray
+    B1: np.ndarray
+    B2: np.ndarray
+    domain: np.ndarray
+    nonthermal_dens: Optional[np.ndarray] = None
+    # jet axis of the theta cache: "z" (default) or "y" (RIKEN 3-D frames,
+    # reference: Src/mclib_riken.c:965) -- a real field here, not a getattr
+    # side channel (ROADMAP queue 3, F5)
+    jet_axis: str = "z"
+
+    @property
+    def num_elements(self) -> int:
+        return len(self.r0)
+
+    def volumes(self) -> np.ndarray:
+        return np.asarray(geo.element_volume(
+            self.cfg, self.r0, self.r1, self.r2, self.dr0, self.dr1, self.dr2))
+
+    def packed_slim(self) -> Optional[np.ndarray]:
+        """(8, Ncell) float64 slim matrix, or None where the layout does not
+        apply (3-D, polar, or a phi-hat velocity)."""
+        if (self.cfg.dims is not Dims.TWO
+                or self.cfg.geometry not in (Geometry.CARTESIAN, Geometry.CYLINDRICAL,
+                                             Geometry.SPHERICAL)
+                or np.any(self.v2)):
+            return None
+        return np.stack([
+            self.r0, self.r1, self.dr0, self.dr1,
+            self.v0, self.v1, self.dens_lab * (1.0 / M_P), self.temp,
+        ])
+
+    def to_device(self, device="cpu", dtype=torch.float32) -> HydroFrame:
+        """Copy the frame onto ``device`` as ``dtype`` tensors."""
+        n = self.num_elements
+        nt = self.nonthermal_dens if self.nonthermal_dens is not None else np.zeros(n)
+
+        def put(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        slim = self.packed_slim()
+        slim_t = put(slim) if slim is not None else None
+        phys = (slim_t[PCOL_SLIM["v0"]: PCOL_SLIM["temp"] + 1].contiguous()
+                if slim_t is not None else None)
+        return HydroFrame(
+            r0=put(self.r0), r1=put(self.r1), r2=put(self.r2),
+            dr0=put(self.dr0), dr1=put(self.dr1), dr2=put(self.dr2),
+            r=put(self.r), theta=put(self.theta),
+            v0=put(self.v0), v1=put(self.v1), v2=put(self.v2),
+            dens=put(self.dens), dens_lab=put(self.dens_lab), pres=put(self.pres),
+            temp=put(self.temp), gamma=put(self.gamma),
+            domain=put(self.domain), nonthermal_dens=put(nt),
+            packed_slim=slim_t, phys=phys,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Spatial index
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RectilinearIndex:
+    """Structured-grid index: cell (i, j[, k]) from the edge arrays.
+
+    Uniformly spaced axes (detected at build time) use O(1) arithmetic
+    ``floor((x - lo) * inv_d)``; others fall back to ``searchsorted``.
+    ``lo``/``inv_d`` are (3,) tensors (unused entries 0/1).
+    """
+
+    edges0: torch.Tensor
+    edges1: torch.Tensor
+    edges2: torch.Tensor  # length-2 dummy for 2-D
+    lo: torch.Tensor
+    inv_d: torch.Tensor
+    uniform: tuple = (False, False, False)
+    three_d: bool = False
+
+    @property
+    def shape(self) -> tuple:
+        """Cells per axis, (n0, n1, n2)."""
+        return tuple(e.shape[0] - 1 for e in (self.edges0, self.edges1, self.edges2))
+
+    def axis_index(self, axis: int, x: torch.Tensor) -> torch.Tensor:
+        """Cell index along one axis (clipped), arithmetic or searchsorted."""
+        edges = (self.edges0, self.edges1, self.edges2)[axis]
+        n = edges.shape[0] - 1
+        if self.uniform[axis]:
+            i = torch.floor((x - self.lo[axis]) * self.inv_d[axis]).to(torch.int32)
+        else:
+            i = torch.searchsorted(edges, x.contiguous(), right=True).to(torch.int32) - 1
+        return torch.clamp(i, 0, n - 1)
+
+    def find(self, r0, r1, r2) -> torch.Tensor:
+        n1 = self.edges1.shape[0] - 1
+        i = self.axis_index(0, r0)
+        j = self.axis_index(1, r1)
+        inside = (
+            (r0 >= self.edges0[0]) & (r0 <= self.edges0[-1])
+            & (r1 >= self.edges1[0]) & (r1 <= self.edges1[-1])
+        )
+        if self.three_d:
+            n2 = self.edges2.shape[0] - 1
+            k = self.axis_index(2, r2)
+            inside = inside & (r2 >= self.edges2[0]) & (r2 <= self.edges2[-1])
+            idx = (i * n1 + j) * n2 + k
+        else:
+            idx = i * n1 + j
+        return torch.where(inside, idx, -1)
+
+
+def _axis_uniform(edges: np.ndarray) -> bool:
+    d = np.diff(edges)
+    return bool(d.size > 0 and np.allclose(d, d[0], rtol=1e-5, atol=0.0))
+
+
+def build_rectilinear_index(edges0, edges1, edges2=None, dtype=torch.float32,
+                            device="cpu") -> RectilinearIndex:
+    """Index over the given cell edges (numpy, host float64)."""
+    e0 = np.asarray(edges0, dtype=np.float64)
+    e1 = np.asarray(edges1, dtype=np.float64)
+    e2 = np.asarray(edges2, dtype=np.float64) if edges2 is not None else np.array([0.0, 1.0])
+    lo = np.array([e0[0], e1[0], e2[0]])
+    d = np.array([(e[-1] - e[0]) / max(e.size - 1, 1) for e in (e0, e1, e2)])
+    inv_d = 1.0 / np.where(d > 0, d, 1.0)
+
+    def put(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return RectilinearIndex(
+        edges0=put(e0), edges1=put(e1), edges2=put(e2), lo=put(lo), inv_d=put(inv_d),
+        uniform=(_axis_uniform(e0), _axis_uniform(e1), _axis_uniform(e2)),
+        three_d=edges2 is not None,
+    )
+
+
+def find_cell_direct(cfg: Config, index: RectilinearIndex, frame: HydroFrame, pos):
+    """Containing-cell lookup for the rectilinear index.
+
+    findContainingHydroCell (reference: Src/mclib.c:436-615): out-of-domain
+    photons get cell = -1.  ``pos`` is (N, 3) MCRaT Cartesian.  Returns
+    (cell int32, in_grid bool).
+    """
+    r0, r1, r2 = geo.mcrat_to_hydro(cfg, pos[..., 0], pos[..., 1], pos[..., 2])
+    dom = frame.domain
+    inside = (r0 > dom[0, 0]) & (r0 < dom[0, 1]) & (r1 > dom[1, 0]) & (r1 < dom[1, 1])
+    if cfg.dims is Dims.THREE:
+        inside = inside & (r2 > dom[2, 0]) & (r2 < dom[2, 1])
+    cell = torch.where(inside, index.find(r0, r1, r2), -1).to(torch.int32)
+    return cell, inside & (cell >= 0)

@@ -1,0 +1,610 @@
+"""The fused transport round: plain PyTorch twin and CUDA kernel wrapper.
+
+Port of ``mcrat_tpu/ops/pallas_round.py::fused_rounds`` for the variant on
+the flagship path: uniform-rectilinear 2-D cartesian/cylindrical grid, DIRECT
+(Thomson) optical depth, thermal electrons, Stokes on or off.  One call runs
+``inner_rounds`` complete transport rounds per photon lane:
+
+    tau-rate -> comoving boost -> free path -> move -> electron draw
+    -> polarized Klein-Nishina scatter attempt -> Stokes -> cell membership
+
+A lane that leaves its cell stalls until the caller re-resolves its cell
+(``transport.transport_rounds_fused``).  Both implementations take the lane's
+containing cell and gather their own physics values from the (4, Ncell)
+table ``[v0, v1, ne_lab, temp]``; the cell centre is ``lo + (i + 0.5) d``.
+
+:func:`fused_rounds_reference` is the plain twin, vectorized over lanes.
+:func:`fused_rounds` is the wrapper: on CPU tensors it runs the twin, on CUDA
+tensors it launches ``csrc/fused_round.cu`` (or raises) -- there is no path
+back to the twin on the card.  Both update ``state`` IN PLACE (an idle lane's
+state stays bit-identical) and return the (Npad,) int32 out-flags.  Each
+keeps its own launch count (``fused_rounds.launches``,
+``fused_rounds_reference.launches``).
+
+Random numbers come from ``ops.rng`` (the interpret-mode hash of the JAX
+kernel) with static draw numbers (:func:`draw_offsets`), so the twin, the
+kernel and the JAX kernel in interpret mode agree lane for lane.
+
+Differences from the JAX kernel, both deliberate:
+
+* the Maxwell-Boltzmann / Maxwell-Juttner switch is made per lane
+  (``theta < THETA_MB_SWITCH``, as the reference does per electron,
+  Src/electron.c:206) rather than per block; the two agree on any frame whose
+  blocks each have one temperature;
+* fault F1 is repaired: where the fluid velocity is zero the Stokes rotation
+  chain uses z-hat in place of the (degenerate) +-beta_f reference vector, so
+  the z -> beta_e rotations are kept (as ``ops.stokes`` / ``transport_rounds``
+  do).  Lanes with beta_f != 0 are unchanged.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from mcrat_tpu.constants import C_LIGHT, KB_OVER_MEC2, THOM_X_SECT
+
+from . import rng
+
+# state plane layout (f32), as pallas_round.SP_*: lab p, position, Stokes
+# q/u/v (I == 1), frame time left, scatter count, comoving p
+SP_P0, SP_P1, SP_P2, SP_P3 = 0, 1, 2, 3
+SP_X, SP_Y, SP_Z = 4, 5, 6
+SP_Q, SP_U, SP_V = 7, 8, 9
+SP_TREM = 10
+SP_NS = 11
+SP_C0, SP_C1, SP_C2, SP_C3 = 12, 13, 14, 15
+N_STATE = 16
+
+# lane flag bits in, out-flag bits out (pallas_round.FLAG_* / OUT_*)
+FLAG_ALIVE = 1
+FLAG_POOL = 2
+FLAG_INGRID = 4
+OUT_STALLED = 1
+OUT_PROMOTED = 2
+
+# physics table rows (the slim rows 4:8 of grid.PCOL_SLIM)
+PHYS_V0, PHYS_V1, PHYS_NE, PHYS_TEMP = 0, 1, 2, 3
+N_PHYS = 4
+
+LANES = 128
+DEFAULT_MFP = 1e12
+TINY = rng.TINY
+# theta = kT/(m_e c^2) at the reference's 1e7 K thermal-sampler switch
+THETA_MB_SWITCH = 1.6863699656e-3
+TWO_PI = 2.0 * math.pi
+_INV_C = 1.0 / C_LIGHT
+# rejection trials per draw, as pallas_round.fused_rounds's defaults: 12
+# Maxwell-Juttner trials, and 12 KN trials each for theta and phi
+EL_ITERS = 12
+KN_ITERS = 12
+
+
+class GridScalars(NamedTuple):
+    """Uniform-grid scalars of the kernel, each exactly a float32 value.
+
+    ``dom*`` bound the strict domain test (hydro r0 in (dom0, dom1), r1 in
+    (dom2, dom3)); cell (i, j) = divmod(cell, n1) has centre
+    (lo0 + (i + 0.5) d0, lo1 + (j + 0.5) d1) and size (d0, d1).
+    """
+
+    dom0: float
+    dom1: float
+    dom2: float
+    dom3: float
+    lo0: float
+    d0: float
+    lo1: float
+    d1: float
+    n1: int
+
+
+class DrawOffsets(NamedTuple):
+    """Static draw numbers within one round (``k = round * per_round +
+    offset``), in the JAX kernel's program order: free path, the
+    Maxwell-Boltzmann branch (traced first by ``lax.cond``), the
+    Maxwell-Juttner trials, the electron angles, the KN acceptance, the
+    theta trials and the phi trials."""
+
+    free: int
+    mb: int
+    mj: int
+    el: int
+    acc: int
+    theta: int
+    phi: int
+    per_round: int
+
+
+def draw_offsets(el_iters: int, kn_iters: int) -> DrawOffsets:
+    mj = 5
+    el = mj + 5 * el_iters
+    theta = el + 3
+    phi = theta + 2 * kn_iters
+    return DrawOffsets(free=1, mb=2, mj=mj, el=el, acc=el + 2, theta=theta,
+                       phi=phi, per_round=phi + 2 * kn_iters - 1)
+
+
+OFFSETS = draw_offsets(EL_ITERS, KN_ITERS)
+
+
+# ---------------------------------------------------------------------------
+# component-form device functions (pallas_round.py names, same op order)
+# ---------------------------------------------------------------------------
+
+
+def _boost(bx, by, bz, p0, p1, p2, p3):
+    """Photon Lorentz boost + zero_norm (pallas_round._boost)."""
+    b2 = bx * bx + by * by + bz * bz
+    pos = b2 > 0
+    safe_b2 = torch.where(pos, b2, 1.0)
+    gam = torch.rsqrt(torch.clamp(1.0 - b2, min=1e-30))
+    bdotp = bx * p1 + by * p2 + bz * p3
+    p0n = gam * (p0 - bdotp)
+    coef = (gam - 1.0) * bdotp / safe_b2 - gam * p0
+    q1 = torch.where(pos, p1 + coef * bx, p1)
+    q2 = torch.where(pos, p2 + coef * by, p2)
+    q3 = torch.where(pos, p3 + coef * bz, p3)
+    p0n = torch.where(pos, p0n, p0)
+    n = torch.sqrt(q1 * q1 + q2 * q2 + q3 * q3)
+    scale = torch.where(n > 0, p0n / torch.clamp(n, min=TINY), 1.0)
+    return p0n, q1 * scale, q2 * scale, q3 * scale
+
+
+def _rotate_basis(vo, ro, vn, rn, q, u):
+    """Stokes (q, u) rotation between the (v_old, ref_old) and
+    (v_new, ref_new) bases (pallas_round._rotate_basis).  Vectors are
+    3-tuples of tensors or floats."""
+    vox, voy, voz = vo
+    rox, roy, roz = ro
+    vnx, vny, vnz = vn
+    rnx, rny, rnz = rn
+    ax = roy * voz - roz * voy
+    ay = roz * vox - rox * voz
+    az = rox * voy - roy * vox
+    bx = rny * vnz - rnz * vny
+    by = rnz * vnx - rnx * vnz
+    bz = rnx * vny - rny * vnx
+    dot_ab = ax * bx + ay * by + az * bz
+    n2 = (ax * ax + ay * ay + az * az) * (bx * bx + by * by + bz * bz)
+    d = torch.clamp(dot_ab * torch.rsqrt(torch.clamp(n2, min=TINY)), -1.0, 1.0)
+    d = torch.where(n2 > 0, d, 0.0)
+    cx = ay * voz - az * voy
+    cy = az * vox - ax * voz
+    cz = ax * voy - ay * vox
+    f = torch.sign(cx * bx + cy * by + cz * bz)
+    c2 = torch.where(f == 0, 1.0, 2.0 * d * d - 1.0)
+    s2 = -f * 2.0 * d * torch.sqrt(torch.clamp(1.0 - d * d, min=0.0))
+    return c2 * q - s2 * u, s2 * q + c2 * u
+
+
+def _thermal_gamma_beta(base, k0, temp):
+    """Thermal (gamma, gamma beta), chosen per lane: Maxwell-Boltzmann chi2_3
+    speed draw below the 1e7 K switch, Maxwell-Juttner Gamma-mixture
+    rejection above it (pallas_round._thermal_gamma_beta)."""
+    theta = torch.clamp(temp * KB_OVER_MEC2, min=TINY)
+    # Maxwell-Boltzmann: beta^2 = theta * chi2_3 from three uniforms
+    u1 = rng.uniform_pos(base, k0 + OFFSETS.mb)
+    u2 = rng.uniform_pos(base, k0 + OFFSETS.mb + 1)
+    u3 = rng.uniform(base, k0 + OFFSETS.mb + 2)
+    cosb = torch.cos(TWO_PI * u3)
+    chi2_3 = -2.0 * torch.log(u1) - 2.0 * torch.log(u2) * (cosb * cosb)
+    b2 = torch.clamp(theta * chi2_3, max=0.999999)
+    g_mb = torch.rsqrt(1.0 - b2)
+    gb_mb = g_mb * torch.sqrt(b2)
+    # Maxwell-Juttner
+    sqrt_theta = torch.sqrt(theta)
+    m3 = 2.0 * theta * sqrt_theta
+    inv_mass = 1.0 / (1.0 + m3)
+    cum1 = 0.5 * inv_mass
+    cum2 = inv_mass
+    xi = torch.full_like(theta, 1.5)
+    done = torch.zeros_like(theta, dtype=torch.bool)
+    for t in range(EL_ITERS):
+        k = k0 + OFFSETS.mj + 5 * t
+        v0 = rng.uniform_pos(base, k)
+        v1 = rng.uniform_pos(base, k + 1)
+        v2 = rng.uniform_pos(base, k + 2)
+        um = rng.uniform(base, k + 3)
+        ua = rng.uniform(base, k + 4)
+        p2 = v0 * v1
+        prod = torch.where(um < cum1, v0, torch.where(um < cum2, p2, p2 * v2))
+        cand = -torch.log(prod)
+        a = theta * cand
+        target = (1.0 + a) * torch.sqrt(torch.clamp(a * (2.0 + a), min=0.0))
+        envelope = sqrt_theta * (1.0 + cand) + 2.0 * (theta * theta) * (cand * cand)
+        ok = ua * envelope <= target
+        xi = torch.where(ok & ~done, cand, xi)
+        done = done | ok
+    a = theta * xi
+    g_mj = 1.0 + a
+    gb_mj = torch.sqrt(torch.clamp(a * (2.0 + a), min=0.0))
+    cold = theta < THETA_MB_SWITCH
+    return torch.where(cold, g_mb, g_mj), torch.where(cold, gb_mb, gb_mj)
+
+
+def _electron_from_gamma(base, k0, gamma, gb, c1, c2, c3):
+    """Relative-angle draw + rotation into the photon's axes
+    (pallas_round._electron_from_gamma)."""
+    beta = gb / gamma
+    uu = rng.uniform(base, k0 + OFFSETS.el)
+    safe_beta = torch.clamp(beta, min=1e-8)
+    arg = 1.0 + safe_beta * safe_beta + 2.0 * safe_beta - 4.0 * safe_beta * uu
+    cos_t = (1.0 - torch.sqrt(torch.clamp(arg, min=0.0))) / safe_beta
+    cos_t = torch.where(beta < 1e-6, 2.0 * uu - 1.0, cos_t)
+    cos_t = torch.clamp(cos_t, -1.0, 1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = rng.uniform(base, k0 + OFFSETS.el + 1) * TWO_PI
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    e1 = gb * cos_t
+    e2 = gb * sin_t * sp
+    e3 = gb * sin_t * cp
+    rho2 = c2 * c2 + c3 * c3
+    rho = torch.sqrt(rho2)
+    norm = torch.sqrt(rho2 + c1 * c1)
+    inv_norm = 1.0 / torch.clamp(norm, min=TINY)
+    c_th = c1 * inv_norm
+    s_th = rho * inv_norm
+    safe_rho = torch.clamp(rho, min=TINY)
+    has = rho > 0
+    c_ph = torch.where(has, c3 / safe_rho, 1.0)
+    s_ph = torch.where(has, c2 / safe_rho, 0.0)
+    vx = c_th * e1 - s_th * e3
+    vy = e2
+    vz = s_th * e1 + c_th * e3
+    wy = c_ph * vy + s_ph * vz
+    wz = -s_ph * vy + c_ph * vz
+    return gamma, vx, wy, wz
+
+
+def _kn_cross_section(e):
+    """sigma_KN / sigma_T (pallas_round._kn_cross_section)."""
+    se = torch.clamp(e, min=1e-10)
+    full = 0.75 * (
+        2.0 / (se * se)
+        + (1.0 / (2.0 * se) - (1.0 + se) / (se * (se * se))) * torch.log1p(2.0 * se)
+        + (1.0 + se) / ((1.0 + 2.0 * se) * (1.0 + 2.0 * se))
+    )
+    return torch.where(e >= 1e-3, full, 1.0 - 2.0 * e)
+
+
+def _sample_kn_angles(base, k0, e0, q, u, stokes_on):
+    """KN theta rejection + (polarized) phi disk-point rejection
+    (pallas_round._sample_kn_angles)."""
+    cos_theta = torch.zeros_like(e0)
+    done = torch.zeros_like(e0, dtype=torch.bool)
+    for t in range(KN_ITERS):
+        k = k0 + OFFSETS.theta + 2 * t
+        c = 2.0 * rng.uniform(base, k) - 1.0
+        y = 2.0 * rng.uniform(base, k + 1)
+        m = 1.0 + e0 * (1.0 - c)
+        f = (e0 * (1.0 - c) + 1.0 / m + c * c) / (m * m)
+        ok = y < f
+        cos_theta = torch.where(ok & ~done, c, cos_theta)
+        done = done | ok
+    cos_theta = torch.clamp(cos_theta, -1.0, 1.0)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    if stokes_on:
+        mu = 1.0 + e0 * (1.0 - cos_theta)
+        inv_mu = 1.0 / mu
+        inv_mu3 = inv_mu * (inv_mu * inv_mu)
+        f_theta = (inv_mu + inv_mu3 - (sin_theta * sin_theta) * inv_mu * inv_mu) * sin_theta
+        pol_amp = sin_theta * (sin_theta * sin_theta) * inv_mu * inv_mu
+        safe_qu = torch.clamp(torch.sqrt(q * q + u * u), min=TINY)
+        cos2pm = q / safe_qu
+        sin2pm = torch.abs(u) / safe_qu
+        norm = f_theta + pol_amp * (q * cos2pm - u * sin2pm)
+        unpolarized = (q == 0.0) & (u == 0.0)
+        safe_norm = torch.where(norm != 0, norm, 1.0)
+    x_acc = torch.ones_like(e0)
+    y_acc = torch.zeros_like(e0)
+    done = torch.zeros_like(e0, dtype=torch.bool)
+    for t in range(KN_ITERS):
+        k = k0 + OFFSETS.phi + 2 * t
+        x = 2.0 * rng.uniform(base, k) - 1.0
+        y = 2.0 * rng.uniform(base, k + 1) - 1.0
+        r2 = x * x + y * y
+        ok = (r2 <= 1.0) & (r2 > TINY)
+        if stokes_on:
+            safe_r2 = torch.clamp(r2, min=TINY)
+            c2 = (x * x - y * y) / safe_r2
+            s2 = (2.0 * x * y) / safe_r2
+            f = (f_theta + pol_amp * (q * c2 - u * s2)) / safe_norm
+            ok = ok & (unpolarized | (r2 < f))
+        take = ok & ~done
+        x_acc = torch.where(take, x, x_acc)
+        y_acc = torch.where(take, y, y_acc)
+        done = done | ok
+    inv_r = torch.rsqrt(torch.clamp(x_acc * x_acc + y_acc * y_acc, min=TINY))
+    return cos_theta, sin_theta, x_acc * inv_r, y_acc * inv_r
+
+
+def _single_scatter(base, k0, g0, e1x, e1y, e1z, c0, c1, c2, c3, q, u, v,
+                    f_ref, stokes_on):
+    """One polarized KN scatter attempt in the electron rest frame
+    (pallas_round._single_scatter, collapsed Stokes chain).  ``f_ref`` is
+    the fluid-boost reference vector of the chain (beta_f, or z-hat where
+    beta_f == 0)."""
+    inv_g = 1.0 / g0
+    bx, by, bz = e1x * inv_g, e1y * inv_g, e1z * inv_g
+    r0, r1, r2, r3 = _boost(bx, by, bz, c0, c1, c2, c3)
+    z_hat = (0.0, 0.0, 1.0)
+    if stokes_on:
+        q, u = _rotate_basis((c1, c2, c3), f_ref, (c1, c2, c3), (bx, by, bz), q, u)
+        q, u = _rotate_basis((r1, r2, r3), (bx, by, bz), (r1, r2, r3), z_hat, q, u)
+    e0 = r0
+    rho0 = torch.sqrt(r1 * r1 + r2 * r2)
+    has_xy = rho0 > 0
+    safe_rho0 = torch.clamp(rho0, min=TINY)
+    a_c0 = torch.where(has_xy, r1 / safe_rho0, 1.0)
+    a_s0 = torch.where(has_xy, r2 / safe_rho0, 0.0)
+    e_pos = e0 > 0
+    inv_e0 = torch.where(e_pos, 1.0 / torch.clamp(e0, min=TINY), 0.0)
+    a_c1 = torch.where(e_pos, rho0 * inv_e0, 1.0)
+    a_s1 = r3 * inv_e0
+    scattered = rng.uniform(base, k0 + OFFSETS.acc) <= _kn_cross_section(e0)
+    ct, st, c_phi, s_phi = _sample_kn_angles(base, k0, e0, q, u, stokes_on)
+    e1 = e0 / (1.0 + e0 * (1.0 - ct))
+    sx = e1 * ct
+    sy = e1 * st * s_phi
+    sz = e1 * st * c_phi
+    tx = a_c1 * sx - a_s1 * sz
+    tz = a_s1 * sx + a_c1 * sz
+    nx = a_c0 * tx - a_s0 * sy
+    ny = a_s0 * tx + a_c0 * sy
+    nz = tz
+    if stokes_on:
+        rv, nv = (r1, r2, r3), (nx, ny, nz)
+        q2, u2 = _rotate_basis(rv, z_hat, nv, rv, q, u)
+        cos_sc = (r1 * nx + r2 * ny + r3 * nz) / torch.clamp(e0 * e1, min=TINY)
+        cos_sc = torch.clamp(cos_sc, -1.0, 1.0)
+        # Fano matrix (ops.stokes.fano_scatter_stokes)
+        st2 = torch.clamp(1.0 - cos_sc * cos_sc, min=0.0)
+        de = e0 - e1
+        m00 = 1.0 + cos_sc * cos_sc + (1.0 - cos_sc) * de
+        m11 = 1.0 + cos_sc * cos_sc
+        m22 = 2.0 * cos_sc
+        m33 = 2.0 * cos_sc + cos_sc * (1.0 - cos_sc) * de
+        fi = m00 + st2 * q2
+        fq = st2 + m11 * q2
+        fu = m22 * u2
+        fv = m33 * v
+        inv_i = 1.0 / fi
+        q2, u2, v2 = fq * inv_i, fu * inv_i, fv * inv_i
+        q2, u2 = _rotate_basis(nv, rv, nv, (-bx, -by, -bz), q2, u2)
+    else:
+        q2, u2, v2 = q, u, v
+    o0, o1, o2, o3 = _boost(-bx, -by, -bz, e1, nx, ny, nz)
+    return scattered, o0, o1, o2, o3, q2, u2, v2
+
+
+def _rounds(st, alive, is_pool, in_grid, v0s, v1s, n_e, temp, cgeom, grid,
+            base, stokes_on, inner_rounds):
+    """``inner_rounds`` rounds over a flat set of lanes (pallas_round
+    round_body).  Returns the new 16 planes and the (stalled, promoted)
+    masks."""
+    (p0, p1, p2, p3, px, py, pz, q, u, v, t_rem, ns, c0, c1, c2, c3) = st
+    c0u, c1u = cgeom
+    beta_mag = torch.sqrt(v0s * v0s + v1s * v1s)
+    n_sigma = n_e * THOM_X_SECT
+    z_hat = (0.0, 0.0, 1.0)
+    stalled = torch.zeros_like(alive)
+    promoted = torch.zeros_like(alive)
+    for r in range(inner_rounds):
+        k0 = r * OFFSETS.per_round
+        act = alive & (t_rem > 0) & ~stalled
+
+        # 1. tau rate: fluid beta at the photon azimuth (2-D cart/cyl)
+        rho = torch.sqrt(px * px + py * py)
+        has = rho > 0
+        safe = torch.where(has, rho, 1.0)
+        bx = v0s * torch.where(has, px / safe, 1.0)
+        by = v0s * torch.where(has, py / safe, 0.0)
+        bz = v1s
+        fl_norm = torch.sqrt(bx * bx + by * by + bz * bz)
+        ph_norm = torch.sqrt(p1 * p1 + p2 * p2 + p3 * p3)
+        denom = torch.clamp(fl_norm * ph_norm, min=TINY)
+        cos_ang = (bx * p1 + by * p2 + bz * p3) / denom
+        rate = n_sigma * (1.0 - beta_mag * cos_ang)
+
+        # 2. comoving four-momentum
+        b0, b1, b2, b3 = _boost(bx, by, bz, p0, p1, p2, p3)
+        upd = act & in_grid
+        c0 = torch.where(upd, b0, c0)
+        c1 = torch.where(upd, b1, c1)
+        c2 = torch.where(upd, b2, c2)
+        c3 = torch.where(upd, b3, c3)
+
+        # 3. free path -> candidate step
+        u1 = rng.uniform_pos(base, k0 + OFFSETS.free)
+        mfp = torch.where(
+            in_grid & (rate > 0),
+            -torch.log(u1) / torch.clamp(rate, min=TINY),
+            DEFAULT_MFP,
+        )
+        dt_scatt = mfp * _INV_C
+        will = act & in_grid & (dt_scatt < t_rem)
+        dt = torch.where(will, dt_scatt, t_rem)
+        dt = torch.where(act, dt, 0.0)
+
+        # 4. advance along the lab direction at c (pool photons stay)
+        inv_p0 = 1.0 / torch.clamp(p0, min=TINY)
+        step = torch.where(act & ~is_pool, C_LIGHT * dt * inv_p0, 0.0)
+        px = px + step * p1
+        py = py + step * p2
+        pz = pz + step * p3
+        t_rem = t_rem - dt
+
+        # 5. scatter attempt (null collision on KN reject).  F1 repair: the
+        # chain's fluid reference vector is z-hat where beta_f == 0.
+        if stokes_on:
+            flow = fl_norm > 0
+            f_ref = (torch.where(flow, bx, 0.0), torch.where(flow, by, 0.0),
+                     torch.where(flow, bz, 1.0))
+            mf_ref = (torch.where(flow, -bx, 0.0), torch.where(flow, -by, 0.0),
+                      torch.where(flow, -bz, 1.0))
+            pv = (p1, p2, p3)
+            qc, uc = _rotate_basis(pv, z_hat, pv, f_ref, q, u)
+        else:
+            f_ref = None
+            qc, uc = q, u
+        g_e, gb_e = _thermal_gamma_beta(base, k0, temp)
+        g0, ex, ey, ez = _electron_from_gamma(base, k0, g_e, gb_e, c1, c2, c3)
+        sc, o0, o1, o2, o3, q2, u2, v2 = _single_scatter(
+            base, k0, g0, ex, ey, ez, c0, c1, c2, c3, qc, uc, v, f_ref, stokes_on)
+        scattered = will & sc
+        l0, l1, l2, l3 = _boost(-bx, -by, -bz, o0, o1, o2, o3)
+        if stokes_on:
+            inv_ge = 1.0 / g0
+            ov, lv = (o1, o2, o3), (l1, l2, l3)
+            ql, ul = _rotate_basis(
+                ov, (-ex * inv_ge, -ey * inv_ge, -ez * inv_ge), ov, mf_ref, q2, u2)
+            ql, ul = _rotate_basis(lv, mf_ref, lv, z_hat, ql, ul)
+            q = torch.where(scattered, ql, q)
+            u = torch.where(scattered, ul, u)
+            v = torch.where(scattered, v2, v)
+        p0 = torch.where(scattered, l0, p0)
+        p1 = torch.where(scattered, l1, p1)
+        p2 = torch.where(scattered, l2, p2)
+        p3 = torch.where(scattered, l3, p3)
+        c0 = torch.where(scattered, o0, c0)
+        c1 = torch.where(scattered, o1, c1)
+        c2 = torch.where(scattered, o2, c2)
+        c3 = torch.where(scattered, o3, c3)
+        ns = ns + scattered.to(ns.dtype)
+        promoted = promoted | (scattered & is_pool)
+
+        # 6. post-move cell/domain membership: stall lanes that left
+        h0 = torch.sqrt(px * px + py * py)
+        in_cell = (
+            (2.0 * torch.abs(h0 - c0u) - grid.d0 <= 0)
+            & (2.0 * torch.abs(pz - c1u) - grid.d1 <= 0)
+            & (h0 > grid.dom0) & (h0 < grid.dom1)
+            & (pz > grid.dom2) & (pz < grid.dom3)
+        )
+        stalled = stalled | (act & in_grid & ~in_cell & (t_rem > 0))
+    planes = (p0, p1, p2, p3, px, py, pz, q, u, v, t_rem, ns, c0, c1, c2, c3)
+    return planes, stalled, promoted
+
+
+def _check_args(state, cell, flags, phys, block_act, block_lanes):
+    n = state.shape[1]
+    if state.dim() != 2 or state.shape[0] != N_STATE or state.dtype != torch.float32:
+        raise ValueError(f"state must be ({N_STATE}, Npad) float32, got "
+                         f"{tuple(state.shape)} {state.dtype}")
+    if not state.is_contiguous():
+        raise ValueError("state must be contiguous")
+    if block_lanes % LANES or n % block_lanes:
+        raise ValueError(f"Npad={n} must be a multiple of block_lanes={block_lanes}, "
+                         f"itself a multiple of {LANES}")
+    for name, t, dt in (("cell", cell, torch.int32), ("flags", flags, torch.int32),
+                        ("block_act", block_act, torch.int32)):
+        if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D {dt} tensor")
+    if cell.shape[0] != n or flags.shape[0] != n:
+        raise ValueError("cell and flags must have one entry per lane")
+    if block_act.shape[0] != n // block_lanes:
+        raise ValueError("block_act must have one entry per block")
+    if (phys.dim() != 2 or phys.shape[0] != N_PHYS or phys.dtype != torch.float32
+            or not phys.is_contiguous()):
+        raise ValueError(f"phys must be a contiguous ({N_PHYS}, Ncell) float32 table")
+    devs = {t.device for t in (state, cell, flags, phys, block_act)}
+    if len(devs) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devs}")
+
+
+def fused_rounds_reference(state, cell, flags, phys, block_act, seed: int,
+                           grid: GridScalars, stokes_on: bool = True,
+                           inner_rounds: int = 4, block_lanes: int = 16384):
+    """Plain PyTorch twin of the fused-round kernel.
+
+    ``state`` (16, Npad) f32 is updated IN PLACE on the lanes of active
+    blocks; ``cell`` (Npad,) i32 is each lane's containing cell (clamped to
+    a valid index), ``flags`` (Npad,) i32 its FLAG_* bits, ``phys`` the
+    (4, Ncell) table, ``block_act`` (Npad / block_lanes,) i32 marks blocks
+    with at least one active lane.  Returns the (Npad,) int32 out-flags
+    (OUT_STALLED | OUT_PROMOTED; 0 on idle blocks).
+    """
+    _check_args(state, cell, flags, phys, block_act, block_lanes)
+    fused_rounds_reference.launches += 1
+    n = state.shape[1]
+    out = torch.zeros(n, dtype=torch.int32, device=state.device)
+    lane_on = torch.repeat_interleave(block_act != 0, block_lanes)
+    lanes = torch.nonzero(lane_on).flatten()
+    if lanes.numel() == 0:
+        return out
+    sub = state[:, lanes]
+    fl = flags[lanes]
+    cl = cell[lanes].long()
+    row = phys[:, cl]
+    ii = torch.div(cl, grid.n1, rounding_mode="floor")
+    jj = (cl - ii * grid.n1).to(torch.float32)
+    ii = ii.to(torch.float32)
+    cgeom = (grid.lo0 + (ii + 0.5) * grid.d0, grid.lo1 + (jj + 0.5) * grid.d1)
+    base = rng.lane_base(seed, lanes, block_lanes)
+    planes, stalled, promoted = _rounds(
+        tuple(sub[i] for i in range(N_STATE)),
+        (fl & FLAG_ALIVE) != 0, (fl & FLAG_POOL) != 0, (fl & FLAG_INGRID) != 0,
+        row[PHYS_V0], row[PHYS_V1], row[PHYS_NE], row[PHYS_TEMP], cgeom, grid,
+        base, stokes_on, inner_rounds,
+    )
+    state[:, lanes] = torch.stack(planes)
+    out[lanes] = stalled.to(torch.int32) * OUT_STALLED + promoted.to(torch.int32) * OUT_PROMOTED
+    return out
+
+
+fused_rounds_reference.launches = 0
+
+
+def fused_rounds(state, cell, flags, phys, block_act, seed: int,
+                 grid: GridScalars, stokes_on: bool = True,
+                 inner_rounds: int = 4, block_lanes: int = 16384):
+    """Run ``inner_rounds`` fused transport rounds over the lane planes.
+
+    Same contract as :func:`fused_rounds_reference` (``state`` updated in
+    place, out-flags returned).  CPU tensors run the plain twin; CUDA tensors
+    launch the hand-written kernel of ``csrc/fused_round.cu`` on the current
+    stream, building it on first use, and raise if the build or the launch
+    fails.
+    """
+    if state.device.type == "cpu":
+        return fused_rounds_reference(
+            state, cell, flags, phys, block_act, seed, grid, stokes_on,
+            inner_rounds, block_lanes)
+    if state.device.type != "cuda":
+        raise ValueError(f"fused_rounds runs on cpu or cuda tensors, not {state.device}")
+    _check_args(state, cell, flags, phys, block_act, block_lanes)
+    from .._build import load_fused_round
+
+    lib = load_fused_round()
+    n = state.shape[1]
+    out = torch.empty(n, dtype=torch.int32, device=state.device)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    f = ctypes.c_float
+    err = lib.mcrat_fused_rounds(
+        state.data_ptr(), ctypes.c_int64(n), cell.data_ptr(), flags.data_ptr(),
+        phys.data_ptr(), ctypes.c_int64(phys.shape[1]), block_act.data_ptr(),
+        out.data_ptr(), ctypes.c_int32(rng_seed_i32(seed)),
+        f(grid.dom0), f(grid.dom1), f(grid.dom2), f(grid.dom3),
+        f(grid.lo0), f(grid.d0), f(grid.lo1), f(grid.d1),
+        ctypes.c_int32(grid.n1), ctypes.c_int32(int(stokes_on)),
+        ctypes.c_int32(inner_rounds), ctypes.c_int32(EL_ITERS),
+        ctypes.c_int32(KN_ITERS), ctypes.c_int32(block_lanes),
+        f(KB_OVER_MEC2), f(THOM_X_SECT), f(C_LIGHT), f(_INV_C), stream,
+    )
+    if err != 0:
+        msg = lib.mcrat_error_string(err).decode()
+        raise RuntimeError(f"fused_round kernel launch failed: {msg}")
+    fused_rounds.launches += 1
+    return out
+
+
+fused_rounds.launches = 0
+
+
+def rng_seed_i32(seed: int) -> int:
+    """Wrap a seed to int32, as the JAX glue's int32 arithmetic does."""
+    s = int(seed) & rng.MASK32
+    return s - (1 << 32) if s >= (1 << 31) else s

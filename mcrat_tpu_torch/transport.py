@@ -1,0 +1,723 @@
+"""Batched photon transport (port of ``mcrat_tpu.transport``, flagship slice).
+
+Every photon advances through its own exponential free-path sequence within
+the frame's time window, concurrently with all others:
+
+    while any photon has frame-time left:
+        lookup cell -> tau-rate -> sample dt -> move -> attempt KN scatter
+
+The rounds run in the fused-round kernel (``ops.fused_round``): a hand-written
+CUDA kernel on the card, its plain PyTorch twin on CPU tensors.  Photon state
+is a fixed-capacity structure of arrays (:class:`Photons`) with masking in
+place of the reference's null-photon slot recycling (Src/photons.c).
+Four-momenta are dimensionless (units of m_e c); positions are in cm.
+
+Slice covered: 2-D cartesian/cylindrical frames on a uniform
+:class:`~mcrat_tpu_torch.grid.RectilinearIndex`, DIRECT (Thomson) optical
+depth, thermal electrons, float32, Stokes on or off.  Other configurations
+raise ``NotImplementedError`` naming the ROADMAP item that will port them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mcrat_tpu.config import (
+    Config, Dims, Geometry, NonthermalDist, PhotonType, Spectrum, TauCalculation,
+)
+from mcrat_tpu.constants import C_LIGHT, H_OVER_MEC2, K_B, ME_C2, PL_CONST
+
+from . import geometry as geo
+from .grid import HydroFrame, HydroFrameHost, RectilinearIndex, find_cell_direct
+from .ops import fused_round as fr
+from .ops.fourvec import lorentz_boost
+
+# Default mean free path for photons outside the grid [cm] (Src/mclib.c:620)
+DEFAULT_MFP = 1e12
+# n_gamma = xi T'^3 [cm^-3 K^-3] (reference: Src/mclib.c:20-28)
+NUM_DENS_COEFF_BB = 20.29
+NUM_DENS_COEFF_WIEN = 8.44
+# smallest working buffer compaction shrinks to (capacities stay powers of 2)
+MIN_COMPACT_CAPACITY = 1024
+
+# where each configuration outside the slice will be ported
+ROADMAP_ITEMS = dict(
+    xla="ROADMAP.md queue 1 item 5 (the XLA-path physics ops and "
+        "transport_rounds: float64 and non-CUDA runs)",
+    geometry="ROADMAP.md queue 1 item 7 (kernel geometry variants: 2-D spherical, "
+             "3-D, 2.5-D, non-uniform rectilinear grids)",
+    table="ROADMAP.md queue 1 item 8 (TABLE-mode hot cross sections)",
+    nonthermal="ROADMAP.md queue 1 item 9 (nonthermal electrons)",
+    cyclosynch="ROADMAP.md queue 1 item 11 (cyclo-synchrotron)",
+    amr="ROADMAP.md queue 1 item 12 (AMR cell-list path, BinnedIndex)",
+)
+
+
+@dataclasses.dataclass
+class Photons:
+    """Photon population: (N,) / (N, k) tensors on one device.
+
+    Mirrors struct photon (reference: Src/mcrat.h:142-171) as SoA.
+    ``weight`` is normalized by ``PhotonsMeta.weight_norm``.
+    """
+
+    p: torch.Tensor  # (N, 4) lab four-momentum, units m_e c
+    comv_p: torch.Tensor  # (N, 4) comoving four-momentum
+    pos: torch.Tensor  # (N, 3) MCRaT Cartesian position [cm]
+    s: torch.Tensor  # (N, 4) Stokes (I, Q, U, V), I == 1
+    weight: torch.Tensor  # (N,) normalized weight; 0 => null slot
+    num_scatt: torch.Tensor  # (N,)
+    cell: torch.Tensor  # (N,) int32 containing cell; -1 = outside/unknown
+    ptype: torch.Tensor  # (N,) int32 PhotonType
+
+    @property
+    def capacity(self) -> int:
+        return self.p.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.p.device
+
+    @property
+    def alive(self) -> torch.Tensor:
+        return (self.weight > 0) & (self.ptype != int(PhotonType.NULL))
+
+    def replace(self, **kw) -> "Photons":
+        return dataclasses.replace(self, **kw)
+
+    def fields(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+
+class PhotonsMeta(NamedTuple):
+    """Host-side bookkeeping for a photon population."""
+
+    weight_norm: float  # physical weight = weight * weight_norm
+    n_injected: int
+
+
+def empty_photons(capacity: int, dtype=torch.float32, device="cpu") -> Photons:
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return Photons(
+        p=z(capacity, 4), comv_p=z(capacity, 4), pos=z(capacity, 3), s=z(capacity, 4),
+        weight=z(capacity), num_scatt=z(capacity),
+        cell=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+        ptype=torch.full((capacity,), int(PhotonType.NULL), dtype=torch.int32, device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Injection (host side, numpy float64)
+# ---------------------------------------------------------------------------
+
+
+def _injection_shell_mask(host: HydroFrameHost, rmin, rmax, theta_min, theta_max):
+    """Cells whose corner-spherical extent intersects the injection shell
+    (photonInjection's cell selection, reference: Src/mclib.c:37-70)."""
+    cfg = host.cfg
+    if cfg.dims is Dims.THREE and host.jet_axis != "z":
+        # off-z jet axis (RIKEN 3-D): wedge from the theta' cache at cell
+        # centres (Src/mclib_riken.c:965-1014), corner-extended in r
+        r_lo = host.r - host.dr0 / 2
+        r_hi = host.r + host.dr0 / 2
+        return (
+            (rmin <= r_hi) & (r_lo <= rmax)
+            & (host.theta >= theta_min) & (host.theta < theta_max)
+        )
+    if cfg.dims is Dims.THREE:
+        a0, a1, a2 = np.abs(host.r0), np.abs(host.r1), np.abs(host.r2)
+        r_in, t_in = geo.hydro_to_spherical(
+            cfg, a0 - host.dr0 / 2, a1 - host.dr1 / 2, a2 - host.dr2 / 2)
+        r_out, t_out = geo.hydro_to_spherical(
+            cfg, a0 + host.dr0 / 2, a1 + host.dr1 / 2, a2 + host.dr2 / 2)
+    else:
+        r_in, t_in = geo.hydro_to_spherical(
+            cfg, host.r0 - host.dr0 / 2, host.r1 - host.dr1 / 2, 0.0)
+        r_out, t_out = geo.hydro_to_spherical(
+            cfg, host.r0 + host.dr0 / 2, host.r1 + host.dr1 / 2, 0.0)
+    r_in, t_in, r_out, t_out = map(np.asarray, (r_in, t_in, r_out, t_out))
+    return (rmin <= r_out) & (r_in <= rmax) & (t_out >= theta_min) & (t_in <= theta_max)
+
+
+def sample_bb_frequency(rng: np.random.Generator, temp: np.ndarray) -> np.ndarray:
+    """Blackbody frequencies by the Bjorkman & Wood (2001) zeta-series
+    inverse method (reference: Src/mclib.c:199-214)."""
+    n = len(temp)
+    u1 = rng.random(n)
+    kmax = 128
+    cum = np.cumsum(1.0 / np.arange(1, kmax + 1, dtype=np.float64) ** 4)
+    m = np.searchsorted(cum, (np.pi**4 / 90.0) * u1, side="left") + 1
+    u = np.maximum(rng.random((4, n)), np.finfo(np.float64).tiny)
+    x = -np.log(u[0] * u[1] * u[2] * u[3]) / m
+    return x * K_B * temp / PL_CONST
+
+
+def sample_wien_frequency(rng: np.random.Generator, temp: np.ndarray) -> np.ndarray:
+    """Wien-spectrum frequencies by rejection (reference: Src/mclib.c:177-190)."""
+    n = len(temp)
+    out = np.zeros(n)
+    todo = np.ones(n, dtype=bool)
+    while todo.any():
+        t = temp[todo]
+        fr_ = rng.random(len(t)) * 6.3e11 * t
+        y = rng.random(len(t))
+        f = (1.0 / 1.29e31) * (fr_ / t) ** 3 / np.expm1(PL_CONST * fr_ / (K_B * t))
+        acc = y <= f
+        idx = np.flatnonzero(todo)[acc]
+        out[idx] = fr_[acc]
+        todo[idx] = False
+    return out
+
+
+def inject_photons(
+    host: HydroFrameHost,
+    r_inj: float,
+    ph_weight: float,
+    min_photons: int,
+    max_photons: int,
+    spect: Spectrum,
+    theta_min: float,
+    theta_max: float,
+    fps: float,
+    rng: np.random.Generator,
+) -> Tuple[dict, float]:
+    """Inject thermal photons into the shell r_inj +/- c/(2 fps).
+
+    Host-side numpy photonInjection (reference: Src/mclib.c:9-300):
+    per-cell expected counts n_i = (4/3) dV Gamma xi T'^3 / w drawn Poisson,
+    the weight auto-tuned x10 / x0.5 until min <= N <= max; per photon a
+    comoving BB/Wien frequency, an isotropic comoving direction boosted to
+    the lab, a uniform position inside the cell and Stokes (1, 0, 0, 0).
+    With the same ``rng`` state it returns the same arrays as
+    ``mcrat_tpu.transport.inject_photons``.
+
+    Returns (dict of numpy photon arrays, adjusted_weight).
+    """
+    cfg = host.cfg
+    xi = NUM_DENS_COEFF_WIEN if spect is Spectrum.WIEN else NUM_DENS_COEFF_BB
+    rmin = r_inj - 0.5 * C_LIGHT / fps
+    rmax = r_inj + 0.5 * C_LIGHT / fps
+    sel = np.flatnonzero(_injection_shell_mask(host, rmin, rmax, theta_min, theta_max))
+    if len(sel) == 0:
+        raise ValueError(
+            f"no hydro cells intersect injection shell r={r_inj:.3e} +/- "
+            f"{0.5*C_LIGHT/fps:.3e}, theta in [{theta_min}, {theta_max}]")
+    dv = host.volumes()[sel]
+    mean_unw = (4.0 / 3.0) * dv * host.gamma[sel] * xi * host.temp[sel] ** 3
+
+    w = ph_weight
+    # coarse pre-scaling keeps the Poisson means finite (Src/mclib.c:121-131)
+    total = float(mean_unw.sum())
+    while total / w > 10.0 * max_photons:
+        w *= 10.0
+    while total / w < 0.1 * max(min_photons, 1):
+        w *= 0.5
+    for _ in range(200):
+        counts = rng.poisson(mean_unw / w)
+        ph_tot = int(counts.sum())
+        if ph_tot > max_photons:
+            w *= 10.0
+        elif ph_tot < min_photons:
+            w *= 0.5
+        else:
+            break
+    else:
+        raise RuntimeError("injection weight auto-tune did not converge")
+
+    cell_idx = np.repeat(sel, counts)
+    n = len(cell_idx)
+    temp = host.temp[cell_idx]
+    fr_ = sample_wien_frequency(rng, temp) if spect is Spectrum.WIEN else sample_bb_frequency(rng, temp)
+    e_hat = fr_ * H_OVER_MEC2
+
+    # isotropic comoving direction (reference: mclib.c:225-233)
+    com_phi = rng.random(n) * 2.0 * np.pi
+    com_cos_t = rng.random(n) * 2.0 - 1.0
+    com_sin_t = np.sqrt(np.maximum(1.0 - com_cos_t**2, 0.0))
+    p_comv = np.stack([
+        e_hat,
+        e_hat * com_sin_t * np.cos(com_phi),
+        e_hat * com_sin_t * np.sin(com_phi),
+        e_hat * com_cos_t,
+    ], axis=-1)
+
+    # fluid velocity in MCRaT Cartesian at the cell (az = position phi in 2-D)
+    if cfg.dims is Dims.THREE:
+        pos_phi = np.zeros(n)
+        x2 = host.r2[cell_idx]
+    else:
+        pos_phi = rng.random(n) * 2.0 * np.pi
+        x2 = pos_phi
+    v2 = host.v2[cell_idx] if cfg.dims is not Dims.TWO else np.zeros(n)
+    bx, by, bz = geo.hydro_vector_to_cartesian(
+        cfg, host.v0[cell_idx], host.v1[cell_idx], v2,
+        host.r0[cell_idx], host.r1[cell_idx], x2)
+    beta = -np.stack([np.asarray(bx), np.asarray(by), np.asarray(bz)], axis=-1)
+    # comoving -> lab boost (boost velocity = -v_fluid; mclib.c:245-250)
+    p_lab = np.asarray(lorentz_boost(beta, p_comv))
+
+    # uniform position inside the cell (reference: mclib.c:263-270)
+    u0 = (rng.random(n) - 0.5) * host.dr0[cell_idx]
+    u1 = (rng.random(n) - 0.5) * host.dr1[cell_idx]
+    if cfg.dims is Dims.THREE:
+        u2 = (rng.random(n) - 0.5) * host.dr2[cell_idx]
+        px, py, pz = geo.hydro_to_mcrat(
+            cfg, host.r0[cell_idx] + u0, host.r1[cell_idx] + u1, host.r2[cell_idx] + u2)
+    else:
+        px, py, pz = geo.hydro_to_mcrat(
+            cfg, host.r0[cell_idx] + u0, host.r1[cell_idx] + u1, pos_phi)
+    pos = np.stack([np.asarray(px), np.asarray(py), np.asarray(pz)], axis=-1)
+
+    s = np.zeros((n, 4))
+    s[:, 0] = 1.0
+    return dict(
+        p=p_lab, comv_p=p_comv, pos=pos, s=s, weight=np.full(n, w),
+        num_scatt=np.zeros(n), cell=cell_idx.astype(np.int32),
+        ptype=np.full(n, int(PhotonType.INJECTED), np.int32),
+    ), w
+
+
+def photons_from_arrays(arrays: dict, capacity: Optional[int] = None,
+                        dtype=torch.float32, device="cpu", weight_norm=None):
+    """Pack host photon arrays into a fixed-capacity Photons + meta."""
+    n = len(arrays["weight"])
+    cap = capacity or n
+    if cap < n:
+        raise ValueError(f"capacity {cap} < {n} photons")
+    if weight_norm is None:
+        weight_norm = float(np.median(arrays["weight"])) or 1.0
+
+    def fill(val, tail_shape, fillval, tdtype):
+        val = np.asarray(val)
+        out = np.full((cap,) + tail_shape, fillval, dtype=val.dtype)
+        out[:n] = val
+        return torch.as_tensor(out, dtype=tdtype, device=device)
+
+    ph = Photons(
+        p=fill(arrays["p"], (4,), 0, dtype),
+        comv_p=fill(arrays["comv_p"], (4,), 0, dtype),
+        pos=fill(arrays["pos"], (3,), 0, dtype),
+        s=fill(arrays["s"], (4,), 0, dtype),
+        weight=fill(np.asarray(arrays["weight"]) / weight_norm, (), 0, dtype),
+        num_scatt=fill(arrays["num_scatt"], (), 0, dtype),
+        cell=fill(arrays["cell"], (), -1, torch.int32),
+        ptype=fill(arrays["ptype"], (), int(PhotonType.NULL), torch.int32),
+    )
+    return ph, PhotonsMeta(weight_norm=weight_norm, n_injected=n)
+
+
+def frame_time(photons: Photons, dt_max) -> torch.Tensor:
+    """Initial per-photon frame time window."""
+    dt = torch.as_tensor(dt_max, dtype=photons.p.dtype, device=photons.device)
+    return torch.where(photons.alive, dt, torch.zeros((), dtype=dt.dtype, device=dt.device))
+
+
+# ---------------------------------------------------------------------------
+# Transport
+# ---------------------------------------------------------------------------
+
+
+class FrameResult(NamedTuple):
+    photons: Photons
+    n_scatt: int  # scattering events this frame (weightless count)
+    n_rounds: int  # transport rounds taken
+    t_rem: torch.Tensor  # (N,) frame time left per photon
+
+
+class ChunkResult(NamedTuple):
+    photons: Photons
+    t_rem: torch.Tensor  # (N,) frame time left per photon
+    n_scatt: torch.Tensor  # int64 scalar
+    n_rounds: int
+    all_done: torch.Tensor  # bool scalar: no active photons remain
+    n_active: torch.Tensor  # int64 scalar: alive photons with time left
+
+
+def _count_cs(photons: Photons) -> torch.Tensor:
+    """Live scattered-CS photon count (the rebin trigger population)."""
+    is_cs = (photons.ptype == int(PhotonType.COMPTONIZED)) | (
+        photons.ptype == int(PhotonType.UNABSORBED_CS))
+    return (photons.alive & is_cs).sum()
+
+
+def unsupported_reason(cfg: Config, frame: HydroFrame, index) -> Optional[str]:
+    """Why the slice cannot run this configuration (the ROADMAP item that
+    will port it), or None when it can."""
+    if cfg.tau_calculation is TauCalculation.TABLE:
+        return "TABLE optical depth: " + ROADMAP_ITEMS["table"]
+    if cfg.nonthermal_e_dist is not NonthermalDist.OFF:
+        return "nonthermal electrons: " + ROADMAP_ITEMS["nonthermal"]
+    if cfg.cyclosynchrotron:
+        return "cyclo-synchrotron: " + ROADMAP_ITEMS["cyclosynch"]
+    if not isinstance(index, RectilinearIndex):
+        return f"{type(index).__name__}: " + ROADMAP_ITEMS["amr"]
+    if (cfg.dims is not Dims.TWO
+            or cfg.geometry not in (Geometry.CARTESIAN, Geometry.CYLINDRICAL)
+            or frame.phys is None or index.three_d
+            or not (index.uniform[0] and index.uniform[1])):
+        return (f"{cfg.dims.name} {cfg.geometry.name} frame on a "
+                f"{'uniform' if all(index.uniform[:2]) else 'non-uniform'} grid: "
+                + ROADMAP_ITEMS["geometry"])
+    return None
+
+
+def fused_transport_available(cfg: Config, photons: Photons, frame: HydroFrame,
+                              index) -> bool:
+    """True when the CUDA fused-round kernel covers this run: CUDA float32
+    photons, DIRECT optical depth, thermal electrons, a 2-D cartesian or
+    cylindrical frame with the slim tables, a uniform RectilinearIndex.
+    There is no capacity floor: every chunk, compacted tail included, goes
+    through the kernel."""
+    return (
+        photons.device.type == "cuda"
+        and photons.p.dtype == torch.float32
+        and unsupported_reason(cfg, frame, index) is None
+    )
+
+
+def grid_scalars(frame: HydroFrame, index: RectilinearIndex) -> fr.GridScalars:
+    """The kernel's uniform-grid scalars as exact float32 values (one host
+    fetch)."""
+    dom = frame.domain.to(torch.float32)
+    vals = torch.stack([
+        dom[0, 0], dom[0, 1], dom[1, 0], dom[1, 1],
+        index.lo[0].float(), (index.edges0[1] - index.edges0[0]).float(),
+        index.lo[1].float(), (index.edges1[1] - index.edges1[0]).float(),
+    ]).tolist()
+    return fr.GridScalars(*vals, n1=index.shape[1])
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One int32 seed from a (CPU) generator: the port's stand-in for
+    ``jax.random.split`` / ``randint`` on a key."""
+    return int(torch.randint(-(2**31), 2**31 - 1, (1,), generator=generator,
+                             dtype=torch.int64).item())
+
+
+def lane_planes(photons: Photons, t_rem: torch.Tensor, s_rows: int = 128):
+    """Photons -> the kernel's lane layout: (16, Npad) float32 state planes
+    (``fused_round.SP_*``), Npad a multiple of ``s_rows * 128`` in the JAX
+    (R, 128) C order, plus (Npad,) ``alive`` and ``pool`` masks.  Pad lanes
+    are dead zeros."""
+    dev = photons.device
+    cap = photons.capacity
+    r_raw = -(-cap // fr.LANES)
+    n_pad = -(-r_raw // s_rows) * s_rows * fr.LANES
+    state = torch.zeros((fr.N_STATE, n_pad), dtype=torch.float32, device=dev)
+    state[fr.SP_P0: fr.SP_P3 + 1, :cap] = photons.p.T
+    state[fr.SP_X: fr.SP_Z + 1, :cap] = photons.pos.T
+    state[fr.SP_Q: fr.SP_V + 1, :cap] = photons.s[:, 1:].T
+    state[fr.SP_TREM, :cap] = t_rem
+    state[fr.SP_NS, :cap] = photons.num_scatt
+    state[fr.SP_C0: fr.SP_C3 + 1, :cap] = photons.comv_p.T
+    alive = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    alive[:cap] = photons.alive
+    pool = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    pool[:cap] = photons.ptype == int(PhotonType.CS_POOL)
+    return state, alive, pool
+
+
+def lane_flags(alive, pool, in_grid) -> torch.Tensor:
+    """The kernel's per-lane FLAG_* bits."""
+    return (alive.to(torch.int32) * fr.FLAG_ALIVE + pool.to(torch.int32) * fr.FLAG_POOL
+            + in_grid.to(torch.int32) * fr.FLAG_INGRID)
+
+
+def transport_rounds_fused(
+    cfg: Config,
+    photons: Photons,
+    frame: HydroFrame,
+    index: RectilinearIndex,
+    t_rem: torch.Tensor,
+    base_seed: int,
+    stokes_on: bool = True,
+    max_rounds: int = 0,
+    inner_rounds: int = 4,
+    s_rows: int = 128,
+    rounds_fn=fr.fused_rounds,
+) -> ChunkResult:
+    """Advance the population by up to ``max_rounds`` rounds through the
+    fused-round kernel (direct branch of ``mcrat_tpu.transport.
+    transport_rounds_fused``).
+
+    Between kernel calls the containing cells are re-resolved
+    (``find_cell_direct``) for all lanes; the kernel stalls a lane that
+    leaves its cell.  A scatter uses the pre-move cell's properties, photons
+    outside the grid advance on the default mean free path, pool photons
+    scatter in place and are promoted to COMPTONIZED.
+
+    The lanes live in (16, Npad) float32 planes (``fused_round.SP_*``), Npad
+    a multiple of ``s_rows * 128``, in the JAX (R, 128) C order; the kernel
+    updates them in place.  ``photons`` is not modified.  The per-invocation
+    seed is ``base_seed + rounds * 7919`` (int32 wrap).  ``rounds_fn`` is the
+    round implementation: the kernel wrapper, or ``fused_rounds_reference``
+    to run the plain twin on any device for comparisons.
+    """
+    reason = unsupported_reason(cfg, frame, index)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    if photons.p.dtype != torch.float32:
+        raise NotImplementedError("float64 transport: " + ROADMAP_ITEMS["xla"])
+    dev = photons.device
+    cap = photons.capacity
+    round_cap = max_rounds if max_rounds > 0 else cfg.max_rounds_per_frame
+    lanes = fr.LANES
+    block_lanes = s_rows * lanes
+    state, alive, pool = lane_planes(photons, t_rem, s_rows)
+    n_pad = state.shape[1]
+    r_pad = n_pad // lanes
+    n_blocks = r_pad // s_rows
+    promoted_any = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    row_iota = torch.arange(r_pad, device=dev)
+    orig = row_iota.clone()  # row -> original row, across partitions
+    ns0 = state[fr.SP_NS].to(torch.int64).sum()
+    grid = grid_scalars(frame, index)
+    n_cell = frame.num_elements
+
+    def rows(x):
+        return x.view(-1, r_pad, lanes)
+
+    rounds, n_last = 0, r_pad
+    while rounds < round_cap:
+        act_row = (alive & (state[fr.SP_TREM] > 0)).view(r_pad, lanes).any(dim=1)
+        # the loop test is one host sync per kernel call (eager PyTorch has
+        # no device-side while loop); it also feeds the repartition rule
+        n_act = int(act_row.sum())
+        if n_act == 0:
+            break
+        if n_act * 8 < n_last * 7:
+            # stable active-first permutation of 128-lane rows, redone only
+            # when the active-row count dropped by >= 1/8: idle blocks are
+            # skipped in place through block_act in between
+            perm = torch.argsort((~act_row).to(torch.int8), stable=True)
+            state = rows(state)[:, perm].reshape(fr.N_STATE, n_pad)
+            alive, pool, promoted_any = (
+                rows(x)[0, perm].reshape(-1) for x in (alive, pool, promoted_any))
+            orig = orig[perm]
+            act_row = row_iota < n_act
+            n_last = n_act
+        block_act = act_row.view(n_blocks, s_rows).any(dim=1).to(torch.int32)
+        cell, in_grid = find_cell_direct(cfg, index, frame, state[fr.SP_X: fr.SP_Z + 1].T)
+        safe = torch.clamp(cell, 0, n_cell - 1).to(torch.int32)
+        out = rounds_fn(
+            state, safe, lane_flags(alive, pool, in_grid), frame.phys, block_act,
+            fr.rng_seed_i32(base_seed + rounds * 7919), grid,
+            stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=block_lanes,
+        )
+        promoted = (out & fr.OUT_PROMOTED) != 0
+        pool = pool & ~promoted
+        promoted_any = promoted_any | promoted
+        rounds += inner_rounds
+
+    # undo the active-first partitions
+    inv = torch.empty_like(orig)
+    inv[orig] = row_iota
+    state = rows(state)[:, inv].reshape(fr.N_STATE, n_pad)
+    promoted_any = rows(promoted_any)[0, inv].reshape(-1)
+    # final cell sync for the photons that moved in the last kernel call
+    cell, _ = find_cell_direct(cfg, index, frame, state[fr.SP_X: fr.SP_Z + 1].T)
+
+    def unplane(lo, hi):
+        return state[lo:hi, :cap].T.contiguous()
+
+    ptype = torch.where(
+        promoted_any[:cap] & (photons.ptype == int(PhotonType.CS_POOL)),
+        int(PhotonType.COMPTONIZED), photons.ptype).to(torch.int32)
+    stokes = torch.cat([torch.ones((cap, 1), dtype=torch.float32, device=dev),
+                        unplane(fr.SP_Q, fr.SP_V + 1)], dim=1)
+    ph = photons.replace(
+        p=unplane(fr.SP_P0, fr.SP_P3 + 1), pos=unplane(fr.SP_X, fr.SP_Z + 1), s=stokes,
+        num_scatt=state[fr.SP_NS, :cap].clone(),
+        comv_p=unplane(fr.SP_C0, fr.SP_C3 + 1), cell=cell[:cap].contiguous(), ptype=ptype,
+    )
+    t_out = state[fr.SP_TREM, :cap].clone()
+    n_scatt = state[fr.SP_NS].to(torch.int64).sum() - ns0
+    active = ph.alive & (t_out > 0)
+    return ChunkResult(
+        photons=ph, t_rem=t_out, n_scatt=n_scatt, n_rounds=rounds,
+        all_done=~active.any(), n_active=active.sum(),
+    )
+
+
+def _gather_photons(photons: Photons, idx: torch.Tensor) -> Photons:
+    return Photons(**{k: v[idx] for k, v in photons.fields().items()})
+
+
+def _scatter_photons(dst: Photons, slots: torch.Tensor, src: Photons) -> Photons:
+    """Write ``src`` lanes into ``dst`` at ``slots``, IN PLACE (no second
+    population buffer).  Pad lanes carry ``slots == dst.capacity`` and are
+    dropped."""
+    keep = slots < dst.capacity
+    at = slots[keep].long()
+    for k, v in dst.fields().items():
+        v[at] = getattr(src, k)[keep]
+    return dst
+
+
+def _compact_step(result_ph: Photons, slots: torch.Tensor, work_ph: Photons,
+                  t_rem: torch.Tensor, new_cap: int):
+    """One compaction: write the working set back into ``result_ph`` (in
+    place) and gather its active lanes into a ``new_cap`` buffer.
+
+    Returns ``(result_ph, sub_ph, sub_t, sub_slots)``; ``sub_slots`` maps
+    working lanes to original slots, with pads set to ``result_ph.capacity``
+    so the final write-back drops them.  Pad lanes are dead (weight 0,
+    ptype NULL) so they cannot transport twice.
+    """
+    _scatter_photons(result_ph, slots, work_ph)
+    idx = torch.nonzero(work_ph.alive & (t_rem > 0)).flatten()[:new_cap]
+    n = idx.numel()
+    pad = torch.zeros(new_cap - n, dtype=idx.dtype, device=idx.device)
+    safe = torch.cat([idx, pad])
+    valid = torch.arange(new_cap, device=idx.device) < n
+    sub = _gather_photons(work_ph, safe)
+    sub.weight = torch.where(valid, sub.weight, 0.0)
+    sub.ptype = torch.where(valid, sub.ptype, int(PhotonType.NULL)).to(torch.int32)
+    sub_t = torch.where(valid, t_rem[safe], 0.0)
+    sub_slots = torch.where(valid, slots[safe], result_ph.capacity).to(slots.dtype)
+    return result_ph, sub, sub_t, sub_slots
+
+
+def transport_frame(
+    cfg: Config,
+    photons: Photons,
+    frame: HydroFrame,
+    index,
+    dt_max,
+    generator: torch.Generator,
+    stokes_on: bool = True,
+    chunk_rounds: int = 0,
+    fused: Optional[bool] = None,
+    s_rows: int = 128,
+    rounds_fn=fr.fused_rounds,
+) -> FrameResult:
+    """Advance the whole population through one hydro-frame time window.
+
+    Runs :func:`transport_rounds_fused` in bounded-round chunks when
+    ``chunk_rounds`` > 0, with one batched host fetch per chunk.  Once fewer
+    than a quarter of the lanes are still active, the active photons move
+    into a power-of-two buffer (>= MIN_COMPACT_CAPACITY) and transport
+    continues there; results are written back into the population buffers
+    IN PLACE (the caller's ``photons`` tensors are never written: the first
+    chunk's output is the population buffer).
+
+    ``fused=None`` takes the kernel when :func:`fused_transport_available`
+    says it covers the run; ``fused=True`` also runs the glue on CPU tensors
+    (through the plain twin).  Every other case raises NotImplementedError:
+    there is no silent fallback.  ``generator`` draws each chunk's base seed;
+    ``rounds_fn`` is passed to :func:`transport_rounds_fused`.
+    """
+    reason = unsupported_reason(cfg, frame, index)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    if fused is None:
+        fused = fused_transport_available(cfg, photons, frame, index)
+    if not fused:
+        raise NotImplementedError(
+            f"non-fused transport ({photons.device.type}, {photons.p.dtype}): "
+            + ROADMAP_ITEMS["xla"])
+    t_rem = frame_time(photons, dt_max)
+    n_scatt_total = 0
+    rounds_total = 0
+    work_ph, work_t = photons, t_rem
+    slots = None  # None => the working set is the full population
+    result_ph = photons
+
+    while True:
+        res = transport_rounds_fused(
+            cfg, work_ph, frame, index, work_t, base_seed=draw_seed(generator),
+            stokes_on=stokes_on, max_rounds=chunk_rounds, s_rows=s_rows,
+            rounds_fn=rounds_fn,
+        )
+        work_ph, work_t = res.photons, res.t_rem
+        # ONE batched host fetch per chunk
+        n_scatt, all_done, n_active = torch.stack([
+            res.n_scatt, res.all_done.to(torch.int64), res.n_active.to(torch.int64),
+        ]).tolist()
+        n_scatt_total += n_scatt
+        rounds_total += res.n_rounds
+        if all_done or chunk_rounds == 0 or rounds_total >= cfg.max_rounds_per_frame:
+            break
+        if work_ph.capacity > MIN_COMPACT_CAPACITY and n_active < work_ph.capacity // 4:
+            if slots is None:
+                result_ph = work_ph
+                slots = torch.arange(work_ph.capacity, dtype=torch.int64, device=work_ph.device)
+            new_cap = max(MIN_COMPACT_CAPACITY, 1 << int(np.ceil(np.log2(max(n_active, 1)))))
+            result_ph, work_ph, work_t, slots = _compact_step(
+                result_ph, slots, work_ph, work_t, new_cap)
+
+    if slots is None:
+        result_ph, result_t = work_ph, work_t
+    else:
+        result_ph = _scatter_photons(result_ph, slots, work_ph)
+        result_t = torch.zeros(result_ph.capacity, dtype=work_t.dtype, device=work_t.device)
+        keep = slots < result_ph.capacity
+        result_t[slots[keep]] = work_t[keep]
+    return FrameResult(photons=result_ph, n_scatt=n_scatt_total,
+                       n_rounds=rounds_total, t_rem=result_t)
+
+
+# ---------------------------------------------------------------------------
+# Statistics (reference: Src/mclib.c:1358-1515)
+# ---------------------------------------------------------------------------
+
+
+def average_photon_energy(photons: Photons) -> torch.Tensor:
+    """Weighted mean lab energy [erg] (averagePhotonEnergy, mclib.c:1358)."""
+    w = torch.where(photons.alive, photons.weight, 0.0)
+    e = (photons.p[:, 0] * w).sum() / torch.clamp(w.sum(), min=torch.finfo(w.dtype).tiny)
+    return e * ME_C2
+
+
+def scatt_stats(photons: Photons):
+    """(max, min, mean) scatterings and mean radius over live photons
+    (phScattStats, Src/mclib.c:1385-1462)."""
+    alive = photons.alive
+    ns = photons.num_scatt
+    inf = torch.tensor(float("inf"), dtype=ns.dtype, device=ns.device)
+    mx = torch.where(alive, ns, -inf).max()
+    mn = torch.where(alive, ns, inf).min()
+    cnt = torch.clamp(alive.sum(), min=1)
+    mean = torch.where(alive, ns, 0.0).sum() / cnt
+    r = torch.sqrt((photons.pos ** 2).sum(dim=-1))
+    r_mean = torch.where(alive, r, 0.0).sum() / cnt
+    return mx, mn, mean, r_mean
+
+
+def ph_min_max(photons: Photons):
+    """(r_min, r_max, theta_min, theta_max) over live photons (phMinMax,
+    Src/mclib.c:1465-1515)."""
+    alive = photons.alive
+    r = torch.sqrt((photons.pos ** 2).sum(dim=-1))
+    theta = torch.arccos(torch.clamp(
+        photons.pos[:, 2] / torch.clamp(r, min=torch.finfo(r.dtype).tiny), -1.0, 1.0))
+    inf = torch.tensor(float("inf"), dtype=r.dtype, device=r.device)
+    return (
+        torch.where(alive, r, inf).min(), torch.where(alive, r, -inf).max(),
+        torch.where(alive, theta, inf).min(), torch.where(alive, theta, -inf).max(),
+    )
+
+
+def frame_stats(photons: Photons) -> torch.Tensor:
+    """All per-frame statistics as ONE (11,) tensor, for one host
+    fetch per frame:
+
+        [0:4] scatt_stats  (max, min, mean num_scatt, mean r)
+        [4:8] ph_min_max   (r_min, r_max, theta_min, theta_max)
+        [8]   live CS_POOL photon count
+        [9]   live photon count
+        [10]  live scattered-CS count
+    """
+    alive = photons.alive
+    dtype = photons.p.dtype
+    n_pool = (alive & (photons.ptype == int(PhotonType.CS_POOL))).sum()
+    return torch.stack([
+        *(x.to(dtype) for x in scatt_stats(photons)),
+        *ph_min_max(photons),
+        n_pool.to(dtype), alive.sum().to(dtype), _count_cs(photons).to(dtype),
+    ])
