@@ -1,10 +1,11 @@
 """mcrat_tpu_torch: the PyTorch/CUDA port of mcrat_tpu.
 
-A second package beside the JAX reference ``mcrat_tpu``.  It runs the
-flagship path -- ``transport.inject_photons`` -> ``photons_from_arrays`` ->
-``transport_frame`` on a 2-D cartesian/cylindrical frame with a uniform
-rectilinear grid, DIRECT (Thomson) optical depth, thermal electrons, float32
--- in PyTorch, with the fused transport round as a hand-written CUDA kernel
+A second package beside the JAX reference ``mcrat_tpu``.  It runs
+``transport.inject_photons`` -> ``photons_from_arrays`` -> ``transport_frame``
+on any (dims x geometry) frame with a rectilinear grid -- 2-D and 2.5-D
+cartesian/cylindrical/spherical, 3-D cartesian/spherical/polar, uniform or
+not -- with DIRECT (Thomson) optical depth, thermal electrons, float32, in
+PyTorch, with the fused transport round as a hand-written CUDA kernel
 (``ops/fused_round.py``, ``csrc/fused_round.cu``) on an NVIDIA H100.
 
 Module names mirror ``mcrat_tpu`` so each counterpart is easy to find.  The

@@ -75,10 +75,12 @@ def load_fused_round() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(FUSED_ROUND_SRC)["path"]))
         p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
         lib.mcrat_fused_rounds.argtypes = [
-            p, i64, p, p, p, i64, p, p, i32,  # state, n, cell, flags, phys, ncell, block_act, out, seed
-            f32, f32, f32, f32, f32, f32, f32, f32, i32,  # domain, lo0, d0, lo1, d1, n1
+            i32,  # variant code
+            p, i64, p, p, p, i64, p, p, i32,  # state, n, cell, flags, table, ncell, block_act, out, seed
+            *[f32] * 6,  # domain
+            *[f32] * 6, i32, i32,  # lo0, d0, lo1, d1, lo2, d2, n1, n2
             i32, i32, i32, i32, i32,  # stokes_on, inner_rounds, el_iters, kn_iters, block_lanes
-            f32, f32, f32, f32,  # kb_over_mec2, thom, c_light, inv_c
+            f32, f32, f32, f32, f32,  # kb_over_mec2, thom, c_light, inv_c, inv_mp
             p,  # stream
         ]
         lib.mcrat_fused_rounds.restype = ctypes.c_int

@@ -1,8 +1,9 @@
 // Fused Monte Carlo transport rounds on NVIDIA Hopper (sm_90a).
 //
-// Replaces mcrat_tpu/ops/pallas_round.py::fused_rounds, "ultra" 2-D
-// cartesian/cylindrical variant (DIRECT Thomson optical depth, thermal
-// electrons, Stokes on or off).  Its plain PyTorch twin is
+// Replaces mcrat_tpu/ops/pallas_round.py::fused_rounds (the pallas_call at
+// :1185, kernel body _make_kernel :574-1111) with DIRECT Thomson optical
+// depth and thermal electrons, Stokes on or off, for every (dims x geometry)
+// frame on a rectilinear grid.  Its plain PyTorch twin is
 // mcrat_tpu_torch/ops/fused_round.py::fused_rounds_reference; the two are
 // held against each other lane for lane, so every formula below keeps the
 // twin's operation order (and the build turns off FMA contraction).
@@ -12,17 +13,45 @@
 //   -> polarized Klein-Nishina scatter attempt -> Stokes -> cell membership.
 // A lane that leaves its cell stalls until the caller re-resolves its cell.
 //
-// What bounds it on this card: arithmetic, not memory.  A lane reads 128 B
-// of state (16 f32 planes) + 24 B of flags/cell/physics and writes 128 B per
-// call, against ~115 uniforms (murmur3 finalizer each) and ~40
-// transcendentals (log, sin/cos, sqrt, rsqrt, divisions) per round -- the
-// kernel is ALU/SFU and register bound.  The design follows from that:
+// Variants (template parameters; one C entry point dispatches on an int code,
+// the same codes as fused_round.VARIANTS), with one 4-round call's time on an
+// H100 80GB HBM3 (700 W), kernel vs plain twin, at the lanes of the frame that
+// selects it (PERF.md section 6):
+//   code  name          cell table (rows)        replaces (pallas_round.py)  kernel vs twin
+//   0     ultra_cyl2    physics (4), centre i,j  :606-617,846-850,744-757    0.504 vs 238.8 ms, 1.03M lanes
+//   1     ultra_sph2    physics (4), centre i,j  :606-617,836-844,758-779    0.100 vs 189.3 ms, 246k lanes
+//                       + sin/cos theta centre
+//   2     ultra_cart3   physics (5), i,j,k       :618-620,851-861,682-697    0.390 vs 273.2 ms, 786k lanes
+//   3     slim_cyl2     PCOL_SLIM (8)            :621-627,744-757            0.148 vs 224.6 ms, 262k lanes
+//   4     packed_cyl2   PCOL (16)                :629-647,744-757,875-878    0.177 vs 229.2 ms, 262k lanes
+//   5     packed_cyl25  PCOL (16), phi-hat v2    :636-647,744-757,875-878    0.112 vs 189.2 ms, 164k lanes
+//   6     packed_sph2   PCOL (16)                :648-655,758-779,875-878    0.244 vs 185.9 ms, 967k lanes
+//   7     packed_sph25  PCOL (16), phi-hat v2    :636-655,758-779,875-878    0.143 vs 228.2 ms, 197k lanes
+//   8     packed_cart3  PCOL (16)                :634-635,682-697,875-878    0.156 vs 261.0 ms, 180k lanes
+//   9     packed_sph3   PCOL (24)                :634-635,698-723,875-878    0.215 vs 193.8 ms, 410k lanes
+//   10    packed_pol3   PCOL (16)                :634-635,724-742,875-878    0.185 vs 216.5 ms, 246k lanes
+// Each exists with Stokes on and off.  The variants differ only in where the
+// cell's values come from (the Cell struct below) and in the geometry of the
+// fluid velocity and of the membership test; the round body is shared.
+//
+// What bounds it on this card: arithmetic, not memory, in every variant.  A
+// lane reads 128 B of state (16 f32 planes) + 8 B of flags/cell and 16-96 B
+// of its cell's row, and writes 128 B per call, against ~115 uniforms
+// (murmur3 finalizer each) and ~40 transcendentals (log, sin/cos, sqrt,
+// rsqrt, divisions) per round -- the kernel is ALU/SFU and register bound.
+// The design follows from that:
 //   * no shared memory, TMA or wgmma: state is streamed once, coalesced
 //     (planes are structure-of-arrays, neighbouring lanes at neighbouring
 //     addresses), and kept in registers across all rounds;
-//   * the lane gathers its own 4 physics values from the (4, Ncell) table by
-//     its int32 cell index, and computes the cell centre in f32 -- no host
-//     side row gather, no index bit packing;
+//   * the lane reads its own cell's rows from the (W, Ncell) table by its
+//     int32 cell index, once per call (no host-side row gather, no index bit
+//     packing).  The reads are not coalesced (neighbouring lanes hold
+//     neighbouring photons, not cells), but they are a few words per lane
+//     per call and the largest table, 262,144 cells x 16 rows x 4 B = 17 MB
+//     on the 3-D grid, stays in the 50 MB L2;
+//   * per-lane cell quantities (velocity, |beta|, n_e, cell box, the
+//     cosines of half widths and of the domain bounds) are computed once per
+//     call, not per round;
 //   * only the electron-sampler branch a lane needs (Maxwell-Boltzmann below
 //     1e7 K, Maxwell-Juttner above, decided per lane) and only lanes that will
 //     attempt a scatter run the sampler; rejection loops exit at acceptance.
@@ -30,6 +59,8 @@
 //     work never shifts a random number;
 //   * lanes of idle logical blocks (block_act == 0) and finished lanes return
 //     at once; the state is updated in place, so their state is untouched.
+// Transcendentals of cell geometry (sinf/cosf) are the functions PyTorch's
+// CUDA torch.sin/torch.cos call, so kernel and twin agree to the bit.
 // Register pressure and occupancy are not tuned yet (later work).
 
 #include <cuda_runtime.h>
@@ -48,14 +79,26 @@ constexpr int SP_C0 = 12, SP_C1 = 13, SP_C2 = 14, SP_C3 = 15;
 constexpr int FLAG_ALIVE = 1, FLAG_POOL = 2, FLAG_INGRID = 4;
 constexpr int OUT_STALLED = 1, OUT_PROMOTED = 2;
 
+// cell-table rows: packed (grid.PCOL) and slim (grid.PCOL_SLIM)
+constexpr int P_R0 = 0, P_R1 = 1, P_R2 = 2, P_DR0 = 3, P_DR1 = 4, P_DR2 = 5;
+constexpr int P_V0 = 6, P_V1 = 7, P_V2 = 8, P_GAMMA = 9, P_DENS = 10, P_TEMP = 11;
+constexpr int P_SIN1 = 13, P_COS1 = 14, P_SIN2 = 16, P_COS2 = 17;
+constexpr int S_R0 = 0, S_R1 = 1, S_DR0 = 2, S_DR1 = 3, S_V0 = 4, S_V1 = 5, S_NE = 6,
+              S_TEMP = 7;
+
+// membership geometry and cell-table source of a variant
+enum Geo { CYL2 = 0, SPH2 = 1, CART3 = 2, SPH3 = 3, POL3 = 4 };
+enum Src { ULTRA = 0, SLIM = 1, PACKED = 2 };
+
 struct Grid {
-  float dom0, dom1, dom2, dom3;  // strict domain: r0 in (dom0, dom1), r1 in (dom2, dom3)
-  float lo0, d0, lo1, d1;        // uniform cell geometry
-  int n1;                        // cells along axis 1
+  // strict domain: r0 in (dom0, dom1), r1 in (dom2, dom3), r2 in (dom4, dom5)
+  float dom0, dom1, dom2, dom3, dom4, dom5;
+  float lo0, d0, lo1, d1, lo2, d2;  // uniform cell geometry (ultra)
+  int n1, n2;                       // cells along axes 1 and 2
 };
 
 struct Consts {
-  float kb_over_mec2, thom, c_light, inv_c;  // from mcrat_tpu.constants
+  float kb_over_mec2, thom, c_light, inv_c, inv_mp;  // from mcrat_tpu.constants
 };
 
 // ---------------------------------------------------------------------------
@@ -312,12 +355,199 @@ __device__ __forceinline__ void sample_kn_angles(uint32_t base, uint32_t k0,
   s_phi = y_acc * inv_r;
 }
 
+__device__ __forceinline__ void phi_components(float px, float py, float& c, float& s) {
+  const float rho = sqrtf(px * px + py * py);
+  const bool has = rho > 0.0f;
+  const float safe = has ? rho : 1.0f;
+  c = has ? px / safe : 1.0f;
+  s = has ? py / safe : 0.0f;
+}
+
+__device__ __forceinline__ bool in_axis(float h, float c, float d) {
+  return 2.0f * fabsf(h - c) - d <= 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// per-lane cell quantities of a variant (pallas_round._kernel_body before
+// round_body), its fluid velocity (fluid_beta) and membership test
+// (in_cell_and_domain); fixed for the call
+
+template <int GEO, int SRC, bool V2>
+struct Cell {
+  float v0, v1, v2;            // hydro basis in 2-D, MCRaT Cartesian in 3-D
+  float beta_mag, n_e, temp;
+  float ctr0, ctr1, ctr2, size0, size1, size2;  // cell box in hydro coordinates
+  float s1, c1, cos_half1;     // sin/cos of the theta (polar: phi) centre, cos of half width
+  float cos_dom2, cos_dom3;    // spherical theta domain
+  float s2, c2, cos_half2;     // 3-D spherical phi centre and half width
+  float cos_mid, sin_mid, cos_half_dom;  // azimuth domain, about its midpoint
+
+  __device__ __forceinline__ void load(const float* __restrict__ t, int64_t ncell, int cl,
+                                       const Grid& g, const Consts& cst) {
+    const float* row = t + cl;
+#define AT(r) row[(int64_t)(r) * ncell]
+    if (SRC == PACKED) {
+      const float gam = AT(P_GAMMA);
+      beta_mag = sqrtf(fmaxf(1.0f - 1.0f / (gam * gam), 0.0f));
+      n_e = AT(P_DENS) * cst.inv_mp;
+      temp = AT(P_TEMP);
+      v0 = AT(P_V0);
+      v1 = AT(P_V1);
+      v2 = (V2 || GEO == CART3 || GEO == SPH3 || GEO == POL3) ? AT(P_V2) : 0.0f;
+    } else {
+      // slim rows 4:8, ultra 2-D [v0, v1, ne_lab, temp], ultra 3-D [v0, v1, v2, ne_lab, temp]
+      const int rv = SRC == SLIM ? S_V0 : 0;
+      const int rne = SRC == SLIM ? S_NE : (GEO == CART3 ? 3 : 2);
+      v0 = AT(rv);
+      v1 = AT(rv + 1);
+      float beta2 = v0 * v0 + v1 * v1;
+      v2 = 0.0f;
+      if (GEO == CART3) {
+        v2 = AT(2);
+        beta2 = beta2 + v2 * v2;
+      }
+      beta_mag = sqrtf(beta2);
+      n_e = AT(rne);
+      temp = AT(rne + 1);
+    }
+    if (SRC == ULTRA) {
+      if (GEO == CART3) {
+        const int n12 = g.n1 * g.n2;
+        const int i = cl / n12;
+        const int rem = cl - i * n12;
+        const int j = rem / g.n2;
+        const int k = rem - j * g.n2;
+        ctr0 = g.lo0 + ((float)i + 0.5f) * g.d0;
+        ctr1 = g.lo1 + ((float)j + 0.5f) * g.d1;
+        ctr2 = g.lo2 + ((float)k + 0.5f) * g.d2;
+      } else {
+        const int i = cl / g.n1;
+        const int j = cl - i * g.n1;
+        ctr0 = g.lo0 + ((float)i + 0.5f) * g.d0;
+        ctr1 = g.lo1 + ((float)j + 0.5f) * g.d1;
+      }
+      size0 = g.d0;
+      size1 = g.d1;
+      size2 = g.d2;
+    } else if (SRC == SLIM) {
+      ctr0 = AT(S_R0);
+      ctr1 = AT(S_R1);
+      size0 = AT(S_DR0);
+      size1 = AT(S_DR1);
+    } else {
+      ctr0 = AT(P_R0);
+      ctr1 = AT(P_R1);
+      size0 = AT(P_DR0);
+      size1 = AT(P_DR1);
+      if (GEO == CART3 || GEO == SPH3 || GEO == POL3) {
+        ctr2 = AT(P_R2);
+        size2 = AT(P_DR2);
+      }
+    }
+    if (GEO == SPH2 && SRC == ULTRA) {
+      s1 = sinf(ctr1);
+      c1 = cosf(ctr1);
+      cos_half1 = cosf(0.5f * g.d1);
+    } else if (GEO == SPH2 || GEO == SPH3 || GEO == POL3) {
+      s1 = AT(P_SIN1);
+      c1 = AT(P_COS1);
+      cos_half1 = cosf(0.5f * AT(P_DR1));
+    }
+    if (GEO == SPH2 || GEO == SPH3) {
+      cos_dom2 = cosf(g.dom2);
+      cos_dom3 = cosf(g.dom3);
+    }
+    if (GEO == SPH3) {
+      s2 = AT(P_SIN2);
+      c2 = AT(P_COS2);
+      cos_half2 = cosf(0.5f * AT(P_DR2));
+    }
+    if (GEO == SPH3 || GEO == POL3) {
+      const float lo = GEO == SPH3 ? g.dom4 : g.dom2;
+      const float hi = GEO == SPH3 ? g.dom5 : g.dom3;
+      const float mid = 0.5f * (lo + hi);
+      cos_mid = cosf(mid);
+      sin_mid = sinf(mid);
+      cos_half_dom = cosf(0.5f * (hi - lo));
+    }
+#undef AT
+  }
+
+  // fluid 3-velocity in MCRaT Cartesian at the photon position
+  __device__ __forceinline__ void fluid_beta(float px, float py, float& bx, float& by,
+                                             float& bz) const {
+    if (GEO == CART3 || GEO == SPH3 || GEO == POL3) {
+      bx = v0;
+      by = v1;
+      bz = v2;
+      return;
+    }
+    float cphi, sphi;
+    phi_components(px, py, cphi, sphi);
+    float vr = v0, vz = v1;
+    if (GEO == SPH2) {
+      vr = v0 * s1 + v1 * c1;
+      vz = v0 * c1 - v1 * s1;
+    }
+    if (V2) {
+      bx = vr * cphi - v2 * sphi;
+      by = vr * sphi + v2 * cphi;
+    } else {
+      bx = vr * cphi;
+      by = vr * sphi;
+    }
+    bz = vz;
+  }
+
+  // post-move membership: the lane's cell and the strict domain, angular
+  // coordinates in cosine space
+  __device__ __forceinline__ bool contains(float px, float py, float pz, const Grid& g) const {
+    if (GEO == CYL2) {
+      const float h0 = sqrtf(px * px + py * py);
+      return in_axis(h0, ctr0, size0) && in_axis(pz, ctr1, size1) && (h0 > g.dom0) &&
+             (h0 < g.dom1) && (pz > g.dom2) && (pz < g.dom3);
+    }
+    if (GEO == CART3) {
+      return in_axis(px, ctr0, size0) && in_axis(py, ctr1, size1) && in_axis(pz, ctr2, size2) &&
+             (px > g.dom0) && (px < g.dom1) && (py > g.dom2) && (py < g.dom3) &&
+             (pz > g.dom4) && (pz < g.dom5);
+    }
+    if (GEO == POL3) {
+      const float rho = sqrtf(px * px + py * py);
+      float cphi, sphi;
+      phi_components(px, py, cphi, sphi);
+      const bool in_phi = cphi * c1 + sphi * s1 >= cos_half1;
+      const bool in_phi_dom = cphi * cos_mid + sphi * sin_mid >= cos_half_dom;
+      return in_axis(rho, ctr0, size0) && in_phi && in_phi_dom && in_axis(pz, ctr2, size2) &&
+             (rho > g.dom0) && (rho < g.dom1) && (pz > g.dom4) && (pz < g.dom5);
+    }
+    // spherical (2-D, 2.5-D, 3-D)
+    const float rho = sqrtf(px * px + py * py);
+    const float r = sqrtf(rho * rho + pz * pz);
+    const float inv_r = 1.0f / fmaxf(r, F32(1e-37));
+    const float cos_th = clampf(pz * inv_r, -1.0f, 1.0f);
+    const float sin_th = rho * inv_r;
+    const bool in_theta = cos_th * c1 + sin_th * s1 >= cos_half1;
+    const bool in_theta_dom = (cos_th < cos_dom2) && (cos_th > cos_dom3);
+    bool ok = in_axis(r, ctr0, size0) && in_theta && in_theta_dom && (r > g.dom0) &&
+              (r < g.dom1);
+    if (GEO == SPH3) {
+      float cphi, sphi;
+      phi_components(px, py, cphi, sphi);
+      const bool in_phi = cphi * c2 + sphi * s2 >= cos_half2;
+      const bool in_phi_dom = cphi * cos_mid + sphi * sin_mid >= cos_half_dom;
+      ok = ok && in_phi && in_phi_dom;
+    }
+    return ok;
+  }
+};
+
 // ---------------------------------------------------------------------------
 
-template <bool STOKES>
+template <bool STOKES, int GEO, int SRC, bool V2>
 __global__ void __launch_bounds__(128)
 fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict__ cell,
-                    const int* __restrict__ flags, const float* __restrict__ phys,
+                    const int* __restrict__ flags, const float* __restrict__ table,
                     int64_t ncell, const int* __restrict__ block_act,
                     int* __restrict__ out_flags, int seed, Grid g, Consts cst,
                     int inner_rounds, int el_iters, int kn_iters, int block_lanes) {
@@ -349,21 +579,14 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
 
   int cl = cell[lane];
   cl = cl < 0 ? 0 : (cl >= ncell ? (int)(ncell - 1) : cl);
-  const float v0s = phys[cl];
-  const float v1s = phys[ncell + cl];
-  const float n_e = phys[2 * ncell + cl];
-  const float temp = phys[3 * ncell + cl];
-  const int ii = cl / g.n1;
-  const int jj = cl - ii * g.n1;
-  const float c0u = g.lo0 + ((float)ii + 0.5f) * g.d0;
-  const float c1u = g.lo1 + ((float)jj + 0.5f) * g.d1;
+  Cell<GEO, SRC, V2> cc;
+  cc.load(table, ncell, cl, g, cst);
 
   const uint32_t lane_in = (uint32_t)(lane - pid * block_lanes);
   const uint32_t base =
       (uint32_t)seed + (uint32_t)pid * 1442695041u + lane_in * 0x9E3779B9u;
   const Offsets off = draw_offsets(el_iters, kn_iters);
-  const float beta_mag = sqrtf(v0s * v0s + v1s * v1s);
-  const float n_sigma = n_e * cst.thom;
+  const float n_sigma = cc.n_e * cst.thom;
   bool stalled = false, promoted = false;
 
   for (int r = 0; r < inner_rounds; ++r) {
@@ -371,18 +594,14 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
     if (stalled || !(t_rem > 0.0f)) break;
     const uint32_t k0 = (uint32_t)r * off.per_round;
 
-    // 1. tau rate: fluid beta at the photon azimuth
-    const float rho = sqrtf(px * px + py * py);
-    const bool has = rho > 0.0f;
-    const float safe = has ? rho : 1.0f;
-    const float bx = v0s * (has ? px / safe : 1.0f);
-    const float by = v0s * (has ? py / safe : 0.0f);
-    const float bz = v1s;
+    // 1. tau rate: fluid beta at the photon position
+    float bx, by, bz;
+    cc.fluid_beta(px, py, bx, by, bz);
     const float fl_norm = sqrtf(bx * bx + by * by + bz * bz);
     const float ph_norm = sqrtf(p1 * p1 + p2 * p2 + p3 * p3);
     const float denom = fmaxf(fl_norm * ph_norm, F32(1e-37));
     const float cos_ang = (bx * p1 + by * p2 + bz * p3) / denom;
-    const float rate = n_sigma * (1.0f - beta_mag * cos_ang);
+    const float rate = n_sigma * (1.0f - cc.beta_mag * cos_ang);
 
     // 2. comoving four-momentum
     if (in_grid) boost(bx, by, bz, p0, p1, p2, p3, c0, c1, c2, c3);
@@ -412,7 +631,7 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
       float qc = q, uc = u;
       if (STOKES) rotate_basis(p1, p2, p3, 0.0f, 0.0f, 1.0f, p1, p2, p3, frx, fry, frz, qc, uc);
       float g_e, gb_e;
-      thermal_gamma_beta(base, k0, off, temp, el_iters, cst, g_e, gb_e);
+      thermal_gamma_beta(base, k0, off, cc.temp, el_iters, cst, g_e, gb_e);
       float ex, ey, ez;
       electron_from_gamma(base, k0, off, g_e, gb_e, c1, c2, c3, ex, ey, ez);
       const float g0 = g_e;
@@ -498,11 +717,7 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
     }
 
     // 6. post-move cell/domain membership: stall lanes that left
-    const float h0 = sqrtf(px * px + py * py);
-    const bool in_cell = (2.0f * fabsf(h0 - c0u) - g.d0 <= 0.0f) &&
-                         (2.0f * fabsf(pz - c1u) - g.d1 <= 0.0f) && (h0 > g.dom0) &&
-                         (h0 < g.dom1) && (pz > g.dom2) && (pz < g.dom3);
-    if (in_grid && !in_cell && t_rem > 0.0f) stalled = true;
+    if (in_grid && !cc.contains(px, py, pz, g) && t_rem > 0.0f) stalled = true;
   }
 
   state[SP_P0 * n + lane] = p0;
@@ -524,30 +739,70 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
   out_flags[lane] = (stalled ? OUT_STALLED : 0) | (promoted ? OUT_PROMOTED : 0);
 }
 
+struct Launch {
+  float* state;
+  int64_t n;
+  const int* cell;
+  const int* flags;
+  const float* table;
+  int64_t ncell;
+  const int* block_act;
+  int* out_flags;
+  int seed;
+  Grid g;
+  Consts cst;
+  int inner_rounds, el_iters, kn_iters, block_lanes;
+};
+
+template <int GEO, int SRC, bool V2>
+void launch(const Launch& a, bool stokes, cudaStream_t s) {
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
+  if (stokes) {
+    fused_rounds_kernel<true, GEO, SRC, V2><<<blocks, threads, 0, s>>>(
+        a.state, a.n, a.cell, a.flags, a.table, a.ncell, a.block_act, a.out_flags, a.seed,
+        a.g, a.cst, a.inner_rounds, a.el_iters, a.kn_iters, a.block_lanes);
+  } else {
+    fused_rounds_kernel<false, GEO, SRC, V2><<<blocks, threads, 0, s>>>(
+        a.state, a.n, a.cell, a.flags, a.table, a.ncell, a.block_act, a.out_flags, a.seed,
+        a.g, a.cst, a.inner_rounds, a.el_iters, a.kn_iters, a.block_lanes);
+  }
+}
+
 }  // namespace
 
-extern "C" int mcrat_fused_rounds(float* state, int64_t n, const int* cell, const int* flags,
-                                  const float* phys, int64_t ncell, const int* block_act,
-                                  int* out_flags, int seed, float dom0, float dom1,
-                                  float dom2, float dom3, float lo0, float d0, float lo1,
-                                  float d1, int n1, int stokes_on, int inner_rounds,
-                                  int el_iters, int kn_iters, int block_lanes,
-                                  float kb_over_mec2, float thom, float c_light,
-                                  float inv_c, void* stream) {
+// variant codes as in mcrat_tpu_torch/ops/fused_round.py::VARIANTS; returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an unknown
+// code)
+extern "C" int mcrat_fused_rounds(int variant, float* state, int64_t n, const int* cell,
+                                  const int* flags, const float* table, int64_t ncell,
+                                  const int* block_act, int* out_flags, int seed,
+                                  float dom0, float dom1, float dom2, float dom3, float dom4,
+                                  float dom5, float lo0, float d0, float lo1, float d1,
+                                  float lo2, float d2, int n1, int n2, int stokes_on,
+                                  int inner_rounds, int el_iters, int kn_iters,
+                                  int block_lanes, float kb_over_mec2, float thom,
+                                  float c_light, float inv_c, float inv_mp, void* stream) {
   if (n <= 0) return 0;
-  const Grid g{dom0, dom1, dom2, dom3, lo0, d0, lo1, d1, n1};
-  const Consts cst{kb_over_mec2, thom, c_light, inv_c};
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const Launch a{state, n, cell, flags, table, ncell, block_act, out_flags, seed,
+                 Grid{dom0, dom1, dom2, dom3, dom4, dom5, lo0, d0, lo1, d1, lo2, d2, n1, n2},
+                 Consts{kb_over_mec2, thom, c_light, inv_c, inv_mp},
+                 inner_rounds, el_iters, kn_iters, block_lanes};
+  const bool st = stokes_on != 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (stokes_on) {
-    fused_rounds_kernel<true><<<blocks, threads, 0, s>>>(
-        state, n, cell, flags, phys, ncell, block_act, out_flags, seed, g, cst,
-        inner_rounds, el_iters, kn_iters, block_lanes);
-  } else {
-    fused_rounds_kernel<false><<<blocks, threads, 0, s>>>(
-        state, n, cell, flags, phys, ncell, block_act, out_flags, seed, g, cst,
-        inner_rounds, el_iters, kn_iters, block_lanes);
+  switch (variant) {
+    case 0: launch<CYL2, ULTRA, false>(a, st, s); break;
+    case 1: launch<SPH2, ULTRA, false>(a, st, s); break;
+    case 2: launch<CART3, ULTRA, false>(a, st, s); break;
+    case 3: launch<CYL2, SLIM, false>(a, st, s); break;
+    case 4: launch<CYL2, PACKED, false>(a, st, s); break;
+    case 5: launch<CYL2, PACKED, true>(a, st, s); break;
+    case 6: launch<SPH2, PACKED, false>(a, st, s); break;
+    case 7: launch<SPH2, PACKED, true>(a, st, s); break;
+    case 8: launch<CART3, PACKED, false>(a, st, s); break;
+    case 9: launch<SPH3, PACKED, false>(a, st, s); break;
+    case 10: launch<POL3, PACKED, false>(a, st, s); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

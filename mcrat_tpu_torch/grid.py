@@ -2,9 +2,11 @@
 
 :class:`HydroFrameHost` is the host (numpy float64) view that frame
 construction and injection work on; :meth:`HydroFrameHost.to_device` makes the torch
-:class:`HydroFrame`, including the slim 8-row matrix ``packed_slim``
-(``PCOL_SLIM``) and, for the fused-round kernel, the 4-row physics table
-``phys = [v0, v1, ne_lab, temp]`` (``packed_slim[4:8]``).
+:class:`HydroFrame` with the fused-round kernel's cell tables: the 16/24-row
+``packed`` matrix (``PCOL``), the slim 8-row matrix ``packed_slim``
+(``PCOL_SLIM``) and the ultra physics table ``phys`` (4 rows
+``[v0, v1, ne_lab, temp]`` in 2-D, 5 rows ``[v0, v1, v2, ne_lab, temp]`` in
+3-D cartesian).
 
 :class:`RectilinearIndex` locates photons on structured grids: uniform axes
 by ``floor((x - lo) * inv_d)``, others by ``searchsorted``; cell order is the
@@ -23,10 +25,58 @@ from mcrat_tpu.constants import A_RAD, M_P
 
 from . import geometry as geo
 
+# Row layout of HydroFrame.packed (mcrat_tpu.grid.PCOL).  In 3-D, v0..v2 hold
+# the fluid velocity already in MCRaT Cartesian (to_device pre-transforms
+# it); in 2-D/2.5-D they stay in the hydro basis.  sin1/cos1 cache the cell's
+# angular r1 coordinate (theta in spherical, phi in 3-D polar); 3-D spherical
+# frames also cache sin2/cos2 of the cell's azimuth, in rows 16 and 17 of a
+# 24-row matrix.
+PCOL = dict(
+    r0=0, r1=1, r2=2, dr0=3, dr1=4, dr2=5,
+    v0=6, v1=7, v2=8, gamma=9, dens_lab=10, temp=11, nonthermal_dens=12,
+    sin1=13, cos1=14,
+    sin2=16, cos2=17,
+)
+PACKED_WIDTH = 16
+
 # Slim row layout (HydroFrame.packed_slim): the per-cell state of the 2-D
 # cartesian/cylindrical fused round (mcrat_tpu.grid.PCOL_SLIM).
 PCOL_SLIM = dict(r0=0, r1=1, dr0=2, dr1=3, v0=4, v1=5, ne_lab=6, temp=7)
 SLIM_WIDTH = 8
+
+
+def packed_width(cfg: Config) -> int:
+    """Rows in HydroFrame.packed for this config (16, or 24 for 3-D spherical)."""
+    if cfg.dims is Dims.THREE and cfg.geometry is Geometry.SPHERICAL:
+        return 24
+    return PACKED_WIDTH
+
+
+def fluid_beta_from_rows(cfg: Config, rows: torch.Tensor, ph_x, ph_y) -> torch.Tensor:
+    """Fluid 3-velocity (N, 3) in MCRaT Cartesian from gathered packed columns
+    (W, N) (mcrat_tpu.grid.fluid_beta_from_rows): the photon azimuth enters
+    through x/rho and y/rho, the cell's angular trig through the sin1/cos1
+    rows."""
+    v0 = rows[PCOL["v0"]]
+    v1 = rows[PCOL["v1"]]
+    if cfg.dims is Dims.THREE:
+        return torch.stack([v0, v1, rows[PCOL["v2"]]], dim=-1)
+    v2 = rows[PCOL["v2"]] if cfg.dims is not Dims.TWO else torch.zeros_like(v0)
+    rho = torch.sqrt(ph_x * ph_x + ph_y * ph_y)
+    has_rho = rho > 0
+    safe_rho = torch.where(has_rho, rho, 1.0)
+    c2 = torch.where(has_rho, ph_x / safe_rho, 1.0)
+    s2 = torch.where(has_rho, ph_y / safe_rho, 0.0)
+    g = cfg.geometry
+    if g in (Geometry.CARTESIAN, Geometry.CYLINDRICAL):
+        return torch.stack([v0 * c2 - v2 * s2, v0 * s2 + v2 * c2, v1], dim=-1)
+    if g is Geometry.SPHERICAL:
+        s1 = rows[PCOL["sin1"]]
+        c1 = rows[PCOL["cos1"]]
+        vr_plane = v0 * s1 + v1 * c1
+        return torch.stack(
+            [vr_plane * c2 - v2 * s2, vr_plane * s2 + v2 * c2, v0 * c1 - v1 * s1], dim=-1)
+    raise ValueError(f"unsupported 2-D geometry {g}")
 
 
 @dataclasses.dataclass
@@ -34,8 +84,10 @@ class HydroFrame:
     """One hydro snapshot as (Ncell,) tensors on one device.
 
     Field names mirror the reference hydro_dataframe (Src/mcrat.h:205-225).
-    ``packed_slim`` (8, Ncell) and ``phys`` (4, Ncell) exist for 2-D
-    cartesian/cylindrical/spherical frames without a phi-hat velocity.
+    ``packed`` (16 or 24, Ncell) exists for every frame; ``packed_slim``
+    (8, Ncell) for 2-D cartesian/cylindrical/spherical frames without a
+    phi-hat velocity; ``phys`` for those frames (4 rows) and for 3-D
+    cartesian frames (5 rows).
     """
 
     r0: torch.Tensor
@@ -56,6 +108,7 @@ class HydroFrame:
     gamma: torch.Tensor
     domain: torch.Tensor  # (3, 2) hydro-coordinate bounds
     nonthermal_dens: torch.Tensor
+    packed: Optional[torch.Tensor] = None
     packed_slim: Optional[torch.Tensor] = None
     phys: Optional[torch.Tensor] = None
 
@@ -161,6 +214,33 @@ class HydroFrameHost:
             self.v0, self.v1, self.dens_lab * (1.0 / M_P), self.temp,
         ])
 
+    def packed(self) -> np.ndarray:
+        """(16 or 24, Ncell) float64 packed matrix (``PCOL``), as
+        ``mcrat_tpu.grid.HydroFrameHost.to_device`` builds it."""
+        n = self.num_elements
+        cfg = self.cfg
+        packed = np.zeros((packed_width(cfg), n))
+        if cfg.dims is Dims.THREE:
+            # the Cartesian fluid velocity is per-cell constant in 3-D
+            vel = geo.hydro_vector_to_cartesian(
+                cfg, self.v0, self.v1, self.v2, self.r0, self.r1, self.r2)
+        else:
+            vel = (self.v0, self.v1, self.v2)
+        cols = dict(
+            r0=self.r0, r1=self.r1, r2=self.r2,
+            dr0=self.dr0, dr1=self.dr1, dr2=self.dr2,
+            v0=vel[0], v1=vel[1], v2=vel[2],
+            gamma=self.gamma, dens_lab=self.dens_lab, temp=self.temp,
+            nonthermal_dens=(self.nonthermal_dens if self.nonthermal_dens is not None
+                             else np.zeros(n)),
+            sin1=np.sin(self.r1), cos1=np.cos(self.r1),
+        )
+        if packed.shape[0] > PACKED_WIDTH:
+            cols.update(sin2=np.sin(self.r2), cos2=np.cos(self.r2))
+        for name, val in cols.items():
+            packed[PCOL[name], :] = val
+        return packed
+
     def to_device(self, device="cpu", dtype=torch.float32) -> HydroFrame:
         """Copy the frame onto ``device`` as ``dtype`` tensors."""
         n = self.num_elements
@@ -169,10 +249,20 @@ class HydroFrameHost:
         def put(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+        packed_t = put(self.packed())
         slim = self.packed_slim()
         slim_t = put(slim) if slim is not None else None
-        phys = (slim_t[PCOL_SLIM["v0"]: PCOL_SLIM["temp"] + 1].contiguous()
-                if slim_t is not None else None)
+        if slim_t is not None:
+            phys = slim_t[PCOL_SLIM["v0"]: PCOL_SLIM["temp"] + 1].contiguous()
+        elif self.cfg.dims is Dims.THREE and self.cfg.geometry is Geometry.CARTESIAN:
+            # ne_lab from the packed float32 row, as the JAX glue's ultra 3-D
+            # table (mcrat_tpu/transport.py:764-769)
+            phys = torch.stack([
+                packed_t[PCOL["v0"]], packed_t[PCOL["v1"]], packed_t[PCOL["v2"]],
+                packed_t[PCOL["dens_lab"]] * (1.0 / M_P), packed_t[PCOL["temp"]],
+            ])
+        else:
+            phys = None
         return HydroFrame(
             r0=put(self.r0), r1=put(self.r1), r2=put(self.r2),
             dr0=put(self.dr0), dr1=put(self.dr1), dr2=put(self.dr2),
@@ -181,7 +271,7 @@ class HydroFrameHost:
             dens=put(self.dens), dens_lab=put(self.dens_lab), pres=put(self.pres),
             temp=put(self.temp), gamma=put(self.gamma),
             domain=put(self.domain), nonthermal_dens=put(nt),
-            packed_slim=slim_t, phys=phys,
+            packed=packed_t, packed_slim=slim_t, phys=phys,
         )
 
 

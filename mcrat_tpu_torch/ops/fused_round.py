@@ -1,8 +1,8 @@
 """The fused transport round: plain PyTorch twin and CUDA kernel wrapper.
 
-Port of ``mcrat_tpu/ops/pallas_round.py::fused_rounds`` for the variant on
-the flagship path: uniform-rectilinear 2-D cartesian/cylindrical grid, DIRECT
-(Thomson) optical depth, thermal electrons, Stokes on or off.  One call runs
+Port of ``mcrat_tpu/ops/pallas_round.py::fused_rounds`` with DIRECT
+(Thomson) optical depth and thermal electrons, Stokes on or off, for every
+(dims x geometry) frame on a rectilinear grid.  One call runs
 ``inner_rounds`` complete transport rounds per photon lane:
 
     tau-rate -> comoving boost -> free path -> move -> electron draw
@@ -10,8 +10,18 @@ the flagship path: uniform-rectilinear 2-D cartesian/cylindrical grid, DIRECT
 
 A lane that leaves its cell stalls until the caller re-resolves its cell
 (``transport.transport_rounds_fused``).  Both implementations take the lane's
-containing cell and gather their own physics values from the (4, Ncell)
-table ``[v0, v1, ne_lab, temp]``; the cell centre is ``lo + (i + 0.5) d``.
+containing cell and gather their own values from a (W, Ncell) cell table;
+the :data:`VARIANTS` (``pallas_round._make_kernel``'s static flags) differ in
+that table and in the geometry of the fluid velocity and the membership test:
+
+* ``ultra_*``: uniform grids; the table holds physics only (4 rows
+  ``[v0, v1, ne_lab, temp]``, 5 rows ``[v0, v1, v2, ne_lab, temp]`` in 3-D)
+  and the cell centre is ``lo + (i + 0.5) d`` (2-D spherical also takes the
+  sin/cos of its theta centre);
+* ``slim_cyl2``: non-uniform 2-D cartesian/cylindrical grids, the 8-row
+  ``grid.PCOL_SLIM`` table;
+* ``packed_*``: every other rectilinear frame, the 16/24-row ``grid.PCOL``
+  table; gamma comes from its row and n_e = dens_lab / m_p in float32.
 
 :func:`fused_rounds_reference` is the plain twin, vectorized over lanes.
 :func:`fused_rounds` is the wrapper: on CPU tensors it runs the twin, on CUDA
@@ -38,14 +48,16 @@ Differences from the JAX kernel, both deliberate:
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 
-from mcrat_tpu.constants import C_LIGHT, KB_OVER_MEC2, THOM_X_SECT
+from mcrat_tpu.constants import C_LIGHT, KB_OVER_MEC2, M_P, THOM_X_SECT
 
+from ..grid import PCOL, PCOL_SLIM
 from . import rng
 
 # state plane layout (f32), as pallas_round.SP_*: lab p, position, Stokes
@@ -65,9 +77,11 @@ FLAG_INGRID = 4
 OUT_STALLED = 1
 OUT_PROMOTED = 2
 
-# physics table rows (the slim rows 4:8 of grid.PCOL_SLIM)
+# ultra physics table rows: 2-D (the slim rows 4:8 of grid.PCOL_SLIM) and
+# 3-D cartesian (+ v2)
 PHYS_V0, PHYS_V1, PHYS_NE, PHYS_TEMP = 0, 1, 2, 3
 N_PHYS = 4
+PHYS3 = dict(v0=0, v1=1, v2=2, ne_lab=3, temp=4)
 
 LANES = 128
 DEFAULT_MFP = 1e12
@@ -82,12 +96,17 @@ EL_ITERS = 12
 KN_ITERS = 12
 
 
+_INV_MP = 1.0 / M_P
+
+
 class GridScalars(NamedTuple):
-    """Uniform-grid scalars of the kernel, each exactly a float32 value.
+    """Grid scalars of the kernel, each exactly a float32 value.
 
     ``dom*`` bound the strict domain test (hydro r0 in (dom0, dom1), r1 in
-    (dom2, dom3)); cell (i, j) = divmod(cell, n1) has centre
-    (lo0 + (i + 0.5) d0, lo1 + (j + 0.5) d1) and size (d0, d1).
+    (dom2, dom3), r2 in (dom4, dom5)).  On uniform grids (the ultra
+    variants) 2-D cell (i, j) = divmod(cell, n1) has centre
+    (lo0 + (i + 0.5) d0, lo1 + (j + 0.5) d1) and size (d0, d1); 3-D cell
+    (i, j, k), cell = (i n1 + j) n2 + k, adds lo2, d2.
     """
 
     dom0: float
@@ -99,6 +118,41 @@ class GridScalars(NamedTuple):
     lo1: float
     d1: float
     n1: int
+    dom4: float = 0.0
+    dom5: float = 0.0
+    lo2: float = 0.0
+    d2: float = 1.0
+    n2: int = 1
+
+
+class Variant(NamedTuple):
+    """One instantiation of the kernel (``pallas_round._make_kernel``'s
+    static flags): its dispatch code in ``csrc/fused_round.cu``, the cell
+    table it reads (``source`` and ``width`` rows), the membership geometry
+    (``geom``: cyl2, sph2, cart3, sph3, pol3) and whether the fluid velocity
+    carries a phi-hat component (2.5-D)."""
+
+    code: int
+    source: str
+    geom: str
+    v2: bool
+    width: int
+    replaces: str  # the pallas_round.py lines it replaces
+
+
+VARIANTS = {
+    "ultra_cyl2": Variant(0, "ultra", "cyl2", False, 4, "pallas_round.py:606-617,846-850,744-757"),
+    "ultra_sph2": Variant(1, "ultra", "sph2", False, 4, "pallas_round.py:606-617,836-844,758-779"),
+    "ultra_cart3": Variant(2, "ultra", "cart3", False, 5, "pallas_round.py:618-620,851-861,682-697"),
+    "slim_cyl2": Variant(3, "slim", "cyl2", False, 8, "pallas_round.py:621-627,744-757"),
+    "packed_cyl2": Variant(4, "packed", "cyl2", False, 16, "pallas_round.py:629-647,744-757"),
+    "packed_cyl25": Variant(5, "packed", "cyl2", True, 16, "pallas_round.py:636-647,744-757"),
+    "packed_sph2": Variant(6, "packed", "sph2", False, 16, "pallas_round.py:648-655,758-779"),
+    "packed_sph25": Variant(7, "packed", "sph2", True, 16, "pallas_round.py:636-655,758-779"),
+    "packed_cart3": Variant(8, "packed", "cart3", False, 16, "pallas_round.py:634-635,682-697"),
+    "packed_sph3": Variant(9, "packed", "sph3", False, 24, "pallas_round.py:634-635,698-723"),
+    "packed_pol3": Variant(10, "packed", "pol3", False, 16, "pallas_round.py:634-635,724-742"),
+}
 
 
 class DrawOffsets(NamedTuple):
@@ -380,15 +434,156 @@ def _single_scatter(base, k0, g0, e1x, e1y, e1z, c0, c1, c2, c3, q, u, v,
     return scattered, o0, o1, o2, o3, q2, u2, v2
 
 
-def _rounds(st, alive, is_pool, in_grid, v0s, v1s, n_e, temp, cgeom, grid,
-            base, stokes_on, inner_rounds):
+def _phi_components(px, py):
+    """(cos, sin) of the photon azimuth from its components."""
+    rho = torch.sqrt(px * px + py * py)
+    has = rho > 0
+    safe = torch.where(has, rho, 1.0)
+    return torch.where(has, px / safe, 1.0), torch.where(has, py / safe, 0.0)
+
+
+class _Cell:
+    """A variant's per-lane cell quantities, fixed for the call
+    (pallas_round._kernel_body before round_body), and its ``fluid_beta``
+    and ``contains`` (pallas_round fluid_beta, in_cell_and_domain)."""
+
+    def __init__(self, var: Variant, table, cl, grid: GridScalars):
+        self.var, self.grid = var, grid
+        dev = table.device
+
+        def f32(x):
+            return torch.tensor(x, dtype=torch.float32, device=dev)
+
+        row = table[:, cl]
+        geom = var.geom
+        if var.source == "packed":
+            gam = row[PCOL["gamma"]]
+            self.beta_mag = torch.sqrt(torch.clamp(1.0 - 1.0 / (gam * gam), min=0.0))
+            self.n_e = row[PCOL["dens_lab"]] * _INV_MP
+            self.temp = row[PCOL["temp"]]
+            self.v = (row[PCOL["v0"]], row[PCOL["v1"]], row[PCOL["v2"]])
+        else:
+            col = (PHYS3 if geom == "cart3" else PCOL_SLIM if var.source == "slim"
+                   else dict(v0=PHYS_V0, v1=PHYS_V1, ne_lab=PHYS_NE, temp=PHYS_TEMP))
+            v0, v1 = row[col["v0"]], row[col["v1"]]
+            beta2 = v0 * v0 + v1 * v1
+            v2 = None
+            if geom == "cart3":
+                v2 = row[col["v2"]]
+                beta2 = beta2 + v2 * v2
+            self.beta_mag = torch.sqrt(beta2)
+            self.n_e = row[col["ne_lab"]]
+            self.temp = row[col["temp"]]
+            self.v = (v0, v1, v2)
+
+        # cell geometry: centres and sizes along the hydro axes
+        if var.source == "ultra":
+            n1, n2 = grid.n1, grid.n2
+            if geom == "cart3":
+                i = torch.div(cl, n1 * n2, rounding_mode="floor")
+                rem = cl - i * (n1 * n2)
+                j = torch.div(rem, n2, rounding_mode="floor")
+                idx = (i, j, rem - j * n2)
+            else:
+                i = torch.div(cl, n1, rounding_mode="floor")
+                idx = (i, cl - i * n1)
+            lo = (grid.lo0, grid.lo1, grid.lo2)
+            d = (grid.d0, grid.d1, grid.d2)
+            self.centre = [lo[a] + (x.to(torch.float32) + 0.5) * d[a] for a, x in enumerate(idx)]
+            self.size = list(d[:len(idx)])
+        elif var.source == "slim":
+            c = PCOL_SLIM
+            self.centre = [row[c["r0"]], row[c["r1"]]]
+            self.size = [row[c["dr0"]], row[c["dr1"]]]
+        else:
+            self.centre = [row[PCOL["r0"]], row[PCOL["r1"]], row[PCOL["r2"]]]
+            self.size = [row[PCOL["dr0"]], row[PCOL["dr1"]], row[PCOL["dr2"]]]
+
+        # angular caches (cosine-space membership, spherical fluid basis)
+        if geom == "sph2" and var.source == "ultra":
+            self.s1 = torch.sin(self.centre[1])
+            self.c1 = torch.cos(self.centre[1])
+            self.cos_half1 = torch.cos(f32(0.5 * grid.d1))
+        elif geom in ("sph2", "sph3", "pol3"):
+            self.s1, self.c1 = row[PCOL["sin1"]], row[PCOL["cos1"]]
+            self.cos_half1 = torch.cos(0.5 * row[PCOL["dr1"]])
+        if geom in ("sph2", "sph3"):
+            self.cos_dom2, self.cos_dom3 = torch.cos(f32(grid.dom2)), torch.cos(f32(grid.dom3))
+        if geom == "sph3":
+            self.s2, self.c2 = row[PCOL["sin2"]], row[PCOL["cos2"]]
+            self.cos_half2 = torch.cos(0.5 * row[PCOL["dr2"]])
+        if geom in ("sph3", "pol3"):
+            # the azimuth domain, tested around its midpoint
+            lo, hi = (grid.dom4, grid.dom5) if geom == "sph3" else (grid.dom2, grid.dom3)
+            mid = 0.5 * (f32(lo) + f32(hi))
+            self.cos_mid, self.sin_mid = torch.cos(mid), torch.sin(mid)
+            self.cos_half_dom = torch.cos(0.5 * (f32(hi) - f32(lo)))
+
+    def fluid_beta(self, px, py):
+        """Fluid 3-velocity in MCRaT Cartesian at the photon position."""
+        v0, v1, v2 = self.v
+        geom = self.var.geom
+        if geom in ("cart3", "sph3", "pol3"):
+            return v0, v1, v2  # Cartesian already (grid.HydroFrameHost.packed)
+        c2, s2 = _phi_components(px, py)
+        if geom == "sph2":
+            vr = v0 * self.s1 + v1 * self.c1
+            bz = v0 * self.c1 - v1 * self.s1
+        else:
+            vr, bz = v0, v1
+        if self.var.v2:
+            return vr * c2 - v2 * s2, vr * s2 + v2 * c2, bz
+        return vr * c2, vr * s2, bz
+
+    def contains(self, px, py, pz):
+        """Post-move membership: the lane's cell and the strict domain,
+        angular coordinates in cosine space."""
+        g = self.grid
+        geom = self.var.geom
+        ctr, size = self.centre, self.size
+
+        def in_axis(h, a):
+            return 2.0 * torch.abs(h - ctr[a]) - size[a] <= 0
+
+        if geom == "cyl2":
+            h0 = torch.sqrt(px * px + py * py)
+            return (in_axis(h0, 0) & in_axis(pz, 1)
+                    & (h0 > g.dom0) & (h0 < g.dom1) & (pz > g.dom2) & (pz < g.dom3))
+        if geom == "cart3":
+            return (in_axis(px, 0) & in_axis(py, 1) & in_axis(pz, 2)
+                    & (px > g.dom0) & (px < g.dom1) & (py > g.dom2) & (py < g.dom3)
+                    & (pz > g.dom4) & (pz < g.dom5))
+        if geom == "pol3":
+            rho = torch.sqrt(px * px + py * py)
+            cphi, sphi = _phi_components(px, py)
+            in_phi = cphi * self.c1 + sphi * self.s1 >= self.cos_half1
+            in_phi_dom = cphi * self.cos_mid + sphi * self.sin_mid >= self.cos_half_dom
+            return (in_axis(rho, 0) & in_phi & in_phi_dom & in_axis(pz, 2)
+                    & (rho > g.dom0) & (rho < g.dom1) & (pz > g.dom4) & (pz < g.dom5))
+        # spherical: theta in cosine space around the cell centre
+        rho = torch.sqrt(px * px + py * py)
+        r = torch.sqrt(rho * rho + pz * pz)
+        inv_r = 1.0 / torch.clamp(r, min=TINY)
+        cos_th = torch.clamp(pz * inv_r, -1.0, 1.0)
+        sin_th = rho * inv_r
+        in_theta = cos_th * self.c1 + sin_th * self.s1 >= self.cos_half1
+        in_theta_dom = (cos_th < self.cos_dom2) & (cos_th > self.cos_dom3)
+        ok = in_axis(r, 0) & in_theta & in_theta_dom & (r > g.dom0) & (r < g.dom1)
+        if geom == "sph3":
+            cphi, sphi = _phi_components(px, py)
+            in_phi = cphi * self.c2 + sphi * self.s2 >= self.cos_half2
+            in_phi_dom = cphi * self.cos_mid + sphi * self.sin_mid >= self.cos_half_dom
+            ok = ok & in_phi & in_phi_dom
+        return ok
+
+
+def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rounds):
     """``inner_rounds`` rounds over a flat set of lanes (pallas_round
     round_body).  Returns the new 16 planes and the (stalled, promoted)
     masks."""
     (p0, p1, p2, p3, px, py, pz, q, u, v, t_rem, ns, c0, c1, c2, c3) = st
-    c0u, c1u = cgeom
-    beta_mag = torch.sqrt(v0s * v0s + v1s * v1s)
-    n_sigma = n_e * THOM_X_SECT
+    beta_mag = cell.beta_mag
+    n_sigma = cell.n_e * THOM_X_SECT
     z_hat = (0.0, 0.0, 1.0)
     stalled = torch.zeros_like(alive)
     promoted = torch.zeros_like(alive)
@@ -396,13 +591,8 @@ def _rounds(st, alive, is_pool, in_grid, v0s, v1s, n_e, temp, cgeom, grid,
         k0 = r * OFFSETS.per_round
         act = alive & (t_rem > 0) & ~stalled
 
-        # 1. tau rate: fluid beta at the photon azimuth (2-D cart/cyl)
-        rho = torch.sqrt(px * px + py * py)
-        has = rho > 0
-        safe = torch.where(has, rho, 1.0)
-        bx = v0s * torch.where(has, px / safe, 1.0)
-        by = v0s * torch.where(has, py / safe, 0.0)
-        bz = v1s
+        # 1. tau rate: fluid beta at the photon position
+        bx, by, bz = cell.fluid_beta(px, py)
         fl_norm = torch.sqrt(bx * bx + by * by + bz * bz)
         ph_norm = torch.sqrt(p1 * p1 + p2 * p2 + p3 * p3)
         denom = torch.clamp(fl_norm * ph_norm, min=TINY)
@@ -450,7 +640,7 @@ def _rounds(st, alive, is_pool, in_grid, v0s, v1s, n_e, temp, cgeom, grid,
         else:
             f_ref = None
             qc, uc = q, u
-        g_e, gb_e = _thermal_gamma_beta(base, k0, temp)
+        g_e, gb_e = _thermal_gamma_beta(base, k0, cell.temp)
         g0, ex, ey, ez = _electron_from_gamma(base, k0, g_e, gb_e, c1, c2, c3)
         sc, o0, o1, o2, o3, q2, u2, v2 = _single_scatter(
             base, k0, g0, ex, ey, ez, c0, c1, c2, c3, qc, uc, v, f_ref, stokes_on)
@@ -477,19 +667,16 @@ def _rounds(st, alive, is_pool, in_grid, v0s, v1s, n_e, temp, cgeom, grid,
         promoted = promoted | (scattered & is_pool)
 
         # 6. post-move cell/domain membership: stall lanes that left
-        h0 = torch.sqrt(px * px + py * py)
-        in_cell = (
-            (2.0 * torch.abs(h0 - c0u) - grid.d0 <= 0)
-            & (2.0 * torch.abs(pz - c1u) - grid.d1 <= 0)
-            & (h0 > grid.dom0) & (h0 < grid.dom1)
-            & (pz > grid.dom2) & (pz < grid.dom3)
-        )
+        in_cell = cell.contains(px, py, pz)
         stalled = stalled | (act & in_grid & ~in_cell & (t_rem > 0))
     planes = (p0, p1, p2, p3, px, py, pz, q, u, v, t_rem, ns, c0, c1, c2, c3)
     return planes, stalled, promoted
 
 
-def _check_args(state, cell, flags, phys, block_act, block_lanes):
+def _check_args(state, cell, flags, table, block_act, block_lanes, variant):
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown kernel variant {variant!r}; one of {sorted(VARIANTS)}")
+    width = VARIANTS[variant].width
     n = state.shape[1]
     if state.dim() != 2 or state.shape[0] != N_STATE or state.dtype != torch.float32:
         raise ValueError(f"state must be ({N_STATE}, Npad) float32, got "
@@ -507,27 +694,31 @@ def _check_args(state, cell, flags, phys, block_act, block_lanes):
         raise ValueError("cell and flags must have one entry per lane")
     if block_act.shape[0] != n // block_lanes:
         raise ValueError("block_act must have one entry per block")
-    if (phys.dim() != 2 or phys.shape[0] != N_PHYS or phys.dtype != torch.float32
-            or not phys.is_contiguous()):
-        raise ValueError(f"phys must be a contiguous ({N_PHYS}, Ncell) float32 table")
-    devs = {t.device for t in (state, cell, flags, phys, block_act)}
+    if (table.dim() != 2 or table.shape[0] != width or table.dtype != torch.float32
+            or not table.is_contiguous() or table.shape[1] == 0):
+        raise ValueError(f"the {variant} cell table (phys/packed) must be a contiguous "
+                         f"({width}, Ncell) float32 tensor, got {tuple(table.shape)} "
+                         f"{table.dtype}")
+    devs = {t.device for t in (state, cell, flags, table, block_act)}
     if len(devs) != 1:
         raise ValueError(f"all inputs must be on one device, got {devs}")
 
 
-def fused_rounds_reference(state, cell, flags, phys, block_act, seed: int,
+def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
                            grid: GridScalars, stokes_on: bool = True,
-                           inner_rounds: int = 4, block_lanes: int = 16384):
+                           inner_rounds: int = 4, block_lanes: int = 16384,
+                           variant: str = "ultra_cyl2"):
     """Plain PyTorch twin of the fused-round kernel.
 
     ``state`` (16, Npad) f32 is updated IN PLACE on the lanes of active
     blocks; ``cell`` (Npad,) i32 is each lane's containing cell (clamped to
-    a valid index), ``flags`` (Npad,) i32 its FLAG_* bits, ``phys`` the
-    (4, Ncell) table, ``block_act`` (Npad / block_lanes,) i32 marks blocks
-    with at least one active lane.  Returns the (Npad,) int32 out-flags
-    (OUT_STALLED | OUT_PROMOTED; 0 on idle blocks).
+    a valid index), ``flags`` (Npad,) i32 its FLAG_* bits, ``table`` the
+    variant's (W, Ncell) cell table (:data:`VARIANTS`), ``block_act``
+    (Npad / block_lanes,) i32 marks blocks with at least one active lane.
+    Returns the (Npad,) int32 out-flags (OUT_STALLED | OUT_PROMOTED; 0 on
+    idle blocks).
     """
-    _check_args(state, cell, flags, phys, block_act, block_lanes)
+    _check_args(state, cell, flags, table, block_act, block_lanes, variant)
     fused_rounds_reference.launches += 1
     n = state.shape[1]
     out = torch.zeros(n, dtype=torch.int32, device=state.device)
@@ -537,18 +728,12 @@ def fused_rounds_reference(state, cell, flags, phys, block_act, seed: int,
         return out
     sub = state[:, lanes]
     fl = flags[lanes]
-    cl = cell[lanes].long()
-    row = phys[:, cl]
-    ii = torch.div(cl, grid.n1, rounding_mode="floor")
-    jj = (cl - ii * grid.n1).to(torch.float32)
-    ii = ii.to(torch.float32)
-    cgeom = (grid.lo0 + (ii + 0.5) * grid.d0, grid.lo1 + (jj + 0.5) * grid.d1)
+    cl = torch.clamp(cell[lanes].long(), 0, table.shape[1] - 1)
     base = rng.lane_base(seed, lanes, block_lanes)
     planes, stalled, promoted = _rounds(
         tuple(sub[i] for i in range(N_STATE)),
         (fl & FLAG_ALIVE) != 0, (fl & FLAG_POOL) != 0, (fl & FLAG_INGRID) != 0,
-        row[PHYS_V0], row[PHYS_V1], row[PHYS_NE], row[PHYS_TEMP], cgeom, grid,
-        base, stokes_on, inner_rounds,
+        _Cell(VARIANTS[variant], table, cl, grid), base, stokes_on, inner_rounds,
     )
     state[:, lanes] = torch.stack(planes)
     out[lanes] = stalled.to(torch.int32) * OUT_STALLED + promoted.to(torch.int32) * OUT_PROMOTED
@@ -558,24 +743,26 @@ def fused_rounds_reference(state, cell, flags, phys, block_act, seed: int,
 fused_rounds_reference.launches = 0
 
 
-def fused_rounds(state, cell, flags, phys, block_act, seed: int,
+def fused_rounds(state, cell, flags, table, block_act, seed: int,
                  grid: GridScalars, stokes_on: bool = True,
-                 inner_rounds: int = 4, block_lanes: int = 16384):
+                 inner_rounds: int = 4, block_lanes: int = 16384,
+                 variant: str = "ultra_cyl2"):
     """Run ``inner_rounds`` fused transport rounds over the lane planes.
 
     Same contract as :func:`fused_rounds_reference` (``state`` updated in
     place, out-flags returned).  CPU tensors run the plain twin; CUDA tensors
     launch the hand-written kernel of ``csrc/fused_round.cu`` on the current
     stream, building it on first use, and raise if the build or the launch
-    fails.
+    fails.  ``fused_rounds.launches`` counts kernel launches,
+    ``fused_rounds.variant_launches`` the same per variant.
     """
     if state.device.type == "cpu":
         return fused_rounds_reference(
-            state, cell, flags, phys, block_act, seed, grid, stokes_on,
-            inner_rounds, block_lanes)
+            state, cell, flags, table, block_act, seed, grid, stokes_on,
+            inner_rounds, block_lanes, variant)
     if state.device.type != "cuda":
         raise ValueError(f"fused_rounds runs on cpu or cuda tensors, not {state.device}")
-    _check_args(state, cell, flags, phys, block_act, block_lanes)
+    _check_args(state, cell, flags, table, block_act, block_lanes, variant)
     from .._build import load_fused_round
 
     lib = load_fused_round()
@@ -584,24 +771,27 @@ def fused_rounds(state, cell, flags, phys, block_act, seed: int,
     stream = torch.cuda.current_stream(state.device).cuda_stream
     f = ctypes.c_float
     err = lib.mcrat_fused_rounds(
+        ctypes.c_int32(VARIANTS[variant].code),
         state.data_ptr(), ctypes.c_int64(n), cell.data_ptr(), flags.data_ptr(),
-        phys.data_ptr(), ctypes.c_int64(phys.shape[1]), block_act.data_ptr(),
+        table.data_ptr(), ctypes.c_int64(table.shape[1]), block_act.data_ptr(),
         out.data_ptr(), ctypes.c_int32(rng_seed_i32(seed)),
-        f(grid.dom0), f(grid.dom1), f(grid.dom2), f(grid.dom3),
-        f(grid.lo0), f(grid.d0), f(grid.lo1), f(grid.d1),
-        ctypes.c_int32(grid.n1), ctypes.c_int32(int(stokes_on)),
+        *(f(x) for x in (grid.dom0, grid.dom1, grid.dom2, grid.dom3, grid.dom4, grid.dom5,
+                         grid.lo0, grid.d0, grid.lo1, grid.d1, grid.lo2, grid.d2)),
+        ctypes.c_int32(grid.n1), ctypes.c_int32(grid.n2), ctypes.c_int32(int(stokes_on)),
         ctypes.c_int32(inner_rounds), ctypes.c_int32(EL_ITERS),
         ctypes.c_int32(KN_ITERS), ctypes.c_int32(block_lanes),
-        f(KB_OVER_MEC2), f(THOM_X_SECT), f(C_LIGHT), f(_INV_C), stream,
+        f(KB_OVER_MEC2), f(THOM_X_SECT), f(C_LIGHT), f(_INV_C), f(_INV_MP), stream,
     )
     if err != 0:
         msg = lib.mcrat_error_string(err).decode()
-        raise RuntimeError(f"fused_round kernel launch failed: {msg}")
+        raise RuntimeError(f"fused_round kernel launch failed ({variant}): {msg}")
     fused_rounds.launches += 1
+    fused_rounds.variant_launches[variant] += 1
     return out
 
 
 fused_rounds.launches = 0
+fused_rounds.variant_launches = collections.Counter()
 
 
 def rng_seed_i32(seed: int) -> int:

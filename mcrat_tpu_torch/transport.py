@@ -1,4 +1,4 @@
-"""Batched photon transport (port of ``mcrat_tpu.transport``, flagship slice).
+"""Batched photon transport (port of ``mcrat_tpu.transport``).
 
 Every photon advances through its own exponential free-path sequence within
 the frame's time window, concurrently with all others:
@@ -12,10 +12,12 @@ is a fixed-capacity structure of arrays (:class:`Photons`) with masking in
 place of the reference's null-photon slot recycling (Src/photons.c).
 Four-momenta are dimensionless (units of m_e c); positions are in cm.
 
-Slice covered: 2-D cartesian/cylindrical frames on a uniform
-:class:`~mcrat_tpu_torch.grid.RectilinearIndex`, DIRECT (Thomson) optical
-depth, thermal electrons, float32, Stokes on or off.  Other configurations
-raise ``NotImplementedError`` naming the ROADMAP item that will port them.
+Slice covered: every (dims x geometry) frame on a
+:class:`~mcrat_tpu_torch.grid.RectilinearIndex`, uniform or not -- 2-D and
+2.5-D cartesian/cylindrical/spherical, 3-D cartesian/spherical/polar --
+with DIRECT (Thomson) optical depth, thermal electrons, float32, Stokes on
+or off.  Other configurations raise ``NotImplementedError`` naming the
+ROADMAP item that will port them.
 """
 from __future__ import annotations
 
@@ -47,8 +49,6 @@ MIN_COMPACT_CAPACITY = 1024
 ROADMAP_ITEMS = dict(
     xla="ROADMAP.md queue 1 item 5 (the XLA-path physics ops and "
         "transport_rounds: float64 and non-CUDA runs)",
-    geometry="ROADMAP.md queue 1 item 7 (kernel geometry variants: 2-D spherical, "
-             "3-D, 2.5-D, non-uniform rectilinear grids)",
     table="ROADMAP.md queue 1 item 8 (TABLE-mode hot cross sections)",
     nonthermal="ROADMAP.md queue 1 item 9 (nonthermal electrons)",
     cyclosynch="ROADMAP.md queue 1 item 11 (cyclo-synchrotron)",
@@ -345,6 +345,14 @@ def _count_cs(photons: Photons) -> torch.Tensor:
     return (photons.alive & is_cs).sum()
 
 
+# the (dims, geometry) frames mcrat_tpu defines (mcrat_tpu/geometry.py)
+FRAMES = {
+    Dims.TWO: (Geometry.CARTESIAN, Geometry.CYLINDRICAL, Geometry.SPHERICAL),
+    Dims.TWO_POINT_FIVE: (Geometry.CARTESIAN, Geometry.CYLINDRICAL, Geometry.SPHERICAL),
+    Dims.THREE: (Geometry.CARTESIAN, Geometry.SPHERICAL, Geometry.POLAR),
+}
+
+
 def unsupported_reason(cfg: Config, frame: HydroFrame, index) -> Optional[str]:
     """Why the slice cannot run this configuration (the ROADMAP item that
     will port it), or None when it can."""
@@ -356,23 +364,19 @@ def unsupported_reason(cfg: Config, frame: HydroFrame, index) -> Optional[str]:
         return "cyclo-synchrotron: " + ROADMAP_ITEMS["cyclosynch"]
     if not isinstance(index, RectilinearIndex):
         return f"{type(index).__name__}: " + ROADMAP_ITEMS["amr"]
-    if (cfg.dims is not Dims.TWO
-            or cfg.geometry not in (Geometry.CARTESIAN, Geometry.CYLINDRICAL)
-            or frame.phys is None or index.three_d
-            or not (index.uniform[0] and index.uniform[1])):
-        return (f"{cfg.dims.name} {cfg.geometry.name} frame on a "
-                f"{'uniform' if all(index.uniform[:2]) else 'non-uniform'} grid: "
-                + ROADMAP_ITEMS["geometry"])
+    if cfg.geometry not in FRAMES[cfg.dims]:
+        return f"{cfg.dims.name} {cfg.geometry.name}: not a frame mcrat_tpu defines"
+    if index.three_d != (cfg.dims is Dims.THREE):
+        return f"a {'3-D' if index.three_d else '2-D'} index on a {cfg.dims.name} frame"
     return None
 
 
 def fused_transport_available(cfg: Config, photons: Photons, frame: HydroFrame,
                               index) -> bool:
     """True when the CUDA fused-round kernel covers this run: CUDA float32
-    photons, DIRECT optical depth, thermal electrons, a 2-D cartesian or
-    cylindrical frame with the slim tables, a uniform RectilinearIndex.
-    There is no capacity floor: every chunk, compacted tail included, goes
-    through the kernel."""
+    photons, DIRECT optical depth, thermal electrons, any (dims x geometry)
+    frame on a RectilinearIndex.  There is no capacity floor: every chunk,
+    compacted tail included, goes through the kernel."""
     return (
         photons.device.type == "cuda"
         and photons.p.dtype == torch.float32
@@ -380,16 +384,41 @@ def fused_transport_available(cfg: Config, photons: Photons, frame: HydroFrame,
     )
 
 
+def select_variant(cfg: Config, frame: HydroFrame, index: RectilinearIndex):
+    """The kernel variant and its cell table for a frame
+    (``mcrat_tpu.transport.transport_rounds_fused``'s selection, direct
+    branch, without the TPU's index-bit size limits): ultra on uniform 2-D
+    cartesian/cylindrical/spherical frames without a phi-hat velocity and
+    on uniform 3-D cartesian frames; slim on the other 2-D
+    cartesian/cylindrical frames without one; packed everywhere else.
+    Returns (variant name, (W, Ncell) table)."""
+    geom, dims = cfg.geometry, cfg.dims
+    uniform2 = index.uniform[0] and index.uniform[1]
+    cyl = geom in (Geometry.CARTESIAN, Geometry.CYLINDRICAL)
+    if frame.packed_slim is not None and not index.three_d:
+        if uniform2 and (cyl or (geom is Geometry.SPHERICAL and dims is Dims.TWO)):
+            return ("ultra_cyl2" if cyl else "ultra_sph2"), frame.phys
+        if cyl:
+            return "slim_cyl2", frame.packed_slim
+    if dims is Dims.THREE:
+        if geom is Geometry.CARTESIAN and all(index.uniform):
+            return "ultra_cart3", frame.phys
+        name = {Geometry.CARTESIAN: "packed_cart3", Geometry.SPHERICAL: "packed_sph3",
+                Geometry.POLAR: "packed_pol3"}[geom]
+    else:
+        name = f"packed_{'cyl' if cyl else 'sph'}{'25' if dims is Dims.TWO_POINT_FIVE else '2'}"
+    return name, frame.packed
+
+
 def grid_scalars(frame: HydroFrame, index: RectilinearIndex) -> fr.GridScalars:
-    """The kernel's uniform-grid scalars as exact float32 values (one host
-    fetch)."""
-    dom = frame.domain.to(torch.float32)
-    vals = torch.stack([
-        dom[0, 0], dom[0, 1], dom[1, 0], dom[1, 1],
-        index.lo[0].float(), (index.edges0[1] - index.edges0[0]).float(),
-        index.lo[1].float(), (index.edges1[1] - index.edges1[0]).float(),
-    ]).tolist()
-    return fr.GridScalars(*vals, n1=index.shape[1])
+    """The kernel's grid scalars as exact float32 values (one host fetch)."""
+    dom = frame.domain.to(torch.float32).reshape(-1)
+    lo = index.lo.float()
+    d = [(e[1] - e[0]).float() for e in (index.edges0, index.edges1, index.edges2)]
+    v = torch.stack([*dom, lo[0], d[0], lo[1], d[1], lo[2], d[2]]).tolist()
+    _, n1, n2 = index.shape
+    return fr.GridScalars(*v[:4], v[6], v[7], v[8], v[9], n1, dom4=v[4], dom5=v[5],
+                          lo2=v[10], d2=v[11], n2=n2 if index.three_d else 1)
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -477,6 +506,7 @@ def transport_rounds_fused(
     orig = row_iota.clone()  # row -> original row, across partitions
     ns0 = state[fr.SP_NS].to(torch.int64).sum()
     grid = grid_scalars(frame, index)
+    variant, table = select_variant(cfg, frame, index)
     n_cell = frame.num_elements
 
     def rows(x):
@@ -505,9 +535,10 @@ def transport_rounds_fused(
         cell, in_grid = find_cell_direct(cfg, index, frame, state[fr.SP_X: fr.SP_Z + 1].T)
         safe = torch.clamp(cell, 0, n_cell - 1).to(torch.int32)
         out = rounds_fn(
-            state, safe, lane_flags(alive, pool, in_grid), frame.phys, block_act,
+            state, safe, lane_flags(alive, pool, in_grid), table, block_act,
             fr.rng_seed_i32(base_seed + rounds * 7919), grid,
             stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=block_lanes,
+            variant=variant,
         )
         promoted = (out & fr.OUT_PROMOTED) != 0
         pool = pool & ~promoted

@@ -245,13 +245,17 @@ def test_unported_configurations_raise():
                    tau_calculation=TauCalculation.TABLE)
     with pytest.raises(NotImplementedError, match="item 8"):
         tt.transport_frame(table, ph, frame, index, 0.05, torch.Generator(), fused=True)
+    # geometry variants are ported: non-uniform grids and spherical frames run
     nonuniform = convert.index_from_edges(edges[0], np.geomspace(1.8e12, 2.9e12, 65))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt.transport_rounds_fused(cfg, ph, frame, nonuniform, tt.frame_time(ph, 0.05),
-                                  base_seed=0)
+    assert tt.unsupported_reason(cfg, frame, nonuniform) is None
+    assert tt.select_variant(cfg, frame, nonuniform)[0] == "slim_cyl2"
     sph = Config(dims=Dims.TWO, geometry=Geometry.SPHERICAL)
-    assert "item 7" in tt.unsupported_reason(sph, frame, index)
+    assert tt.unsupported_reason(sph, frame, index) is None
+    assert "item 8" in tt.unsupported_reason(table, frame, index)
     assert "item 11" in tt.unsupported_reason(Config(
         dims=Dims.TWO, geometry=Geometry.CYLINDRICAL, cyclosynchrotron=True), frame, index)
     assert "item 12" in tt.unsupported_reason(cfg, frame, object())
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tt.transport_rounds_fused(cfg, ph, frame, object(), tt.frame_time(ph, 0.05),
+                                  base_seed=0)
     assert tt.unsupported_reason(cfg, frame, index) is None

@@ -134,21 +134,67 @@ def _positions(edges, three_d, seed=3, n=10_000):
     return np.concatenate([pts, on, far]).astype(np.float32)
 
 
-@pytest.mark.parametrize("kind", ["uniform_2d", "nonuniform_2d", "uniform_3d"])
+def _angular_positions(cfg, edges, seed=3, n=10_000):
+    """f32 positions for spherical/polar grids: random hydro coordinates in
+    and around the domain, points on the jet axis, and far outside."""
+    rs = np.random.default_rng(seed)
+    lo = [e[0] - 0.1 * (e[-1] - e[0]) for e in edges]
+    hi = [e[-1] + 0.1 * (e[-1] - e[0]) for e in edges]
+    h = [rs.uniform(max(a, 0.0), b, n) for a, b in zip(lo, hi)]
+    if cfg.dims is not Dims.THREE:
+        h.append(rs.uniform(0.0, 2 * np.pi, n))  # the photon azimuth
+    if cfg.geometry is Geometry.SPHERICAL:
+        h[1] = np.clip(h[1], 0.0, np.pi)
+    pts = np.stack(tgeo.hydro_to_mcrat(cfg, *h[:3]), axis=1)
+    axis = np.stack([np.zeros(300), np.zeros(300), rs.uniform(lo[0], hi[0], 300)], axis=1)
+    far = rs.normal(size=(200, 3)) * 1e15
+    return np.concatenate([pts, axis, far]).astype(np.float32)
+
+
+def _near_faces(cfg, edges, pos, ulps=4):
+    """Lanes whose float64 hydro coordinates lie within ``ulps`` float32
+    ulps of a cell face on some axis, measured in the float32 quantity the
+    lookup rounds: the radius or azimuth itself, and cos(theta) = z/r for a
+    spherical theta (arccos magnifies one ulp of z/r near the jet axis)."""
+    h = tgeo.mcrat_to_hydro(cfg, *pos.astype(np.float64).T)
+    eps = np.finfo(np.float32).eps
+    near = np.zeros(len(pos), bool)
+    for axis, (coord, e) in enumerate(zip(h, edges)):
+        coord = np.asarray(coord)
+        if axis == 1 and cfg.geometry is Geometry.SPHERICAL:
+            coord, e = np.cos(coord), np.cos(e)
+        gap = np.min(np.abs(coord[:, None] - e[None, :]), axis=1)
+        near |= gap <= ulps * eps * max(np.abs(e).max(), 1.0)
+    return near
+
+
+ANGULAR = {
+    "spherical_2d_log": (Dims.TWO, Geometry.SPHERICAL,
+                         (np.geomspace(1e12, 9e13, 97), np.linspace(0.0, 0.31416, 17))),
+    "spherical_3d": (Dims.THREE, Geometry.SPHERICAL,
+                     (np.geomspace(1e12, 2e13, 49), np.linspace(1e-3, np.pi / 3, 13),
+                      np.linspace(0.0, 2 * np.pi, 9))),
+    "polar_3d": (Dims.THREE, Geometry.POLAR,
+                 (np.linspace(1e10, 3.2e11, 17), np.linspace(0.0, 2 * np.pi, 9),
+                  np.linspace(1.8e12, 2.9e12, 33))),
+}
+
+
+@pytest.mark.parametrize("kind", ["uniform_2d", "nonuniform_2d", "uniform_3d", *ANGULAR])
 def test_find_cell_direct_identical_to_jax(kind):
-    if kind == "uniform_3d":
+    """Cells and in_grid identical to JAX's; on angular grids (float32
+    arccos/atan2, which XLA-CPU and torch evaluate differently) a handful may
+    differ, every one within a few float32 ulps of a cell face."""
+    if kind in ANGULAR:
+        dims, geom, edges = ANGULAR[kind]
+        cfg = Config(dims=dims, geometry=geom, dtype="float32")
+        arrays = (jan.make_grid_2d(cfg, *edges) if dims is Dims.TWO
+                  else _grid_3d_arrays(edges))
+    elif kind == "uniform_3d":
         cfg = Config(dims=Dims.THREE, geometry=Geometry.CARTESIAN, dtype="float32")
         edges = (np.linspace(-4e11, 4e11, 17), np.linspace(-4e11, 4e11, 9),
                  np.linspace(1.8e12, 2.9e12, 33))
-        c = [0.5 * (e[:-1] + e[1:]) for e in edges]
-        d = [np.diff(e) for e in edges]
-        grids = np.meshgrid(*c, indexing="ij")
-        sizes = np.meshgrid(*d, indexing="ij")
-        n = grids[0].size
-        arrays = dict(r0=grids[0].ravel(), r1=grids[1].ravel(), r2=grids[2].ravel(),
-                      dr0=sizes[0].ravel(), dr1=sizes[1].ravel(), dr2=sizes[2].ravel(),
-                      v0=np.zeros(n), v1=np.zeros(n), v2=np.zeros(n),
-                      dens=np.ones(n), pres=np.ones(n))
+        arrays = _grid_3d_arrays(edges)
     else:
         cfg = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL, dtype="float32")
         r1e = (np.linspace(1.8e12, 2.9e12, 65) if kind == "uniform_2d"
@@ -162,11 +208,28 @@ def test_find_cell_direct_identical_to_jax(kind):
     assert tidx.uniform == jidx.uniform and tidx.three_d == jidx.three_d
     for a in ("lo", "inv_d", "edges0", "edges1", "edges2"):
         np.testing.assert_array_equal(getattr(tidx, a).numpy(), np.asarray(getattr(jidx, a)))
-    pos = _positions(edges, kind == "uniform_3d")
+    pos = (_angular_positions(cfg, edges) if kind in ANGULAR
+           else _positions(edges, kind == "uniform_3d"))
     jcell, jin = jax.jit(
         lambda p: jgrid.find_cell_direct(cfg, jidx, jhost.to_device(dtype=jnp.float32), p)
     )(jnp.asarray(pos))
     tcell, tin = tgrid.find_cell_direct(cfg, tidx, thost.to_device("cpu"), torch.from_numpy(pos))
-    np.testing.assert_array_equal(tcell.numpy(), np.asarray(jcell))
-    np.testing.assert_array_equal(tin.numpy(), np.asarray(jin))
+    differ = (tcell.numpy() != np.asarray(jcell)) | (tin.numpy() != np.asarray(jin))
+    if kind in ANGULAR:
+        assert differ.sum() <= 5, differ.sum()
+        assert _near_faces(cfg, edges, pos[differ]).all()
+    else:
+        assert not differ.any()
     assert 0.3 < float(tin.float().mean()) < 0.99  # both inside and outside probed
+
+
+def _grid_3d_arrays(edges):
+    c = [0.5 * (e[:-1] + e[1:]) for e in edges]
+    d = [np.diff(e) for e in edges]
+    grids = np.meshgrid(*c, indexing="ij")
+    sizes = np.meshgrid(*d, indexing="ij")
+    n = grids[0].size
+    return dict(r0=grids[0].ravel(), r1=grids[1].ravel(), r2=grids[2].ravel(),
+                dr0=sizes[0].ravel(), dr1=sizes[1].ravel(), dr2=sizes[2].ravel(),
+                v0=np.zeros(n), v1=np.zeros(n), v2=np.zeros(n),
+                dens=np.ones(n), pres=np.ones(n))

@@ -1,7 +1,8 @@
 """Photon injection and packing of the port against mcrat_tpu.
 
 With the same ``np.random.default_rng(seed)`` both packages draw the same
-photons: identical counts, cells, types and weights, float64 arrays within
+photons, on 2-D cylindrical and spherical frames and on 3-D cartesian,
+spherical and polar ones: identical counts, cells, types and weights, float64 arrays within
 rtol 1e-12; ``photons_from_arrays`` then packs identical float32 values.
 """
 import jax.numpy as jnp
@@ -17,11 +18,20 @@ from mcrat_tpu_torch import convert
 from mcrat_tpu_torch import transport as tt
 from mcrat_tpu_torch.grid import frame_from_numpy as tframe
 from mcrat_tpu_torch.models import analytic as tan
+from test_torch_geometry_cases import frame_case
 
 torch.set_num_threads(1)
 
 
+# 3-D frames of tests/test_torch_geometry_cases.py (Gamma = 2 outflows)
+CASES_3D = dict(cartesian_3d="ultra_cart3", spherical_3d="packed_sph3", polar_3d="packed_pol3")
+
+
 def _hosts(kind):
+    if kind in CASES_3D:
+        _, jhost, _, inj = frame_case(CASES_3D[kind])
+        _, thost, _, _ = frame_case(CASES_3D[kind], port=True)
+        return jhost, thost, inj
     if kind == "spherical":
         cfg = Config(dims=Dims.TWO, geometry=Geometry.SPHERICAL,
                      simulation_type=SimType.SPHERICAL_OUTFLOW)
@@ -43,6 +53,9 @@ def _hosts(kind):
     ("cylindrical", Spectrum.BLACKBODY, 7),
     ("cylindrical", Spectrum.WIEN, 8),
     ("spherical", Spectrum.BLACKBODY, 3),
+    ("cartesian_3d", Spectrum.BLACKBODY, 4),
+    ("spherical_3d", Spectrum.WIEN, 5),
+    ("polar_3d", Spectrum.BLACKBODY, 6),
 ])
 def test_inject_photons_identical_to_jax(kind, spect, seed):
     jhost, thost, kw = _hosts(kind)
