@@ -75,15 +75,18 @@ def load_fused_round() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(FUSED_ROUND_SRC)["path"]))
         p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
         lib.mcrat_fused_rounds.argtypes = [
-            i32,  # variant code
+            i32, i32,  # variant code, optical-depth family
             p, i64, p, p, p, i64, p, p, i32,  # state, n, cell, flags, table, ncell, block_act, out, seed
             *[f32] * 6,  # domain
             *[f32] * 6, i32, i32,  # lo0, d0, lo1, d1, lo2, d2, n1, n2
             i32, i32, i32, i32, i32,  # stokes_on, inner_rounds, el_iters, kn_iters, block_lanes
             f32, f32, f32, f32, f32,  # kb_over_mec2, thom, c_light, inv_c, inv_mp
+            i32, ctypes.POINTER(f32), i32,  # cheb_base, NtConsts floats (host), their count
             p,  # stream
         ]
         lib.mcrat_fused_rounds.restype = ctypes.c_int
+        lib.mcrat_kn_cross_section.argtypes = [p, p, i64, p]  # energies, out, n, stream
+        lib.mcrat_kn_cross_section.restype = ctypes.c_int
         lib.mcrat_error_string.argtypes = [ctypes.c_int]
         lib.mcrat_error_string.restype = ctypes.c_char_p
         _loaded["fused_round"] = lib

@@ -21,12 +21,16 @@ class _TorchNS:
     sqrt = staticmethod(torch.sqrt)
     sin = staticmethod(torch.sin)
     cos = staticmethod(torch.cos)
+    exp = staticmethod(torch.exp)
+    log = staticmethod(torch.log)
+    log1p = staticmethod(torch.log1p)
     arccos = staticmethod(torch.arccos)
     arctan2 = staticmethod(torch.atan2)
     abs = staticmethod(torch.abs)
     clip = staticmethod(torch.clamp)
     where = staticmethod(torch.where)
     zeros_like = staticmethod(torch.zeros_like)
+    finfo = staticmethod(torch.finfo)
 
     @staticmethod
     def mod(x, m):
@@ -35,6 +39,10 @@ class _TorchNS:
     @staticmethod
     def maximum(x, y):
         return torch.clamp(x, min=y) if not torch.is_tensor(y) else torch.maximum(x, y)
+
+    @staticmethod
+    def minimum(x, y):
+        return torch.clamp(x, max=y) if not torch.is_tensor(y) else torch.minimum(x, y)
 
 
 torch_ns = _TorchNS()

@@ -14,6 +14,7 @@ import torch
 from mcrat_tpu.config import Config
 
 from .grid import HydroFrameHost, RectilinearIndex, build_rectilinear_index
+from .ops.hot_xsec import HotCrossSectionTable
 from .transport import Photons
 
 PHOTON_FIELDS = tuple(f.name for f in dataclasses.fields(Photons))
@@ -49,6 +50,19 @@ def frame_from_numpy_fields(cfg: Config, fields: dict) -> HydroFrameHost:
         val = fields[name]
         kw[name] = val if name == "jet_axis" or val is None else np.array(val, dtype=np.float64)
     return HydroFrameHost(cfg=cfg, **kw)
+
+
+def xsec_table_from_numpy(log_e, log_t, thermal, nonthermal=None,
+                          subgroup_frac=None) -> HotCrossSectionTable:
+    """The port's hot cross-section table from the arrays of ``mcrat_tpu.
+    ops.hot_xsec.HotCrossSectionTable`` (or its ``build_*_table``), kept in
+    float64."""
+
+    def f64(a):
+        return None if a is None else np.array(a, dtype=np.float64)
+
+    return HotCrossSectionTable(log_e=f64(log_e), log_t=f64(log_t), thermal=f64(thermal),
+                                nonthermal=f64(nonthermal), subgroup_frac=f64(subgroup_frac))
 
 
 def index_from_edges(edges0, edges1, edges2=None, dtype=torch.float32,

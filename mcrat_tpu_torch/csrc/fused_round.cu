@@ -1,42 +1,57 @@
 // Fused Monte Carlo transport rounds on NVIDIA Hopper (sm_90a).
 //
 // Replaces mcrat_tpu/ops/pallas_round.py::fused_rounds (the pallas_call at
-// :1185, kernel body _make_kernel :574-1111) with DIRECT Thomson optical
-// depth and thermal electrons, Stokes on or off, for every (dims x geometry)
-// frame on a rectilinear grid.  Its plain PyTorch twin is
-// mcrat_tpu_torch/ops/fused_round.py::fused_rounds_reference; the two are
-// held against each other lane for lane, so every formula below keeps the
-// twin's operation order (and the build turns off FMA contraction).
+// :1185, kernel body _make_kernel :574-1111) with DIRECT Thomson or TABLE
+// (hot cross-section) optical depth, thermal electrons and, in TABLE mode on
+// the packed variants, nonthermal (broken) power-law electrons, Stokes on or
+// off, for every (dims x geometry) frame on a rectilinear grid.  Its plain
+// PyTorch twin is mcrat_tpu_torch/ops/fused_round.py::fused_rounds_reference;
+// the two are held against each other lane for lane, so every formula below
+// keeps the twin's operation order (and the build turns off FMA contraction).
 //
 // One thread owns one photon lane and runs `inner_rounds` complete rounds:
-//   tau-rate -> comoving boost -> free path -> move -> thermal electron draw
+//   comoving boost -> tau-rate -> free path -> move -> electron draw
 //   -> polarized Klein-Nishina scatter attempt -> Stokes -> cell membership.
 // A lane that leaves its cell stalls until the caller re-resolves its cell.
 //
-// Variants (template parameters; one C entry point dispatches on an int code,
-// the same codes as fused_round.VARIANTS), with one 4-round call's time on an
-// H100 80GB HBM3 (700 W), kernel vs plain twin, at the lanes of the frame that
-// selects it (PERF.md section 6):
-//   code  name          cell table (rows)        replaces (pallas_round.py)  kernel vs twin
-//   0     ultra_cyl2    physics (4), centre i,j  :606-617,846-850,744-757    0.504 vs 238.8 ms, 1.03M lanes
-//   1     ultra_sph2    physics (4), centre i,j  :606-617,836-844,758-779    0.100 vs 189.3 ms, 246k lanes
+// Optical-depth families (template parameter TAU; the C entry point
+// dispatches on a family code and a variant code):
+//   0 DIRECT   sigma_hat = 1 (pallas_round.py:957-958)
+//   1 CHEB     TABLE: sigma_hat from the cell's 16 Chebyshev rows at
+//              cheb_base (ops/hot_xsec.thermal_cheb_cells), evaluated by a
+//              branch-select Clenshaw recurrence at the CURRENT comoving
+//              energy every round, after the comoving boost
+//              (pallas_round.py:890-931,968-985); the 11 variants
+//   2 CHEB_NT  CHEB + nonthermal electrons (pallas_round.py:318-406,933-944,
+//              972-983,1019-1035): biased total rate tau0 + N_GAMMA tau_norm,
+//              population draw and subgroup inverse-CDF gamma from a runtime
+//              constant struct (NtConsts); the 7 packed variants
+// 58 instantiations in all (22 + 22 + 14, each with Stokes on and off).
+//
+// Variants (template parameters; the C entry point dispatches on an int code,
+// the same codes as fused_round.VARIANTS); one call's time on an H100, kernel
+// vs plain twin, for each instantiation is in PERF.md section 6:
+//   code  name          cell table (rows)        replaces (pallas_round.py)
+//   0     ultra_cyl2    physics (4), centre i,j  :606-617,846-850,744-757
+//   1     ultra_sph2    physics (4), centre i,j  :606-617,836-844,758-779
 //                       + sin/cos theta centre
-//   2     ultra_cart3   physics (5), i,j,k       :618-620,851-861,682-697    0.390 vs 273.2 ms, 786k lanes
-//   3     slim_cyl2     PCOL_SLIM (8)            :621-627,744-757            0.148 vs 224.6 ms, 262k lanes
-//   4     packed_cyl2   PCOL (16)                :629-647,744-757,875-878    0.177 vs 229.2 ms, 262k lanes
-//   5     packed_cyl25  PCOL (16), phi-hat v2    :636-647,744-757,875-878    0.112 vs 189.2 ms, 164k lanes
-//   6     packed_sph2   PCOL (16)                :648-655,758-779,875-878    0.244 vs 185.9 ms, 967k lanes
-//   7     packed_sph25  PCOL (16), phi-hat v2    :636-655,758-779,875-878    0.143 vs 228.2 ms, 197k lanes
-//   8     packed_cart3  PCOL (16)                :634-635,682-697,875-878    0.156 vs 261.0 ms, 180k lanes
-//   9     packed_sph3   PCOL (24)                :634-635,698-723,875-878    0.215 vs 193.8 ms, 410k lanes
-//   10    packed_pol3   PCOL (16)                :634-635,724-742,875-878    0.185 vs 216.5 ms, 246k lanes
+//   2     ultra_cart3   physics (5), i,j,k       :618-620,851-861,682-697
+//   3     slim_cyl2     PCOL_SLIM (8)            :621-627,744-757
+//   4     packed_cyl2   PCOL (16)                :629-647,744-757,875-878
+//   5     packed_cyl25  PCOL (16), phi-hat v2    :636-647,744-757,875-878
+//   6     packed_sph2   PCOL (16)                :648-655,758-779,875-878
+//   7     packed_sph25  PCOL (16), phi-hat v2    :636-655,758-779,875-878
+//   8     packed_cart3  PCOL (16)                :634-635,682-697,875-878
+//   9     packed_sph3   PCOL (24)                :634-635,698-723,875-878
+//   10    packed_pol3   PCOL (16)                :634-635,724-742,875-878
 // Each exists with Stokes on and off.  The variants differ only in where the
 // cell's values come from (the Cell struct below) and in the geometry of the
 // fluid velocity and of the membership test; the round body is shared.
 //
 // What bounds it on this card: arithmetic, not memory, in every variant.  A
 // lane reads 128 B of state (16 f32 planes) + 8 B of flags/cell and 16-96 B
-// of its cell's row, and writes 128 B per call, against ~115 uniforms
+// of its cell's row (+64 B of Chebyshev rows in TABLE mode), and writes
+// 128 B per call, against ~115 uniforms
 // (murmur3 finalizer each) and ~40 transcendentals (log, sin/cos, sqrt,
 // rsqrt, divisions) per round -- the kernel is ALU/SFU and register bound.
 // The design follows from that:
@@ -59,12 +74,16 @@
 //     work never shifts a random number;
 //   * lanes of idle logical blocks (block_act == 0) and finished lanes return
 //     at once; the state is updated in place, so their state is untouched.
-// Transcendentals of cell geometry (sinf/cosf) are the functions PyTorch's
-// CUDA torch.sin/torch.cos call, so kernel and twin agree to the bit.
+// Transcendentals (logf, expf, sinf/cosf, log1p) are the functions PyTorch's
+// CUDA torch.log/exp/sin/cos/log1p call, so kernel and twin agree to the bit.
+// The Klein-Nishina closed form runs in double (fault F6: in float32 its
+// ~2/e^2 terms cancel to ~1 and lose up to 0.25 just above e = 1e-3), one
+// evaluation per scatter attempt.
 // Register pressure and occupancy are not tuned yet (later work).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -100,6 +119,23 @@ struct Grid {
 struct Consts {
   float kb_over_mec2, thom, c_light, inv_c, inv_mp;  // from mcrat_tpu.constants
 };
+
+enum Tau { DIRECT = 0, CHEB = 1, CHEB_NT = 2 };
+constexpr int CHEB_DLO = 5, CHEB_DHI = 8;  // ops/hot_xsec.py CHEB_*
+constexpr int P_NTDENS = 12;
+
+// nonthermal constants, float32 values formed on the host as the JAX kernel
+// forms them (fused_round.NtConstants, the same field order); flags are 0/1
+struct NtConsts {
+  float broken, p_is_1, p2_is_1;
+  float n_gamma, inv_n_gamma, n_gamma_m1;
+  float thom_f1, invk1, span1;  // subgroup-1 fit (ops/hot_xsec._sub1_cheb_static)
+  float c1_lo[CHEB_DLO + 1], c1_hi[CHEB_DHI + 1];
+  float lg_min, dg, ln10, ln10_dg;
+  float q, inv_q;  // power law
+  float gmin, gbrk, a_norm, a_cont, f_break, om_p1, om_p2, gmin_pow, gbrk_pow;  // broken
+};
+static_assert(sizeof(NtConsts) == 39 * sizeof(float), "NtConsts must match NtConstants");
 
 // ---------------------------------------------------------------------------
 // counter-based uniforms (ops/rng.py)
@@ -181,25 +217,103 @@ __device__ __forceinline__ void rotate_basis(float vox, float voy, float voz,
   u = un;
 }
 
+// sigma_KN / sigma_T; the closed form in double, rounded once (F6 repair)
 __device__ __forceinline__ float kn_cross_section(float e) {
   if (!(e >= F32(1e-3))) return 1.0f - 2.0f * e;
-  const float se = fmaxf(e, F32(1e-10));
-  const float t = 1.0f + 2.0f * se;
-  return 0.75f * (2.0f / (se * se) +
-                  (1.0f / (2.0f * se) - (1.0f + se) / (se * (se * se))) * log1pf(2.0f * se) +
-                  (1.0f + se) / (t * t));
+  const double se = fmax((double)e, 1e-10);
+  const double t = 1.0 + 2.0 * se;
+  return (float)(0.75 * (2.0 / (se * se) +
+                         (1.0 / (2.0 * se) - (1.0 + se) / (se * (se * se))) * log1p(2.0 * se) +
+                         (1.0 + se) / (t * t)));
+}
+
+// branch-select Clenshaw of a two-interval Chebyshev fit of log10 sigma:
+// linear x below the KN knee (x < 1), log space above it
+__device__ __forceinline__ float cheb_eval(float x, float span_inv, const float* c_lo,
+                                           const float* c_hi) {
+  const bool lo = x < 1.0f;
+  float t;
+  if (lo) {
+    t = 2.0f * x - 1.0f;
+  } else {
+    const float lgx = logf(fmaxf(x, F32(1e-37))) * F32(0.4342944819032518);
+    t = clampf(2.0f * lgx * span_inv - 1.0f, -1.0f, 1.0f);
+  }
+  float bk1 = 0.0f, bk2 = 0.0f;
+#pragma unroll
+  for (int k = CHEB_DHI; k > 0; --k) {
+    const float ck = lo ? (k <= CHEB_DLO ? c_lo[k] : 0.0f) : c_hi[k];
+    const float bk0 = ck + 2.0f * t * bk1 - bk2;
+    bk2 = bk1;
+    bk1 = bk0;
+  }
+  const float f = (lo ? c_lo[0] : c_hi[0]) + t * bk1 - bk2;
+  return expf(f * F32(2.302585092994046));
+}
+
+// broken power law: integrals of g^-p1 from gamma_min, of g^-p2 from
+// gamma_break, and the CDF
+__device__ __forceinline__ float bpl_seg1(float hi, const NtConsts& c) {
+  if (c.p_is_1 != 0.0f) return logf(hi / c.gmin);
+  return (expf(c.om_p1 * logf(hi)) - c.gmin_pow) / c.om_p1;
+}
+
+__device__ __forceinline__ float bpl_seg2(float hi, const NtConsts& c) {
+  if (c.p2_is_1 != 0.0f) return logf(hi / c.gbrk);
+  return (expf(c.om_p2 * logf(hi)) - c.gbrk_pow) / c.om_p2;
+}
+
+__device__ __forceinline__ float bpl_cdf(float g, const NtConsts& c) {
+  const float below = c.a_norm * bpl_seg1(fminf(g, c.gbrk), c);
+  const float above = c.f_break + c.a_cont * bpl_seg2(fmaxf(g, c.gbrk), c);
+  return g <= c.gbrk ? below : above;
+}
+
+// inverse-CDF gamma of the (broken) power law restricted to subgroup sub_f
+__device__ __forceinline__ float nonthermal_gamma(float u, float sub_f, const NtConsts& c) {
+  if (c.broken == 0.0f) {
+    const float ln_lo = c.ln10 * (c.lg_min + sub_f * c.dg);
+    const float ln_hi = ln_lo + c.ln10_dg;
+    if (c.p_is_1 != 0.0f) return expf(ln_lo + u * (ln_hi - ln_lo));
+    const float a = expf(c.q * ln_lo);
+    const float b = expf(c.q * ln_hi);
+    return expf(c.inv_q * logf(fmaxf(a + u * (b - a), F32(1e-37))));
+  }
+  const float g_lo = expf(c.ln10 * (c.lg_min + sub_f * c.dg));
+  const float g_hi = expf(c.ln10 * (c.lg_min + (sub_f + 1.0f) * c.dg));
+  const float f_lo = bpl_cdf(g_lo, c);
+  const float f_hi = bpl_cdf(g_hi, c);
+  const float x = f_lo + u * (f_hi - f_lo);
+  float lo, hi;
+  if (c.p_is_1 != 0.0f) {
+    lo = c.gmin * expf(x / c.a_norm);
+  } else {
+    const float arg = c.gmin_pow + (c.om_p1 * x) / c.a_norm;
+    lo = expf(logf(fmaxf(arg, F32(1e-37))) / c.om_p1);
+  }
+  const float x2 = (x - c.f_break) / c.a_cont;
+  if (c.p2_is_1 != 0.0f) {
+    hi = c.gbrk * expf(x2);
+  } else {
+    const float arg2 = c.gbrk_pow + c.om_p2 * x2;
+    hi = expf(logf(fmaxf(arg2, F32(1e-37))) / c.om_p2);
+  }
+  return x <= c.f_break ? lo : hi;
 }
 
 struct Offsets {
-  uint32_t free_, mb, mj, el, acc, theta, phi, per_round;
+  uint32_t free_, mb, mj, pop, el, acc, theta, phi, per_round;
 };
 
-__device__ __forceinline__ Offsets draw_offsets(int el_iters, int kn_iters) {
+// static draw numbers within a round; nonthermal electrons add the
+// population draw and the sampler's uniform after the thermal trials
+__device__ __forceinline__ Offsets draw_offsets(int el_iters, int kn_iters, bool nt) {
   Offsets o;
   o.free_ = 1;
   o.mb = 2;
   o.mj = 5;
-  o.el = o.mj + 5u * el_iters;
+  o.pop = o.mj + 5u * el_iters;
+  o.el = o.pop + (nt ? 2u : 0u);
   o.acc = o.el + 2u;
   o.theta = o.el + 3u;
   o.phi = o.theta + 2u * kn_iters;
@@ -372,10 +486,13 @@ __device__ __forceinline__ bool in_axis(float h, float c, float d) {
 // round_body), its fluid velocity (fluid_beta) and membership test
 // (in_cell_and_domain); fixed for the call
 
-template <int GEO, int SRC, bool V2>
+template <int GEO, int SRC, bool V2, int TAU>
 struct Cell {
   float v0, v1, v2;            // hydro basis in 2-D, MCRaT Cartesian in 3-D
   float beta_mag, n_e, temp;
+  float gam, nt_dens;          // nonthermal: packed gamma and nonthermal density
+  // TABLE: inverse knee, 1 / (LOG_PH_E_MAX - s), Chebyshev coefficients
+  float inv_knee, span_inv, c_lo[CHEB_DLO + 1], c_hi[CHEB_DHI + 1];
   float ctr0, ctr1, ctr2, size0, size1, size2;  // cell box in hydro coordinates
   float s1, c1, cos_half1;     // sin/cos of the theta (polar: phi) centre, cos of half width
   float cos_dom2, cos_dom3;    // spherical theta domain
@@ -383,11 +500,21 @@ struct Cell {
   float cos_mid, sin_mid, cos_half_dom;  // azimuth domain, about its midpoint
 
   __device__ __forceinline__ void load(const float* __restrict__ t, int64_t ncell, int cl,
-                                       const Grid& g, const Consts& cst) {
+                                       const Grid& g, const Consts& cst, int cheb_base) {
     const float* row = t + cl;
 #define AT(r) row[(int64_t)(r) * ncell]
+    if (TAU != DIRECT) {
+      inv_knee = AT(cheb_base);
+#pragma unroll
+      for (int k = 0; k <= CHEB_DLO; ++k) c_lo[k] = AT(cheb_base + 1 + k);
+#pragma unroll
+      for (int k = 0; k <= CHEB_DHI; ++k) c_hi[k] = AT(cheb_base + 2 + CHEB_DLO + k);
+      const float lg_invk = logf(fmaxf(inv_knee, F32(1e-37))) * F32(0.4342944819032518);
+      span_inv = 1.0f / (F32(6.0) + lg_invk);
+    }
+    if (TAU == CHEB_NT) nt_dens = AT(P_NTDENS);
     if (SRC == PACKED) {
-      const float gam = AT(P_GAMMA);
+      gam = AT(P_GAMMA);
       beta_mag = sqrtf(fmaxf(1.0f - 1.0f / (gam * gam), 0.0f));
       n_e = AT(P_DENS) * cst.inv_mp;
       temp = AT(P_TEMP);
@@ -544,13 +671,14 @@ struct Cell {
 
 // ---------------------------------------------------------------------------
 
-template <bool STOKES, int GEO, int SRC, bool V2>
+template <bool STOKES, int GEO, int SRC, bool V2, int TAU>
 __global__ void __launch_bounds__(128)
 fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict__ cell,
                     const int* __restrict__ flags, const float* __restrict__ table,
                     int64_t ncell, const int* __restrict__ block_act,
                     int* __restrict__ out_flags, int seed, Grid g, Consts cst,
-                    int inner_rounds, int el_iters, int kn_iters, int block_lanes) {
+                    int inner_rounds, int el_iters, int kn_iters, int block_lanes,
+                    int cheb_base, NtConsts ntc) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   const int64_t pid = lane / block_lanes;
@@ -579,13 +707,13 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
 
   int cl = cell[lane];
   cl = cl < 0 ? 0 : (cl >= ncell ? (int)(ncell - 1) : cl);
-  Cell<GEO, SRC, V2> cc;
-  cc.load(table, ncell, cl, g, cst);
+  Cell<GEO, SRC, V2, TAU> cc;
+  cc.load(table, ncell, cl, g, cst, cheb_base);
 
   const uint32_t lane_in = (uint32_t)(lane - pid * block_lanes);
   const uint32_t base =
       (uint32_t)seed + (uint32_t)pid * 1442695041u + lane_in * 0x9E3779B9u;
-  const Offsets off = draw_offsets(el_iters, kn_iters);
+  const Offsets off = draw_offsets(el_iters, kn_iters, TAU == CHEB_NT);
   const float n_sigma = cc.n_e * cst.thom;
   bool stalled = false, promoted = false;
 
@@ -594,17 +722,37 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
     if (stalled || !(t_rem > 0.0f)) break;
     const uint32_t k0 = (uint32_t)r * off.per_round;
 
-    // 1. tau rate: fluid beta at the photon position
+    // 1. fluid beta at the photon position
     float bx, by, bz;
     cc.fluid_beta(px, py, bx, by, bz);
     const float fl_norm = sqrtf(bx * bx + by * by + bz * bz);
     const float ph_norm = sqrtf(p1 * p1 + p2 * p2 + p3 * p3);
     const float denom = fmaxf(fl_norm * ph_norm, F32(1e-37));
     const float cos_ang = (bx * p1 + by * p2 + bz * p3) / denom;
-    const float rate = n_sigma * (1.0f - cc.beta_mag * cos_ang);
 
     // 2. comoving four-momentum
     if (in_grid) boost(bx, by, bz, p0, p1, p2, p3, c0, c1, c2, c3);
+
+    // tau rate.  TABLE: sigma_hat at the CURRENT comoving energy, after the
+    // boost (a lane outside the grid keeps its c0; its rate is unused).
+    // Nonthermal: the biased total tau0 + N_GAMMA tau_norm, tau_norm = tau0
+    // in thermal cells, else subgroup 1's (Src/optical_depth.c:60-112)
+    float rate, p_th = 1.0f;
+    if (TAU == DIRECT) {
+      rate = n_sigma * (1.0f - cc.beta_mag * cos_ang);
+    } else {
+      const float nsig_th = n_sigma * cheb_eval(c0 * cc.inv_knee, cc.span_inv, cc.c_lo, cc.c_hi);
+      if (TAU == CHEB_NT) {
+        const float nsig_nt1 = (cc.nt_dens * cc.gam * ntc.thom_f1) *
+                               cheb_eval(c0 * ntc.invk1, ntc.span1, ntc.c1_lo, ntc.c1_hi);
+        const float taunorm = cc.n_e > 0.0f ? nsig_th : nsig_nt1;
+        const float total = nsig_th + ntc.n_gamma * taunorm;
+        rate = total * (1.0f - cc.beta_mag * cos_ang);
+        p_th = nsig_th / fmaxf(total, F32(1e-37));
+      } else {
+        rate = nsig_th * (1.0f - cc.beta_mag * cos_ang);
+      }
+    }
 
     // 3. free path -> candidate step
     const float u1 = uniform_pos(base, k0 + off.free_);
@@ -631,7 +779,21 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
       float qc = q, uc = u;
       if (STOKES) rotate_basis(p1, p2, p3, 0.0f, 0.0f, 1.0f, p1, p2, p3, frx, fry, frz, qc, uc);
       float g_e, gb_e;
-      thermal_gamma_beta(base, k0, off, cc.temp, el_iters, cst, g_e, gb_e);
+      if (TAU == CHEB_NT) {
+        // scattering population: thermal w.p. p_th, else the subgroups in
+        // equal slices of the rest, inverse-CDF gamma within the subgroup
+        const float u_pop = uniform(base, k0 + off.pop);
+        if (u_pop <= p_th) {
+          thermal_gamma_beta(base, k0, off, cc.temp, el_iters, cst, g_e, gb_e);
+        } else {
+          const float slice_w = fmaxf((1.0f - p_th) * ntc.inv_n_gamma, F32(1e-37));
+          const float sub_f = clampf(floorf((u_pop - p_th) / slice_w), 0.0f, ntc.n_gamma_m1);
+          g_e = nonthermal_gamma(uniform(base, k0 + off.pop + 1u), sub_f, ntc);
+          gb_e = sqrtf(fmaxf(g_e * g_e - 1.0f, 0.0f));
+        }
+      } else {
+        thermal_gamma_beta(base, k0, off, cc.temp, el_iters, cst, g_e, gb_e);
+      }
       float ex, ey, ez;
       electron_from_gamma(base, k0, off, g_e, gb_e, c1, c2, c3, ex, ey, ez);
       const float g0 = g_e;
@@ -751,59 +913,107 @@ struct Launch {
   int seed;
   Grid g;
   Consts cst;
-  int inner_rounds, el_iters, kn_iters, block_lanes;
+  int inner_rounds, el_iters, kn_iters, block_lanes, cheb_base;
+  NtConsts ntc;
 };
 
-template <int GEO, int SRC, bool V2>
+template <int TAU, int GEO, int SRC, bool V2>
 void launch(const Launch& a, bool stokes, cudaStream_t s) {
   const int threads = 128;
   const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
   if (stokes) {
-    fused_rounds_kernel<true, GEO, SRC, V2><<<blocks, threads, 0, s>>>(
+    fused_rounds_kernel<true, GEO, SRC, V2, TAU><<<blocks, threads, 0, s>>>(
         a.state, a.n, a.cell, a.flags, a.table, a.ncell, a.block_act, a.out_flags, a.seed,
-        a.g, a.cst, a.inner_rounds, a.el_iters, a.kn_iters, a.block_lanes);
+        a.g, a.cst, a.inner_rounds, a.el_iters, a.kn_iters, a.block_lanes, a.cheb_base,
+        a.ntc);
   } else {
-    fused_rounds_kernel<false, GEO, SRC, V2><<<blocks, threads, 0, s>>>(
+    fused_rounds_kernel<false, GEO, SRC, V2, TAU><<<blocks, threads, 0, s>>>(
         a.state, a.n, a.cell, a.flags, a.table, a.ncell, a.block_act, a.out_flags, a.seed,
-        a.g, a.cst, a.inner_rounds, a.el_iters, a.kn_iters, a.block_lanes);
+        a.g, a.cst, a.inner_rounds, a.el_iters, a.kn_iters, a.block_lanes, a.cheb_base,
+        a.ntc);
   }
+}
+
+// the kernel's Klein-Nishina cross section on its own, for checks
+__global__ void kn_cross_section_kernel(const float* __restrict__ e, float* __restrict__ out,
+                                        int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = kn_cross_section(e[i]);
 }
 
 }  // namespace
 
-// variant codes as in mcrat_tpu_torch/ops/fused_round.py::VARIANTS; returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for an unknown
-// code)
-extern "C" int mcrat_fused_rounds(int variant, float* state, int64_t n, const int* cell,
-                                  const int* flags, const float* table, int64_t ncell,
-                                  const int* block_act, int* out_flags, int seed,
-                                  float dom0, float dom1, float dom2, float dom3, float dom4,
-                                  float dom5, float lo0, float d0, float lo1, float d1,
-                                  float lo2, float d2, int n1, int n2, int stokes_on,
-                                  int inner_rounds, int el_iters, int kn_iters,
-                                  int block_lanes, float kb_over_mec2, float thom,
-                                  float c_light, float inv_c, float inv_mp, void* stream) {
+// sigma_KN / sigma_T of n float32 energies through the kernel's device
+// function; returns cudaGetLastError() after the launch
+extern "C" int mcrat_kn_cross_section(const float* e, float* out, int64_t n, void* stream) {
   if (n <= 0) return 0;
-  const Launch a{state, n, cell, flags, table, ncell, block_act, out_flags, seed,
-                 Grid{dom0, dom1, dom2, dom3, dom4, dom5, lo0, d0, lo1, d1, lo2, d2, n1, n2},
-                 Consts{kb_over_mec2, thom, c_light, inv_c, inv_mp},
-                 inner_rounds, el_iters, kn_iters, block_lanes};
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  cudaStream_t s = (cudaStream_t)stream;
+  kn_cross_section_kernel<<<blocks, threads, 0, s>>>(e, out, n);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// one family's instantiations, by variant code; false for an unknown code
+// or an ultra/slim variant with nonthermal electrons
+template <int TAU>
+bool launch_variant(int variant, const Launch& a, bool st, cudaStream_t s) {
+  if constexpr (TAU != CHEB_NT) {  // CHEB_NT: the packed variants only
+    switch (variant) {
+      case 0: launch<TAU, CYL2, ULTRA, false>(a, st, s); return true;
+      case 1: launch<TAU, SPH2, ULTRA, false>(a, st, s); return true;
+      case 2: launch<TAU, CART3, ULTRA, false>(a, st, s); return true;
+      case 3: launch<TAU, CYL2, SLIM, false>(a, st, s); return true;
+    }
+  }
+  switch (variant) {
+    case 4: launch<TAU, CYL2, PACKED, false>(a, st, s); return true;
+    case 5: launch<TAU, CYL2, PACKED, true>(a, st, s); return true;
+    case 6: launch<TAU, SPH2, PACKED, false>(a, st, s); return true;
+    case 7: launch<TAU, SPH2, PACKED, true>(a, st, s); return true;
+    case 8: launch<TAU, CART3, PACKED, false>(a, st, s); return true;
+    case 9: launch<TAU, SPH3, PACKED, false>(a, st, s); return true;
+    case 10: launch<TAU, POL3, PACKED, false>(a, st, s); return true;
+  }
+  return false;
+}
+
+}  // namespace
+
+// variant codes as in mcrat_tpu_torch/ops/fused_round.py::VARIANTS, tau the
+// optical-depth family (fused_round.TAU_*), nt the host array of the n_nt
+// NtConsts floats; returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unknown code or family, an NtConsts of
+// another size, or an ultra/slim variant with nonthermal electrons)
+extern "C" int mcrat_fused_rounds(int variant, int tau, float* state, int64_t n,
+                                  const int* cell, const int* flags, const float* table,
+                                  int64_t ncell, const int* block_act, int* out_flags,
+                                  int seed, float dom0, float dom1, float dom2, float dom3,
+                                  float dom4, float dom5, float lo0, float d0, float lo1,
+                                  float d1, float lo2, float d2, int n1, int n2,
+                                  int stokes_on, int inner_rounds, int el_iters, int kn_iters,
+                                  int block_lanes, float kb_over_mec2, float thom,
+                                  float c_light, float inv_c, float inv_mp, int cheb_base,
+                                  const float* nt, int n_nt, void* stream) {
+  if (n_nt * sizeof(float) != sizeof(NtConsts) || nt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  Launch a{state, n, cell, flags, table, ncell, block_act, out_flags, seed,
+           Grid{dom0, dom1, dom2, dom3, dom4, dom5, lo0, d0, lo1, d1, lo2, d2, n1, n2},
+           Consts{kb_over_mec2, thom, c_light, inv_c, inv_mp},
+           inner_rounds, el_iters, kn_iters, block_lanes, cheb_base, NtConsts{}};
+  memcpy(&a.ntc, nt, sizeof(NtConsts));
   const bool st = stokes_on != 0;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (variant) {
-    case 0: launch<CYL2, ULTRA, false>(a, st, s); break;
-    case 1: launch<SPH2, ULTRA, false>(a, st, s); break;
-    case 2: launch<CART3, ULTRA, false>(a, st, s); break;
-    case 3: launch<CYL2, SLIM, false>(a, st, s); break;
-    case 4: launch<CYL2, PACKED, false>(a, st, s); break;
-    case 5: launch<CYL2, PACKED, true>(a, st, s); break;
-    case 6: launch<SPH2, PACKED, false>(a, st, s); break;
-    case 7: launch<SPH2, PACKED, true>(a, st, s); break;
-    case 8: launch<CART3, PACKED, false>(a, st, s); break;
-    case 9: launch<SPH3, PACKED, false>(a, st, s); break;
-    case 10: launch<POL3, PACKED, false>(a, st, s); break;
-    default: return (int)cudaErrorInvalidValue;
+  bool ok = false;
+  switch (tau) {
+    case DIRECT: ok = launch_variant<DIRECT>(variant, a, st, s); break;
+    case CHEB: ok = launch_variant<CHEB>(variant, a, st, s); break;
+    case CHEB_NT: ok = launch_variant<CHEB_NT>(variant, a, st, s); break;
   }
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

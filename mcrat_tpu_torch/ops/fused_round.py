@@ -1,11 +1,12 @@
 """The fused transport round: plain PyTorch twin and CUDA kernel wrapper.
 
 Port of ``mcrat_tpu/ops/pallas_round.py::fused_rounds`` with DIRECT
-(Thomson) optical depth and thermal electrons, Stokes on or off, for every
-(dims x geometry) frame on a rectilinear grid.  One call runs
+(Thomson) or TABLE (hot cross-section) optical depth, thermal electrons and,
+in TABLE mode, nonthermal (broken) power-law electrons, Stokes on or off,
+for every (dims x geometry) frame on a rectilinear grid.  One call runs
 ``inner_rounds`` complete transport rounds per photon lane:
 
-    tau-rate -> comoving boost -> free path -> move -> electron draw
+    comoving boost -> tau-rate -> free path -> move -> electron draw
     -> polarized Klein-Nishina scatter attempt -> Stokes -> cell membership
 
 A lane that leaves its cell stalls until the caller re-resolves its cell
@@ -20,8 +21,16 @@ that table and in the geometry of the fluid velocity and the membership test:
   sin/cos of its theta centre);
 * ``slim_cyl2``: non-uniform 2-D cartesian/cylindrical grids, the 8-row
   ``grid.PCOL_SLIM`` table;
-* ``packed_*``: every other rectilinear frame, the 16/24-row ``grid.PCOL``
-  table; gamma comes from its row and n_e = dens_lab / m_p in float32.
+* ``packed_*``: every other rectilinear frame, and every nonthermal one, the
+  16/24-row ``grid.PCOL`` table; gamma comes from its row and
+  n_e = dens_lab / m_p in float32.
+
+TABLE mode appends ``hot_xsec.CHEB_ROWS`` per-cell Chebyshev rows to the
+table at row ``cheb_base`` (the variant's width): sigma_hat is evaluated
+every round at the current comoving energy (:func:`_cheb_eval`).
+Nonthermal electrons (``nt``, :class:`NtConstants`) add the biased
+multi-population rate, the population draw and the subgroup inverse-CDF
+gamma (:func:`_population_gamma`), and two draws per round.
 
 :func:`fused_rounds_reference` is the plain twin, vectorized over lanes.
 :func:`fused_rounds` is the wrapper: on CPU tensors it runs the twin, on CUDA
@@ -35,7 +44,7 @@ Random numbers come from ``ops.rng`` (the interpret-mode hash of the JAX
 kernel) with static draw numbers (:func:`draw_offsets`), so the twin, the
 kernel and the JAX kernel in interpret mode agree lane for lane.
 
-Differences from the JAX kernel, both deliberate:
+Differences from the JAX kernel, all deliberate:
 
 * the Maxwell-Boltzmann / Maxwell-Juttner switch is made per lane
   (``theta < THETA_MB_SWITCH``, as the reference does per electron,
@@ -44,7 +53,9 @@ Differences from the JAX kernel, both deliberate:
 * fault F1 is repaired: where the fluid velocity is zero the Stokes rotation
   chain uses z-hat in place of the (degenerate) +-beta_f reference vector, so
   the z -> beta_e rotations are kept (as ``ops.stokes`` / ``transport_rounds``
-  do).  Lanes with beta_f != 0 are unchanged.
+  do).  Lanes with beta_f != 0 are unchanged;
+* fault F6 is repaired: the Klein-Nishina closed form is evaluated in
+  float64 and rounded once (:func:`_kn_cross_section`).
 """
 from __future__ import annotations
 
@@ -53,12 +64,14 @@ import ctypes
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from mcrat_tpu.constants import C_LIGHT, KB_OVER_MEC2, M_P, THOM_X_SECT
 
 from ..grid import PCOL, PCOL_SLIM
 from . import rng
+from .hot_xsec import CHEB_DHI, CHEB_DLO, CHEB_ROWS, LOG_PH_E_MAX
 
 # state plane layout (f32), as pallas_round.SP_*: lab p, position, Stokes
 # q/u/v (I == 1), frame time left, scatter count, comoving p
@@ -159,12 +172,15 @@ class DrawOffsets(NamedTuple):
     """Static draw numbers within one round (``k = round * per_round +
     offset``), in the JAX kernel's program order: free path, the
     Maxwell-Boltzmann branch (traced first by ``lax.cond``), the
-    Maxwell-Juttner trials, the electron angles, the KN acceptance, the
-    theta trials and the phi trials."""
+    Maxwell-Juttner trials, with nonthermal electrons the population draw
+    and the sampler's uniform (``pop``, ``pop + 1``; -1 without), the
+    electron angles, the KN acceptance, the theta trials and the phi
+    trials."""
 
     free: int
     mb: int
     mj: int
+    pop: int
     el: int
     acc: int
     theta: int
@@ -172,16 +188,114 @@ class DrawOffsets(NamedTuple):
     per_round: int
 
 
-def draw_offsets(el_iters: int, kn_iters: int) -> DrawOffsets:
+def draw_offsets(el_iters: int, kn_iters: int, nonthermal: bool = False) -> DrawOffsets:
     mj = 5
-    el = mj + 5 * el_iters
+    pop = mj + 5 * el_iters if nonthermal else -1
+    el = mj + 5 * el_iters + (2 if nonthermal else 0)
     theta = el + 3
     phi = theta + 2 * kn_iters
-    return DrawOffsets(free=1, mb=2, mj=mj, el=el, acc=el + 2, theta=theta,
+    return DrawOffsets(free=1, mb=2, mj=mj, pop=pop, el=el, acc=el + 2, theta=theta,
                        phi=phi, per_round=phi + 2 * kn_iters - 1)
 
 
 OFFSETS = draw_offsets(EL_ITERS, KN_ITERS)
+OFFSETS_NT = draw_offsets(EL_ITERS, KN_ITERS, nonthermal=True)
+
+_LN10 = 2.302585092994046
+_INV_LN10 = 0.4342944819032518
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+class NtConstants(NamedTuple):
+    """Constants of the in-kernel nonthermal path, each a float32 value as
+    the JAX kernel forms it: where its expression meets a float32 array a
+    Python float is rounded once; only products JAX folds in Python (such as
+    ``THOM_X_SECT * f1``) are formed in float64 first
+    (pallas_round._make_nonthermal_gamma, :933-944, :972-983, :1019-1035).
+    The kernel takes them as one runtime struct (:meth:`as_floats`)."""
+
+    broken: bool  # broken power law, else power law
+    p_is_1: bool  # power law: p == 1; broken: p1 == 1
+    p2_is_1: bool
+    n_gamma: float
+    inv_n_gamma: float
+    n_gamma_m1: float
+    thom_f1: float  # THOM_X_SECT * f1 (subgroup 1's fraction)
+    invk1: float  # subgroup-1 Chebyshev fit: inverse knee, 1 / span
+    span1: float
+    c1_lo: tuple  # (CHEB_DLO + 1) low and (CHEB_DHI + 1) high coefficients
+    c1_hi: tuple
+    lg_min: float
+    dg: float
+    ln10: float
+    ln10_dg: float
+    q: float  # power law: 1 - p, 1 / (1 - p)
+    inv_q: float
+    gmin: float  # broken power law
+    gbrk: float
+    a_norm: float
+    a_cont: float  # a_norm * gamma_break^(p2 - p1)
+    f_break: float
+    om_p1: float  # 1 - p1, 1 - p2, gamma_min^(1 - p1), gamma_break^(1 - p2)
+    om_p2: float
+    gmin_pow: float
+    gbrk_pow: float
+
+    def as_floats(self) -> list:
+        """The kernel's ``NtConsts`` struct, field by field."""
+        out = []
+        for v in self:
+            out.extend(v if isinstance(v, tuple) else [float(v)])
+        return out
+
+
+N_NT_CONSTS = 39
+
+
+def nonthermal_constants(cfg, sub1: tuple) -> NtConstants:
+    """The :class:`NtConstants` of a nonthermal config, ``sub1`` the global
+    subgroup-1 fit (``ops.hot_xsec._sub1_cheb_static``), from float64 Python
+    arithmetic as ``pallas_round._make_nonthermal_gamma`` forms it."""
+    from mcrat_tpu.config import NonthermalDist
+
+    from .electrons import broken_power_law_norm
+
+    lg_min = math.log10(cfg.gamma_min)
+    dg = (math.log10(cfg.gamma_max) - lg_min) / cfg.n_gamma
+    ln10 = math.log(10.0)
+    n_lo = CHEB_DLO + 1
+    kw = dict(
+        n_gamma=_f32(cfg.n_gamma), inv_n_gamma=_f32(1.0 / cfg.n_gamma),
+        n_gamma_m1=_f32(cfg.n_gamma - 1.0), thom_f1=_f32(THOM_X_SECT * sub1[0]),
+        invk1=_f32(sub1[1]), span1=_f32(sub1[2]),
+        c1_lo=tuple(_f32(c) for c in sub1[3:3 + n_lo]),
+        c1_hi=tuple(_f32(c) for c in sub1[3 + n_lo:]),
+        lg_min=_f32(lg_min), dg=_f32(dg), ln10=_f32(ln10), ln10_dg=_f32(ln10 * dg),
+        q=0.0, inv_q=0.0, gmin=0.0, gbrk=0.0, a_norm=0.0, a_cont=0.0, f_break=0.0,
+        om_p1=0.0, om_p2=0.0, gmin_pow=0.0, gbrk_pow=0.0,
+    )
+    if cfg.nonthermal_e_dist is NonthermalDist.POWERLAW:
+        p = cfg.powerlaw_index
+        q = 1.0 - p
+        p_is_1 = abs(p - 1.0) < 1e-6
+        kw.update(q=_f32(q), inv_q=0.0 if p_is_1 else _f32(1.0 / q))
+        return NtConstants(broken=False, p_is_1=p_is_1, p2_is_1=False, **kw)
+    p1, p2 = cfg.powerlaw_index_1, cfg.powerlaw_index_2
+    gmin, gmax, gbrk = cfg.gamma_min, cfg.gamma_max, cfg.gamma_break
+    a_norm = broken_power_law_norm(p1, p2, gmin, gmax, gbrk)
+    cont = gbrk ** (p2 - p1)
+    p1_is_1 = abs(p1 - 1.0) < 1e-6
+    p2_is_1 = abs(p2 - 1.0) < 1e-6
+    f_break = a_norm * (math.log(gbrk / gmin) if p1_is_1
+                        else (gbrk ** (1.0 - p1) - gmin ** (1.0 - p1)) / (1.0 - p1))
+    kw.update(gmin=_f32(gmin), gbrk=_f32(gbrk), a_norm=_f32(a_norm),
+              a_cont=_f32(a_norm * cont), f_break=_f32(f_break),
+              om_p1=_f32(1.0 - p1), om_p2=_f32(1.0 - p2),
+              gmin_pow=_f32(gmin ** (1.0 - p1)), gbrk_pow=_f32(gbrk ** (1.0 - p2)))
+    return NtConstants(broken=True, p_is_1=p1_is_1, p2_is_1=p2_is_1, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -234,15 +348,15 @@ def _rotate_basis(vo, ro, vn, rn, q, u):
     return c2 * q - s2 * u, s2 * q + c2 * u
 
 
-def _thermal_gamma_beta(base, k0, temp):
+def _thermal_gamma_beta(base, k0, temp, off: DrawOffsets):
     """Thermal (gamma, gamma beta), chosen per lane: Maxwell-Boltzmann chi2_3
     speed draw below the 1e7 K switch, Maxwell-Juttner Gamma-mixture
     rejection above it (pallas_round._thermal_gamma_beta)."""
     theta = torch.clamp(temp * KB_OVER_MEC2, min=TINY)
     # Maxwell-Boltzmann: beta^2 = theta * chi2_3 from three uniforms
-    u1 = rng.uniform_pos(base, k0 + OFFSETS.mb)
-    u2 = rng.uniform_pos(base, k0 + OFFSETS.mb + 1)
-    u3 = rng.uniform(base, k0 + OFFSETS.mb + 2)
+    u1 = rng.uniform_pos(base, k0 + off.mb)
+    u2 = rng.uniform_pos(base, k0 + off.mb + 1)
+    u3 = rng.uniform(base, k0 + off.mb + 2)
     cosb = torch.cos(TWO_PI * u3)
     chi2_3 = -2.0 * torch.log(u1) - 2.0 * torch.log(u2) * (cosb * cosb)
     b2 = torch.clamp(theta * chi2_3, max=0.999999)
@@ -257,7 +371,7 @@ def _thermal_gamma_beta(base, k0, temp):
     xi = torch.full_like(theta, 1.5)
     done = torch.zeros_like(theta, dtype=torch.bool)
     for t in range(EL_ITERS):
-        k = k0 + OFFSETS.mj + 5 * t
+        k = k0 + off.mj + 5 * t
         v0 = rng.uniform_pos(base, k)
         v1 = rng.uniform_pos(base, k + 1)
         v2 = rng.uniform_pos(base, k + 2)
@@ -279,18 +393,18 @@ def _thermal_gamma_beta(base, k0, temp):
     return torch.where(cold, g_mb, g_mj), torch.where(cold, gb_mb, gb_mj)
 
 
-def _electron_from_gamma(base, k0, gamma, gb, c1, c2, c3):
+def _electron_from_gamma(base, k0, off: DrawOffsets, gamma, gb, c1, c2, c3):
     """Relative-angle draw + rotation into the photon's axes
     (pallas_round._electron_from_gamma)."""
     beta = gb / gamma
-    uu = rng.uniform(base, k0 + OFFSETS.el)
+    uu = rng.uniform(base, k0 + off.el)
     safe_beta = torch.clamp(beta, min=1e-8)
     arg = 1.0 + safe_beta * safe_beta + 2.0 * safe_beta - 4.0 * safe_beta * uu
     cos_t = (1.0 - torch.sqrt(torch.clamp(arg, min=0.0))) / safe_beta
     cos_t = torch.where(beta < 1e-6, 2.0 * uu - 1.0, cos_t)
     cos_t = torch.clamp(cos_t, -1.0, 1.0)
     sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
-    phi = rng.uniform(base, k0 + OFFSETS.el + 1) * TWO_PI
+    phi = rng.uniform(base, k0 + off.el + 1) * TWO_PI
     sp, cp = torch.sin(phi), torch.cos(phi)
     e1 = gb * cos_t
     e2 = gb * sin_t * sp
@@ -314,23 +428,54 @@ def _electron_from_gamma(base, k0, gamma, gb, c1, c2, c3):
 
 
 def _kn_cross_section(e):
-    """sigma_KN / sigma_T (pallas_round._kn_cross_section)."""
-    se = torch.clamp(e, min=1e-10)
+    """sigma_KN / sigma_T of float32 ``e`` (pallas_round._kn_cross_section,
+    with fault F6 repaired): the closed form is evaluated in float64 and
+    rounded once to float32.  In float32 its ~2/e^2 terms cancel to ~1 and
+    lose up to 0.25 just above the e = 1e-3 switch; in float64 ~1e-10.  Below
+    the switch the reference's 1 - 2 e (Src/mcrat_scattering.c:597-623)."""
+    se = torch.clamp(e.to(torch.float64), min=1e-10)
     full = 0.75 * (
         2.0 / (se * se)
         + (1.0 / (2.0 * se) - (1.0 + se) / (se * (se * se))) * torch.log1p(2.0 * se)
         + (1.0 + se) / ((1.0 + 2.0 * se) * (1.0 + 2.0 * se))
     )
-    return torch.where(e >= 1e-3, full, 1.0 - 2.0 * e)
+    return torch.where(e >= 1e-3, full.to(torch.float32), 1.0 - 2.0 * e)
 
 
-def _sample_kn_angles(base, k0, e0, q, u, stokes_on):
+def kn_cross_section(e):
+    """sigma_KN / sigma_T of a 1-D float32 tensor: :func:`_kn_cross_section`
+    on CPU tensors; on CUDA tensors one launch of the kernel's own device
+    function (``csrc/fused_round.cu``, ``kn_cross_section_kernel``), counted
+    in ``kn_cross_section.launches``."""
+    if e.dtype != torch.float32 or e.dim() != 1 or not e.is_contiguous():
+        raise ValueError("kn_cross_section takes a contiguous 1-D float32 tensor")
+    if e.device.type == "cpu":
+        return _kn_cross_section(e)
+    if e.device.type != "cuda":
+        raise ValueError(f"kn_cross_section runs on cpu or cuda tensors, not {e.device}")
+    from .._build import load_fused_round
+
+    lib = load_fused_round()
+    out = torch.empty_like(e)
+    err = lib.mcrat_kn_cross_section(e.data_ptr(), out.data_ptr(), ctypes.c_int64(e.numel()),
+                                     torch.cuda.current_stream(e.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kn_cross_section kernel launch failed: "
+                           f"{lib.mcrat_error_string(err).decode()}")
+    kn_cross_section.launches += 1
+    return out
+
+
+kn_cross_section.launches = 0
+
+
+def _sample_kn_angles(base, k0, off: DrawOffsets, e0, q, u, stokes_on):
     """KN theta rejection + (polarized) phi disk-point rejection
     (pallas_round._sample_kn_angles)."""
     cos_theta = torch.zeros_like(e0)
     done = torch.zeros_like(e0, dtype=torch.bool)
     for t in range(KN_ITERS):
-        k = k0 + OFFSETS.theta + 2 * t
+        k = k0 + off.theta + 2 * t
         c = 2.0 * rng.uniform(base, k) - 1.0
         y = 2.0 * rng.uniform(base, k + 1)
         m = 1.0 + e0 * (1.0 - c)
@@ -356,7 +501,7 @@ def _sample_kn_angles(base, k0, e0, q, u, stokes_on):
     y_acc = torch.zeros_like(e0)
     done = torch.zeros_like(e0, dtype=torch.bool)
     for t in range(KN_ITERS):
-        k = k0 + OFFSETS.phi + 2 * t
+        k = k0 + off.phi + 2 * t
         x = 2.0 * rng.uniform(base, k) - 1.0
         y = 2.0 * rng.uniform(base, k + 1) - 1.0
         r2 = x * x + y * y
@@ -375,8 +520,8 @@ def _sample_kn_angles(base, k0, e0, q, u, stokes_on):
     return cos_theta, sin_theta, x_acc * inv_r, y_acc * inv_r
 
 
-def _single_scatter(base, k0, g0, e1x, e1y, e1z, c0, c1, c2, c3, q, u, v,
-                    f_ref, stokes_on):
+def _single_scatter(base, k0, off: DrawOffsets, g0, e1x, e1y, e1z, c0, c1, c2, c3,
+                    q, u, v, f_ref, stokes_on):
     """One polarized KN scatter attempt in the electron rest frame
     (pallas_round._single_scatter, collapsed Stokes chain).  ``f_ref`` is
     the fluid-boost reference vector of the chain (beta_f, or z-hat where
@@ -398,8 +543,8 @@ def _single_scatter(base, k0, g0, e1x, e1y, e1z, c0, c1, c2, c3, q, u, v,
     inv_e0 = torch.where(e_pos, 1.0 / torch.clamp(e0, min=TINY), 0.0)
     a_c1 = torch.where(e_pos, rho0 * inv_e0, 1.0)
     a_s1 = r3 * inv_e0
-    scattered = rng.uniform(base, k0 + OFFSETS.acc) <= _kn_cross_section(e0)
-    ct, st, c_phi, s_phi = _sample_kn_angles(base, k0, e0, q, u, stokes_on)
+    scattered = rng.uniform(base, k0 + off.acc) <= _kn_cross_section(e0)
+    ct, st, c_phi, s_phi = _sample_kn_angles(base, k0, off, e0, q, u, stokes_on)
     e1 = e0 / (1.0 + e0 * (1.0 - ct))
     sx = e1 * ct
     sy = e1 * st * s_phi
@@ -447,7 +592,8 @@ class _Cell:
     (pallas_round._kernel_body before round_body), and its ``fluid_beta``
     and ``contains`` (pallas_round fluid_beta, in_cell_and_domain)."""
 
-    def __init__(self, var: Variant, table, cl, grid: GridScalars):
+    def __init__(self, var: Variant, table, cl, grid: GridScalars, cheb_base: int = 0,
+                 nonthermal: bool = False):
         self.var, self.grid = var, grid
         dev = table.device
 
@@ -519,6 +665,19 @@ class _Cell:
             self.cos_mid, self.sin_mid = torch.cos(mid), torch.sin(mid)
             self.cos_half_dom = torch.cos(0.5 * (f32(hi) - f32(lo)))
 
+        # TABLE mode: the cell's Chebyshev rows, and the round-invariant
+        # 1 / (LOG_PH_E_MAX - s) with s = -log10(inv_knee)
+        self.cheb = bool(cheb_base)
+        if self.cheb:
+            ch = [table[cheb_base + i, cl] for i in range(CHEB_ROWS)]
+            self.inv_knee = ch[0]
+            lg_invk = torch.log(torch.clamp(self.inv_knee, min=TINY)) * _INV_LN10
+            self.span_inv = 1.0 / (LOG_PH_E_MAX + lg_invk)
+            self.c_lo, self.c_hi = ch[1:2 + CHEB_DLO], ch[2 + CHEB_DLO:]
+        if nonthermal:
+            self.nt_dens = row[PCOL["nonthermal_dens"]]
+            self.gam = row[PCOL["gamma"]]
+
     def fluid_beta(self, px, py):
         """Fluid 3-velocity in MCRaT Cartesian at the photon position."""
         v0, v1, v2 = self.v
@@ -577,27 +736,118 @@ class _Cell:
         return ok
 
 
-def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rounds):
+def _cheb_eval(x_lin, span_inv, c_lo, c_hi):
+    """Branch-select Clenshaw recurrence of a two-interval Chebyshev fit of
+    log10 sigma: linear x below the KN knee (x < 1), log space above it
+    (pallas_round._cheb_eval).  Coefficients are per-lane tensors (the
+    cell's rows) or float32 Python floats (the global subgroup-1 fit)."""
+    lo = x_lin < 1.0
+    lgx = torch.log(torch.clamp(x_lin, min=TINY)) * _INV_LN10
+    t = torch.where(lo, 2.0 * x_lin - 1.0, torch.clamp(2.0 * lgx * span_inv - 1.0, -1.0, 1.0))
+    zero = torch.zeros_like(t)
+
+    def at(c):
+        return c if torch.is_tensor(c) else torch.full_like(t, c)
+
+    bk1, bk2 = zero, zero
+    for k in range(CHEB_DHI, 0, -1):
+        ck = torch.where(lo, at(c_lo[k]) if k <= CHEB_DLO else zero, at(c_hi[k]))
+        bk0 = ck + 2.0 * t * bk1 - bk2
+        bk2, bk1 = bk1, bk0
+    f = torch.where(lo, at(c_lo[0]), at(c_hi[0])) + t * bk1 - bk2
+    return torch.exp(f * _LN10)
+
+
+def _cdiv(x, c: float):
+    """``x / c`` as a true division on every device (CUDA PyTorch multiplies
+    by the reciprocal of a Python-number divisor, which the kernel and the
+    JAX kernel do not)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _nonthermal_gamma(u, sub_f, nt: NtConstants):
+    """Inverse-CDF gamma of the (broken) power law restricted to the lane's
+    subgroup ``sub_f`` (0-based, float) for the uniform ``u``
+    (pallas_round._make_nonthermal_gamma)."""
+    ln10 = nt.ln10
+    if not nt.broken:
+        ln_lo = ln10 * (nt.lg_min + sub_f * nt.dg)
+        ln_hi = ln_lo + nt.ln10_dg
+        if nt.p_is_1:
+            return torch.exp(ln_lo + u * (ln_hi - ln_lo))
+        a = torch.exp(nt.q * ln_lo)
+        b = torch.exp(nt.q * ln_hi)
+        return torch.exp(nt.inv_q * torch.log(torch.clamp(a + u * (b - a), min=TINY)))
+
+    def seg1(hi):  # integral of g^-p1 from gamma_min to hi
+        if nt.p_is_1:
+            return torch.log(_cdiv(hi, nt.gmin))
+        return _cdiv(torch.exp(nt.om_p1 * torch.log(hi)) - nt.gmin_pow, nt.om_p1)
+
+    def seg2(hi):  # integral of g^-p2 from gamma_break to hi
+        if nt.p2_is_1:
+            return torch.log(_cdiv(hi, nt.gbrk))
+        return _cdiv(torch.exp(nt.om_p2 * torch.log(hi)) - nt.gbrk_pow, nt.om_p2)
+
+    def cdf(g):
+        below = nt.a_norm * seg1(torch.clamp(g, max=nt.gbrk))
+        above = nt.f_break + nt.a_cont * seg2(torch.clamp(g, min=nt.gbrk))
+        return torch.where(g <= nt.gbrk, below, above)
+
+    g_lo = torch.exp(ln10 * (nt.lg_min + sub_f * nt.dg))
+    g_hi = torch.exp(ln10 * (nt.lg_min + (sub_f + 1.0) * nt.dg))
+    f_lo, f_hi = cdf(g_lo), cdf(g_hi)
+    x = f_lo + u * (f_hi - f_lo)
+    if nt.p_is_1:
+        lo = nt.gmin * torch.exp(_cdiv(x, nt.a_norm))
+    else:
+        arg = nt.gmin_pow + _cdiv(nt.om_p1 * x, nt.a_norm)
+        lo = torch.exp(_cdiv(torch.log(torch.clamp(arg, min=TINY)), nt.om_p1))
+    x2 = _cdiv(x - nt.f_break, nt.a_cont)
+    if nt.p2_is_1:
+        hi = nt.gbrk * torch.exp(x2)
+    else:
+        arg2 = nt.gbrk_pow + nt.om_p2 * x2
+        hi = torch.exp(_cdiv(torch.log(torch.clamp(arg2, min=TINY)), nt.om_p2))
+    return torch.where(x <= nt.f_break, lo, hi)
+
+
+def _population_gamma(base, k0, off: DrawOffsets, nt: NtConstants, p_th, g_th, gb_th):
+    """Scattering population from the biased optical depths (transport.
+    _tau_rate, generateSingleElectron, Src/electron.c:7-68): thermal with
+    probability ``p_th``, else the subgroups in equal slices of the rest;
+    a nonthermal lane takes its subgroup's inverse-CDF gamma."""
+    u_pop = rng.uniform(base, k0 + off.pop)
+    is_th = u_pop <= p_th
+    slice_w = torch.clamp((1.0 - p_th) * nt.inv_n_gamma, min=TINY)
+    sub_f = torch.clamp(torch.floor((u_pop - p_th) / slice_w), 0.0, nt.n_gamma_m1)
+    g_nt = _nonthermal_gamma(rng.uniform(base, k0 + off.pop + 1), sub_f, nt)
+    gb_nt = torch.sqrt(torch.clamp(g_nt * g_nt - 1.0, min=0.0))
+    return torch.where(is_th, g_th, g_nt), torch.where(is_th, gb_th, gb_nt)
+
+
+def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rounds,
+            nt: NtConstants = None):
     """``inner_rounds`` rounds over a flat set of lanes (pallas_round
     round_body).  Returns the new 16 planes and the (stalled, promoted)
     masks."""
     (p0, p1, p2, p3, px, py, pz, q, u, v, t_rem, ns, c0, c1, c2, c3) = st
     beta_mag = cell.beta_mag
     n_sigma = cell.n_e * THOM_X_SECT
+    off = OFFSETS if nt is None else OFFSETS_NT
     z_hat = (0.0, 0.0, 1.0)
     stalled = torch.zeros_like(alive)
     promoted = torch.zeros_like(alive)
     for r in range(inner_rounds):
-        k0 = r * OFFSETS.per_round
+        k0 = r * off.per_round
         act = alive & (t_rem > 0) & ~stalled
 
-        # 1. tau rate: fluid beta at the photon position
+        # 1. fluid beta at the photon position
         bx, by, bz = cell.fluid_beta(px, py)
         fl_norm = torch.sqrt(bx * bx + by * by + bz * bz)
         ph_norm = torch.sqrt(p1 * p1 + p2 * p2 + p3 * p3)
         denom = torch.clamp(fl_norm * ph_norm, min=TINY)
         cos_ang = (bx * p1 + by * p2 + bz * p3) / denom
-        rate = n_sigma * (1.0 - beta_mag * cos_ang)
 
         # 2. comoving four-momentum
         b0, b1, b2, b3 = _boost(bx, by, bz, p0, p1, p2, p3)
@@ -607,8 +857,27 @@ def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rou
         c2 = torch.where(upd, b2, c2)
         c3 = torch.where(upd, b3, c3)
 
+        # tau rate (transport._tau_rate).  DIRECT: Thomson.  TABLE: sigma_hat
+        # at the CURRENT comoving energy, after the boost; nonthermal adds
+        # the biased subgroup total tau0 + N_GAMMA tau_norm, tau_norm = tau0
+        # in thermal cells, else subgroup 1's (Src/optical_depth.c:60-112)
+        if cell.cheb:
+            nsig_th = n_sigma * _cheb_eval(c0 * cell.inv_knee, cell.span_inv,
+                                           cell.c_lo, cell.c_hi)
+            if nt is not None:
+                nsig_nt1 = (cell.nt_dens * cell.gam * nt.thom_f1) * _cheb_eval(
+                    c0 * nt.invk1, nt.span1, nt.c1_lo, nt.c1_hi)
+                taunorm = torch.where(cell.n_e > 0, nsig_th, nsig_nt1)
+                total = nsig_th + nt.n_gamma * taunorm
+                rate = total * (1.0 - beta_mag * cos_ang)
+                p_th = nsig_th / torch.clamp(total, min=TINY)
+            else:
+                rate = nsig_th * (1.0 - beta_mag * cos_ang)
+        else:
+            rate = n_sigma * (1.0 - beta_mag * cos_ang)
+
         # 3. free path -> candidate step
-        u1 = rng.uniform_pos(base, k0 + OFFSETS.free)
+        u1 = rng.uniform_pos(base, k0 + off.free)
         mfp = torch.where(
             in_grid & (rate > 0),
             -torch.log(u1) / torch.clamp(rate, min=TINY),
@@ -640,10 +909,12 @@ def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rou
         else:
             f_ref = None
             qc, uc = q, u
-        g_e, gb_e = _thermal_gamma_beta(base, k0, cell.temp)
-        g0, ex, ey, ez = _electron_from_gamma(base, k0, g_e, gb_e, c1, c2, c3)
+        g_e, gb_e = _thermal_gamma_beta(base, k0, cell.temp, off)
+        if nt is not None:
+            g_e, gb_e = _population_gamma(base, k0, off, nt, p_th, g_e, gb_e)
+        g0, ex, ey, ez = _electron_from_gamma(base, k0, off, g_e, gb_e, c1, c2, c3)
         sc, o0, o1, o2, o3, q2, u2, v2 = _single_scatter(
-            base, k0, g0, ex, ey, ez, c0, c1, c2, c3, qc, uc, v, f_ref, stokes_on)
+            base, k0, off, g0, ex, ey, ez, c0, c1, c2, c3, qc, uc, v, f_ref, stokes_on)
         scattered = will & sc
         l0, l1, l2, l3 = _boost(-bx, -by, -bz, o0, o1, o2, o3)
         if stokes_on:
@@ -673,10 +944,17 @@ def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rou
     return planes, stalled, promoted
 
 
-def _check_args(state, cell, flags, table, block_act, block_lanes, variant):
+def _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt):
     if variant not in VARIANTS:
         raise ValueError(f"unknown kernel variant {variant!r}; one of {sorted(VARIANTS)}")
-    width = VARIANTS[variant].width
+    var = VARIANTS[variant]
+    if cheb_base not in (0, var.width):
+        raise ValueError(f"cheb_base of {variant} is 0 (DIRECT) or {var.width} (TABLE), "
+                         f"not {cheb_base}")
+    if nt is not None and not (cheb_base and var.source == "packed"):
+        raise ValueError(f"nonthermal electrons need TABLE rows on a packed variant, not "
+                         f"{variant} with cheb_base={cheb_base}")
+    width = var.width + (CHEB_ROWS if cheb_base else 0)
     n = state.shape[1]
     if state.dim() != 2 or state.shape[0] != N_STATE or state.dtype != torch.float32:
         raise ValueError(f"state must be ({N_STATE}, Npad) float32, got "
@@ -707,7 +985,8 @@ def _check_args(state, cell, flags, table, block_act, block_lanes, variant):
 def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
                            grid: GridScalars, stokes_on: bool = True,
                            inner_rounds: int = 4, block_lanes: int = 16384,
-                           variant: str = "ultra_cyl2"):
+                           variant: str = "ultra_cyl2", cheb_base: int = 0,
+                           nt: NtConstants = None):
     """Plain PyTorch twin of the fused-round kernel.
 
     ``state`` (16, Npad) f32 is updated IN PLACE on the lanes of active
@@ -715,10 +994,12 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
     a valid index), ``flags`` (Npad,) i32 its FLAG_* bits, ``table`` the
     variant's (W, Ncell) cell table (:data:`VARIANTS`), ``block_act``
     (Npad / block_lanes,) i32 marks blocks with at least one active lane.
-    Returns the (Npad,) int32 out-flags (OUT_STALLED | OUT_PROMOTED; 0 on
-    idle blocks).
+    TABLE mode (``cheb_base`` = the variant's width) reads the CHEB_ROWS
+    Chebyshev rows appended to the table; ``nt`` adds nonthermal electrons
+    (packed variants, TABLE mode only).  Returns the (Npad,) int32 out-flags
+    (OUT_STALLED | OUT_PROMOTED; 0 on idle blocks).
     """
-    _check_args(state, cell, flags, table, block_act, block_lanes, variant)
+    _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt)
     fused_rounds_reference.launches += 1
     n = state.shape[1]
     out = torch.zeros(n, dtype=torch.int32, device=state.device)
@@ -733,7 +1014,8 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
     planes, stalled, promoted = _rounds(
         tuple(sub[i] for i in range(N_STATE)),
         (fl & FLAG_ALIVE) != 0, (fl & FLAG_POOL) != 0, (fl & FLAG_INGRID) != 0,
-        _Cell(VARIANTS[variant], table, cl, grid), base, stokes_on, inner_rounds,
+        _Cell(VARIANTS[variant], table, cl, grid, cheb_base, nt is not None), base,
+        stokes_on, inner_rounds, nt,
     )
     state[:, lanes] = torch.stack(planes)
     out[lanes] = stalled.to(torch.int32) * OUT_STALLED + promoted.to(torch.int32) * OUT_PROMOTED
@@ -742,11 +1024,34 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
 
 fused_rounds_reference.launches = 0
 
+# the kernel's optical-depth families (csrc/fused_round.cu enum Tau)
+TAU_DIRECT, TAU_CHEB, TAU_CHEB_NT = 0, 1, 2
+
+
+def tau_family(cheb_base: int, nt) -> int:
+    return TAU_CHEB_NT if nt is not None else (TAU_CHEB if cheb_base else TAU_DIRECT)
+
+
+def instantiation(variant: str, cheb_base: int = 0, nt=None, stokes_on: bool = True) -> str:
+    """The name of a kernel instantiation: the variant, ``+cheb`` in TABLE
+    mode, ``+nt`` with nonthermal electrons, ``/stokes_off`` without Stokes
+    (``ultra_cyl2``, ``packed_sph2+cheb+nt/stokes_off``, ...)."""
+    return (variant + {TAU_DIRECT: "", TAU_CHEB: "+cheb", TAU_CHEB_NT: "+cheb+nt"}[
+        tau_family(cheb_base, nt)] + ("" if stokes_on else "/stokes_off"))
+
+
+def instantiations() -> list:
+    """The names of all 58 kernel instantiations."""
+    return [instantiation(v, var.width if tau else 0, True if tau == TAU_CHEB_NT else None, s)
+            for tau in (TAU_DIRECT, TAU_CHEB, TAU_CHEB_NT) for v, var in VARIANTS.items()
+            if tau != TAU_CHEB_NT or var.source == "packed" for s in (True, False)]
+
 
 def fused_rounds(state, cell, flags, table, block_act, seed: int,
                  grid: GridScalars, stokes_on: bool = True,
                  inner_rounds: int = 4, block_lanes: int = 16384,
-                 variant: str = "ultra_cyl2"):
+                 variant: str = "ultra_cyl2", cheb_base: int = 0,
+                 nt: NtConstants = None):
     """Run ``inner_rounds`` fused transport rounds over the lane planes.
 
     Same contract as :func:`fused_rounds_reference` (``state`` updated in
@@ -754,24 +1059,27 @@ def fused_rounds(state, cell, flags, table, block_act, seed: int,
     launch the hand-written kernel of ``csrc/fused_round.cu`` on the current
     stream, building it on first use, and raise if the build or the launch
     fails.  ``fused_rounds.launches`` counts kernel launches,
-    ``fused_rounds.variant_launches`` the same per variant.
+    ``fused_rounds.variant_launches`` the same per :func:`instantiation`
+    (58 in all, :func:`instantiations`).
     """
     if state.device.type == "cpu":
         return fused_rounds_reference(
             state, cell, flags, table, block_act, seed, grid, stokes_on,
-            inner_rounds, block_lanes, variant)
+            inner_rounds, block_lanes, variant, cheb_base, nt)
     if state.device.type != "cuda":
         raise ValueError(f"fused_rounds runs on cpu or cuda tensors, not {state.device}")
-    _check_args(state, cell, flags, table, block_act, block_lanes, variant)
+    _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt)
     from .._build import load_fused_round
 
+    tau = tau_family(cheb_base, nt)
     lib = load_fused_round()
     n = state.shape[1]
     out = torch.empty(n, dtype=torch.int32, device=state.device)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     f = ctypes.c_float
+    consts = (f * N_NT_CONSTS)(*(nt.as_floats() if nt is not None else [0.0] * N_NT_CONSTS))
     err = lib.mcrat_fused_rounds(
-        ctypes.c_int32(VARIANTS[variant].code),
+        ctypes.c_int32(VARIANTS[variant].code), ctypes.c_int32(tau),
         state.data_ptr(), ctypes.c_int64(n), cell.data_ptr(), flags.data_ptr(),
         table.data_ptr(), ctypes.c_int64(table.shape[1]), block_act.data_ptr(),
         out.data_ptr(), ctypes.c_int32(rng_seed_i32(seed)),
@@ -780,13 +1088,15 @@ def fused_rounds(state, cell, flags, table, block_act, seed: int,
         ctypes.c_int32(grid.n1), ctypes.c_int32(grid.n2), ctypes.c_int32(int(stokes_on)),
         ctypes.c_int32(inner_rounds), ctypes.c_int32(EL_ITERS),
         ctypes.c_int32(KN_ITERS), ctypes.c_int32(block_lanes),
-        f(KB_OVER_MEC2), f(THOM_X_SECT), f(C_LIGHT), f(_INV_C), f(_INV_MP), stream,
+        f(KB_OVER_MEC2), f(THOM_X_SECT), f(C_LIGHT), f(_INV_C), f(_INV_MP),
+        ctypes.c_int32(cheb_base), consts, ctypes.c_int32(N_NT_CONSTS), stream,
     )
     if err != 0:
         msg = lib.mcrat_error_string(err).decode()
-        raise RuntimeError(f"fused_round kernel launch failed ({variant}): {msg}")
+        raise RuntimeError(f"fused_round kernel launch failed "
+                           f"({instantiation(variant, cheb_base, nt, stokes_on)}): {msg}")
     fused_rounds.launches += 1
-    fused_rounds.variant_launches[variant] += 1
+    fused_rounds.variant_launches[instantiation(variant, cheb_base, nt, stokes_on)] += 1
     return out
 
 

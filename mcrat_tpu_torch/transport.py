@@ -15,9 +15,10 @@ Four-momenta are dimensionless (units of m_e c); positions are in cm.
 Slice covered: every (dims x geometry) frame on a
 :class:`~mcrat_tpu_torch.grid.RectilinearIndex`, uniform or not -- 2-D and
 2.5-D cartesian/cylindrical/spherical, 3-D cartesian/spherical/polar --
-with DIRECT (Thomson) optical depth, thermal electrons, float32, Stokes on
-or off.  Other configurations raise ``NotImplementedError`` naming the
-ROADMAP item that will port them.
+with DIRECT (Thomson) or TABLE (hot cross-section, ``ops.hot_xsec``)
+optical depth, thermal electrons and, in TABLE mode, nonthermal (broken)
+power-law electrons, float32, Stokes on or off.  Other configurations raise
+``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from mcrat_tpu.constants import C_LIGHT, H_OVER_MEC2, K_B, ME_C2, PL_CONST
 from . import geometry as geo
 from .grid import HydroFrame, HydroFrameHost, RectilinearIndex, find_cell_direct
 from .ops import fused_round as fr
+from .ops import hot_xsec
 from .ops.fourvec import lorentz_boost
 
 # Default mean free path for photons outside the grid [cm] (Src/mclib.c:620)
@@ -49,8 +51,6 @@ MIN_COMPACT_CAPACITY = 1024
 ROADMAP_ITEMS = dict(
     xla="ROADMAP.md queue 1 item 5 (the XLA-path physics ops and "
         "transport_rounds: float64 and non-CUDA runs)",
-    table="ROADMAP.md queue 1 item 8 (TABLE-mode hot cross sections)",
-    nonthermal="ROADMAP.md queue 1 item 9 (nonthermal electrons)",
     cyclosynch="ROADMAP.md queue 1 item 11 (cyclo-synchrotron)",
     amr="ROADMAP.md queue 1 item 12 (AMR cell-list path, BinnedIndex)",
 )
@@ -356,10 +356,6 @@ FRAMES = {
 def unsupported_reason(cfg: Config, frame: HydroFrame, index) -> Optional[str]:
     """Why the slice cannot run this configuration (the ROADMAP item that
     will port it), or None when it can."""
-    if cfg.tau_calculation is TauCalculation.TABLE:
-        return "TABLE optical depth: " + ROADMAP_ITEMS["table"]
-    if cfg.nonthermal_e_dist is not NonthermalDist.OFF:
-        return "nonthermal electrons: " + ROADMAP_ITEMS["nonthermal"]
     if cfg.cyclosynchrotron:
         return "cyclo-synchrotron: " + ROADMAP_ITEMS["cyclosynch"]
     if not isinstance(index, RectilinearIndex):
@@ -371,43 +367,101 @@ def unsupported_reason(cfg: Config, frame: HydroFrame, index) -> Optional[str]:
     return None
 
 
+def _missing_tables(cfg: Config, xsec_table) -> Optional[str]:
+    """What a TABLE run lacks of the tables it reads (``table_ok`` of
+    ``mcrat_tpu.transport.fused_transport_available``), or None.  DIRECT
+    runs ignore the table."""
+    if cfg.tau_calculation is not TauCalculation.TABLE:
+        return None
+    if xsec_table is None:
+        return ("TABLE optical depth needs xsec_table= "
+                "(mcrat_tpu_torch.ops.hot_xsec.load_or_build)")
+    if cfg.nonthermal_e_dist is not NonthermalDist.OFF and (
+            xsec_table.nonthermal is None or xsec_table.subgroup_frac is None):
+        return ("nonthermal electrons need an xsec_table with the subgroup table and "
+                "fractions (load_or_build of a nonthermal config)")
+    return None
+
+
+def check_xsec_table(cfg: Config, xsec_table) -> None:
+    """Raise ValueError where a TABLE run lacks its tables.  (The JAX
+    package's ``_tau_rate`` quietly uses sigma_hat = 1 without a table; the
+    port does not.)"""
+    missing = _missing_tables(cfg, xsec_table)
+    if missing is not None:
+        raise ValueError(missing)
+
+
 def fused_transport_available(cfg: Config, photons: Photons, frame: HydroFrame,
-                              index) -> bool:
+                              index, xsec_table=None) -> bool:
     """True when the CUDA fused-round kernel covers this run: CUDA float32
-    photons, DIRECT optical depth, thermal electrons, any (dims x geometry)
-    frame on a RectilinearIndex.  There is no capacity floor: every chunk,
-    compacted tail included, goes through the kernel."""
+    photons, any (dims x geometry) frame on a RectilinearIndex, DIRECT
+    optical depth, or TABLE with its tables.  There is no capacity floor:
+    every chunk, compacted tail included, goes through the kernel."""
     return (
         photons.device.type == "cuda"
         and photons.p.dtype == torch.float32
+        and _missing_tables(cfg, xsec_table) is None
         and unsupported_reason(cfg, frame, index) is None
     )
 
 
-def select_variant(cfg: Config, frame: HydroFrame, index: RectilinearIndex):
-    """The kernel variant and its cell table for a frame
-    (``mcrat_tpu.transport.transport_rounds_fused``'s selection, direct
-    branch, without the TPU's index-bit size limits): ultra on uniform 2-D
+class KernelFlags(NamedTuple):
+    """Optical-depth flags of a kernel call: ``cheb_base`` (0 for DIRECT,
+    else the table row where the TABLE Chebyshev rows start) and ``nt`` (the
+    nonthermal constants, or None)."""
+
+    cheb_base: int = 0
+    nt: Optional[fr.NtConstants] = None
+
+
+def select_variant(cfg: Config, frame: HydroFrame, index: RectilinearIndex,
+                   xsec_table=None):
+    """The kernel variant, its cell table and its :class:`KernelFlags` for a
+    frame (``mcrat_tpu.transport.transport_rounds_fused``'s selection,
+    without the TPU's index-bit size limits): ultra on uniform 2-D
     cartesian/cylindrical/spherical frames without a phi-hat velocity and
     on uniform 3-D cartesian frames; slim on the other 2-D
-    cartesian/cylindrical frames without one; packed everywhere else.
-    Returns (variant name, (W, Ncell) table)."""
+    cartesian/cylindrical frames without one; packed everywhere else, and
+    always with nonthermal electrons (they read the packed gamma and
+    nonthermal-density rows).
+
+    TABLE mode appends the ``hot_xsec.CHEB_ROWS`` per-cell Chebyshev rows
+    (``hot_xsec.thermal_cheb_cells``, computed here) under the variant's
+    rows, so ``cheb_base`` is 4 (ultra 2-D), 5 (ultra 3-D), 8 (slim) or
+    16/24 (packed); nonthermal electrons add the global subgroup-1 fit and
+    the sampler constants (``fused_round.nonthermal_constants``).
+    Returns (variant name, (W, Ncell) float32 table, KernelFlags)."""
+    check_xsec_table(cfg, xsec_table)
     geom, dims = cfg.geometry, cfg.dims
+    nonthermal = cfg.nonthermal_e_dist is not NonthermalDist.OFF
     uniform2 = index.uniform[0] and index.uniform[1]
     cyl = geom in (Geometry.CARTESIAN, Geometry.CYLINDRICAL)
-    if frame.packed_slim is not None and not index.three_d:
+    name = table = None
+    if frame.packed_slim is not None and not index.three_d and not nonthermal:
         if uniform2 and (cyl or (geom is Geometry.SPHERICAL and dims is Dims.TWO)):
-            return ("ultra_cyl2" if cyl else "ultra_sph2"), frame.phys
-        if cyl:
-            return "slim_cyl2", frame.packed_slim
-    if dims is Dims.THREE:
-        if geom is Geometry.CARTESIAN and all(index.uniform):
-            return "ultra_cart3", frame.phys
-        name = {Geometry.CARTESIAN: "packed_cart3", Geometry.SPHERICAL: "packed_sph3",
-                Geometry.POLAR: "packed_pol3"}[geom]
-    else:
+            name, table = ("ultra_cyl2" if cyl else "ultra_sph2"), frame.phys
+        elif cyl:
+            name, table = "slim_cyl2", frame.packed_slim
+    if name is None and dims is Dims.THREE:
+        if geom is Geometry.CARTESIAN and all(index.uniform) and not nonthermal:
+            name, table = "ultra_cart3", frame.phys
+        else:
+            name = {Geometry.CARTESIAN: "packed_cart3", Geometry.SPHERICAL: "packed_sph3",
+                    Geometry.POLAR: "packed_pol3"}[geom]
+    elif name is None:
         name = f"packed_{'cyl' if cyl else 'sph'}{'25' if dims is Dims.TWO_POINT_FIVE else '2'}"
-    return name, frame.packed
+    if table is None:
+        table = frame.packed
+    if cfg.tau_calculation is not TauCalculation.TABLE:
+        return name, table, KernelFlags()
+    cheb = hot_xsec.thermal_cheb_cells(xsec_table, frame.temp)
+    table = torch.cat([table, cheb.to(table.device)], dim=0).contiguous()
+    nt = None
+    if nonthermal:
+        sub1 = hot_xsec._sub1_cheb_static(cfg, xsec_table.log_e, xsec_table.nonthermal[:, 0])
+        nt = fr.nonthermal_constants(cfg, sub1)
+    return name, table, KernelFlags(fr.VARIANTS[name].width, nt)
 
 
 def grid_scalars(frame: HydroFrame, index: RectilinearIndex) -> fr.GridScalars:
@@ -464,6 +518,7 @@ def transport_rounds_fused(
     index: RectilinearIndex,
     t_rem: torch.Tensor,
     base_seed: int,
+    setup: tuple,
     stokes_on: bool = True,
     max_rounds: int = 0,
     inner_rounds: int = 4,
@@ -485,7 +540,9 @@ def transport_rounds_fused(
     updates them in place.  ``photons`` is not modified.  The per-invocation
     seed is ``base_seed + rounds * 7919`` (int32 wrap).  ``rounds_fn`` is the
     round implementation: the kernel wrapper, or ``fused_rounds_reference``
-    to run the plain twin on any device for comparisons.
+    to run the plain twin on any device for comparisons.  ``setup`` is the
+    frame's :func:`select_variant` result (variant, cell table, KernelFlags),
+    built once per frame by the caller.
     """
     reason = unsupported_reason(cfg, frame, index)
     if reason is not None:
@@ -506,7 +563,7 @@ def transport_rounds_fused(
     orig = row_iota.clone()  # row -> original row, across partitions
     ns0 = state[fr.SP_NS].to(torch.int64).sum()
     grid = grid_scalars(frame, index)
-    variant, table = select_variant(cfg, frame, index)
+    variant, table, kflags = setup
     n_cell = frame.num_elements
 
     def rows(x):
@@ -538,7 +595,7 @@ def transport_rounds_fused(
             state, safe, lane_flags(alive, pool, in_grid), table, block_act,
             fr.rng_seed_i32(base_seed + rounds * 7919), grid,
             stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=block_lanes,
-            variant=variant,
+            variant=variant, cheb_base=kflags.cheb_base, nt=kflags.nt,
         )
         promoted = (out & fr.OUT_PROMOTED) != 0
         pool = pool & ~promoted
@@ -626,6 +683,7 @@ def transport_frame(
     fused: Optional[bool] = None,
     s_rows: int = 128,
     rounds_fn=fr.fused_rounds,
+    xsec_table=None,
 ) -> FrameResult:
     """Advance the whole population through one hydro-frame time window.
 
@@ -641,17 +699,21 @@ def transport_frame(
     says it covers the run; ``fused=True`` also runs the glue on CPU tensors
     (through the plain twin).  Every other case raises NotImplementedError:
     there is no silent fallback.  ``generator`` draws each chunk's base seed;
-    ``rounds_fn`` is passed to :func:`transport_rounds_fused`.
+    ``rounds_fn`` is passed to :func:`transport_rounds_fused`.  TABLE mode
+    needs ``xsec_table`` (``ops.hot_xsec.load_or_build``; ValueError
+    without); its per-cell Chebyshev rows are built once per frame, here.
     """
+    check_xsec_table(cfg, xsec_table)
     reason = unsupported_reason(cfg, frame, index)
     if reason is not None:
         raise NotImplementedError(reason)
     if fused is None:
-        fused = fused_transport_available(cfg, photons, frame, index)
+        fused = fused_transport_available(cfg, photons, frame, index, xsec_table)
     if not fused:
         raise NotImplementedError(
             f"non-fused transport ({photons.device.type}, {photons.p.dtype}): "
             + ROADMAP_ITEMS["xla"])
+    setup = select_variant(cfg, frame, index, xsec_table)
     t_rem = frame_time(photons, dt_max)
     n_scatt_total = 0
     rounds_total = 0
@@ -661,9 +723,8 @@ def transport_frame(
 
     while True:
         res = transport_rounds_fused(
-            cfg, work_ph, frame, index, work_t, base_seed=draw_seed(generator),
-            stokes_on=stokes_on, max_rounds=chunk_rounds, s_rows=s_rows,
-            rounds_fn=rounds_fn,
+            cfg, work_ph, frame, index, work_t, base_seed=draw_seed(generator), setup=setup,
+            stokes_on=stokes_on, max_rounds=chunk_rounds, s_rows=s_rows, rounds_fn=rounds_fn,
         )
         work_ph, work_t = res.photons, res.t_rem
         # ONE batched host fetch per chunk

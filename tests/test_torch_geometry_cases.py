@@ -6,29 +6,38 @@ both packages must select for it.  The port receives the same frame through
 ``mcrat_tpu_torch.convert`` (numpy fields), so every comparison starts from
 identical inputs.
 
-A helper module of the other ``test_torch_geometry_*`` files: it defines no
-tests itself.  ``lane_inputs`` lays an injected population out as the fused
+A helper module of the other ``test_torch_*`` files: it defines no tests
+itself.  ``lane_inputs`` lays an injected population out as the fused
 kernel's lane planes (three logical blocks of ``BLOCK`` lanes, block 1 idle)
 and returns both the JAX kernel's arguments (its own flags, cell rows and
 domain vector, as ``mcrat_tpu.transport.transport_rounds_fused`` builds
-them) and the port's (cell index, table, grid scalars).
+them) and the port's (cell index, table, grid scalars).  In TABLE mode
+(``xsec``) both kernels get the port's float32 Chebyshev rows and, with
+nonthermal electrons, the same global subgroup-1 fit.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from mcrat_tpu import transport as jt
-from mcrat_tpu.config import Config, Dims, Geometry, SimType, Spectrum
+from mcrat_tpu.config import (
+    Config, Dims, Geometry, NonthermalDist, SimType, Spectrum, TauCalculation,
+)
 from mcrat_tpu.constants import M_P
 from mcrat_tpu.grid import PCOL, build_rectilinear_index, find_cell_direct
 from mcrat_tpu.grid import frame_from_numpy as jframe_from_numpy
 from mcrat_tpu.models import analytic as jan
+from mcrat_tpu.ops import hot_xsec as jhx
 from mcrat_tpu.ops import pallas_round as pr
 from mcrat_tpu_torch import convert
 from mcrat_tpu_torch import grid as tgrid
 from mcrat_tpu_torch import transport as tt
 from mcrat_tpu_torch.models import analytic as tan
+from mcrat_tpu_torch.ops import cyclosynch as tcs
 from mcrat_tpu_torch.ops import fused_round as fr
+from mcrat_tpu_torch.ops import hot_xsec as thx
 
 S_ROWS = 8
 BLOCK = S_ROWS * pr.LANES
@@ -38,6 +47,49 @@ VARIANT_CASES = ["ultra_sph2", "ultra_cart3", "slim_cyl2", "packed_cyl2", "packe
                  "packed_sph2", "packed_sph25", "packed_cart3", "packed_sph3", "packed_pol3"]
 
 CYL_EDGES = (np.linspace(0.0, 3.2e11, 33), np.linspace(1.8e12, 2.9e12, 65))
+
+# the nonthermal distributions of the TABLE-mode cases: bench.py's power law
+# and a broken power law
+NT_DISTS = dict(
+    powerlaw=dict(nonthermal_e_dist=NonthermalDist.POWERLAW, powerlaw_index=2.5,
+                  gamma_min=1.0, gamma_max=100.0),
+    broken=dict(nonthermal_e_dist=NonthermalDist.BROKENPOWERLAW, powerlaw_index_1=1.5,
+                powerlaw_index_2=3.0, gamma_break=10.0, gamma_min=1.0, gamma_max=1000.0),
+)
+
+
+def table_cfg(cfg, dist=None):
+    """``cfg`` in TABLE mode, with the nonthermal distribution ``dist``
+    (a key of NT_DISTS) or thermal electrons only."""
+    return dataclasses.replace(cfg, tau_calculation=TauCalculation.TABLE,
+                               **(NT_DISTS[dist] if dist else {}))
+
+
+def xsec_tables(dist=None):
+    """The JAX package's float64 hot cross-section tables (its own build:
+    the port's build is tested against it in test_torch_hot_xsec), handed
+    to the port through ``convert.xsec_table_from_numpy``."""
+    log_e, log_t, thermal = jhx.build_thermal_table()
+    nt = frac = None
+    if dist:
+        cfg = table_cfg(Config(), dist)
+        nt = jhx.build_nonthermal_table(cfg)[1]
+        frac = tcs.electron_dist_subgroup_dens(cfg)
+    return convert.xsec_table_from_numpy(log_e, log_t, thermal, nt, frac)
+
+
+def jax_f32_kn(e):
+    """``pallas_round._kn_cross_section`` transcribed: the JAX kernel's
+    float32 closed form, fault F6 unrepaired.  Lane-for-lane tests on hot
+    frames put it in place of the port's repaired form (monkeypatch) so
+    that both kernels accept the same scatterings."""
+    se = torch.clamp(e, min=1e-10)
+    full = 0.75 * (
+        2.0 / (se * se)
+        + (1.0 / (2.0 * se) - (1.0 + se) / (se * (se * se))) * torch.log1p(2.0 * se)
+        + (1.0 + se) / ((1.0 + 2.0 * se) * (1.0 + 2.0 * se))
+    )
+    return torch.where(e >= 1e-3, full, 1.0 - 2.0 * e)
 
 
 def make_grid_3d(e0, e1, e2) -> dict:
@@ -191,11 +243,18 @@ def to_port(cfg, host, edges, photons=None):
     return tframe, tidx, tph
 
 
-def lane_inputs(name, seed=7, gamma=2.0, temp=1e5):
+def lane_inputs(name, seed=7, gamma=2.0, temp=1e5, xsec=None, dist=None):
     """Kernel inputs of a variant's thinned frame: three logical blocks
     (block 1 an idle copy of block 0), every 7th live lane a CS pool photon.
-    Returns a dict with the numpy lane planes and both packages' arguments."""
+    ``xsec`` (the port's table) runs TABLE mode, ``dist`` adds that
+    nonthermal population (nonthermal density from the equipartition B
+    field, as bench.py:292).  Returns a dict with the numpy lane planes and
+    both packages' arguments."""
     cfg, host, edges, inj = frame_case(name, gamma, temp, thin=True)
+    if xsec is not None:
+        cfg = table_cfg(cfg, dist)
+    if dist:
+        host.nonthermal_dens = tcs.nonthermal_electron_dens(cfg, host)
     photons = inject(host, inj, seed)
     jframe = host.to_device(dtype=jnp.float32)
     jidx = build_rectilinear_index(*edges, dtype="float32")
@@ -251,15 +310,23 @@ def lane_inputs(name, seed=7, gamma=2.0, temp=1e5):
         table = np.asarray(jframe.packed_slim if var.source == "slim" else jframe.packed)
         geom = dom
         kw["slim"] = var.source == "slim"
-    rows = np.ascontiguousarray(table[:, safe])
-
     tframe, tidx, _ = to_port(cfg, host, edges)
-    tname, ttable = tt.select_variant(cfg, tframe, tidx)
+    tname, ttable, kflags = tt.select_variant(cfg, tframe, tidx, xsec)
     assert tname == name, (tname, name)
-    np.testing.assert_array_equal(ttable.numpy(), np.asarray(table, np.float32))
+    width = var.width
+    np.testing.assert_array_equal(ttable.numpy()[:width], np.asarray(table, np.float32))
+    if xsec is not None:
+        # the port's float32 Chebyshev rows (and subgroup-1 fit) go to both
+        assert kflags.cheb_base == width and ttable.shape[0] == width + thx.CHEB_ROWS
+        table = ttable.numpy()
+        kw["cheb_base"] = width
+        if dist:
+            kw["nonthermal"] = True
+            kw["nt_sub1"] = thx._sub1_cheb_static(cfg, xsec.log_e, xsec.nonthermal[:, 0])
+    rows = np.ascontiguousarray(table[:, safe])
     return dict(cfg=cfg, state=state, alive=alive, pool=pool, safe=safe, flags=flags,
                 jflags=jflags, rows=rows, geom=geom, jax_kw=kw, table=ttable,
-                grid=tt.grid_scalars(tframe, tidx), variant=name)
+                kflags=kflags, grid=tt.grid_scalars(tframe, tidx), variant=name)
 
 
 def jax_kernel(d, block_act, seed, stokes_on, inner_rounds=2):
@@ -281,7 +348,8 @@ def port_kernel(d, block_act, seed, stokes_on, inner_rounds=2):
     out = fr.fused_rounds(ts, torch.from_numpy(d["safe"]), torch.from_numpy(d["flags"]),
                           d["table"], torch.from_numpy(block_act), seed, d["grid"],
                           stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=BLOCK,
-                          variant=d["variant"])
+                          variant=d["variant"], cheb_base=d["kflags"].cheb_base,
+                          nt=d["kflags"].nt)
     return ts.numpy(), out.numpy()
 
 
@@ -290,11 +358,15 @@ STOKES = [fr.SP_Q, fr.SP_U, fr.SP_V]
 
 
 def check_twin_against_jax_kernel(variant, temp=1e5, stokes_on=True, seed=123456789,
-                                  inner_rounds=2, min_stalled=100):
+                                  inner_rounds=2, min_stalled=100, xsec=None, dist=None,
+                                  min_scatt=500, frac_close=1.0, rtol_all=None):
     """Hold the port's twin against JAX's interpret-mode kernel, lane for
     lane, on ``variant``'s frame (see the test modules' docstrings for the
-    tolerances).  Returns the port's out-flags."""
-    d = lane_inputs(variant, temp=temp)
+    tolerances), in TABLE mode with ``xsec`` and with the nonthermal
+    population ``dist``.  With ``frac_close`` < 1 the non-Stokes planes need
+    rtol 1e-4 / atol 1e-6 on that fraction of the lanes that agree and
+    ``rtol_all`` on all of them.  Returns the port's out-flags."""
+    d = lane_inputs(variant, temp=temp, xsec=xsec, dist=dist)
     block_act = np.array([1, 0, 1], np.int32)
     js, jf = jax_kernel(d, block_act, seed, stokes_on, inner_rounds)
     calls = (fr.fused_rounds.launches, fr.fused_rounds_reference.launches)
@@ -309,16 +381,22 @@ def check_twin_against_jax_kernel(variant, temp=1e5, stokes_on=True, seed=123456
     for out_state, out_flags in ((ts, tf), (js, jf)):
         np.testing.assert_array_equal(out_state[:, ~on], state[:, ~on])
         assert not out_flags[~on].any()
-    assert (js[fr.SP_NS] - state[fr.SP_NS]).sum() > 500  # photons do scatter
+    assert (js[fr.SP_NS] - state[fr.SP_NS]).sum() > min_scatt  # photons do scatter
     # and leave their cells: the membership test decides
     assert ((jf & fr.OUT_STALLED) != 0).sum() > min_stalled
     same = (ts[fr.SP_NS] == js[fr.SP_NS]) & (tf == jf) & live
     assert same.sum() >= 0.999 * live.sum(), (live.sum() - same.sum(), live.sum())
+    outside = np.zeros(int(same.sum()), bool)
     for i in NON_STOKES:
         if fr.SP_X <= i <= fr.SP_Z:
             continue
-        np.testing.assert_allclose(ts[i][same], js[i][same], rtol=1e-4, atol=1e-6,
-                                   err_msg=f"plane {i}")
+        a, b = ts[i][same], js[i][same]
+        if frac_close == 1.0:
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6, err_msg=f"plane {i}")
+        else:
+            outside |= np.abs(a - b) > 1e-6 + 1e-4 * np.abs(b)
+            np.testing.assert_allclose(a, b, rtol=rtol_all, atol=1e-6, err_msg=f"plane {i}")
+    assert 1.0 - outside.mean() >= frac_close, outside.mean()
     # positions by their norm: a coordinate that crosses zero keeps the
     # absolute error of the path, ~eps |x|
     pos = slice(fr.SP_X, fr.SP_Z + 1)

@@ -98,7 +98,8 @@ def test_f1_zero_velocity_polarization_3d_matches_xla():
     tframe, tidx, tph = to_port(cfg, host, edges, photons)
     assert tt.select_variant(cfg, tframe, tidx)[0] == "ultra_cart3"
     res_t = tt.transport_rounds_fused(cfg, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
-                                      base_seed=77, max_rounds=1, inner_rounds=1, s_rows=8)
+                                      base_seed=77, setup=tt.select_variant(cfg, tframe, tidx),
+                                      max_rounds=1, inner_rounds=1, s_rows=8)
 
     def once(ph):
         m = ph["num_scatt"] == 1

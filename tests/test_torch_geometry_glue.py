@@ -53,8 +53,9 @@ def run_both(kind, cold):
                                        jnp.iinfo(jnp.int32).max, dtype=jnp.int32))
     tframe, tidx, tph = to_port(cfg, host, edges, photons)
     tres = tt.transport_rounds_fused(cfg, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
-                                     base_seed=base_seed, max_rounds=8, inner_rounds=2,
-                                     s_rows=S_ROWS)
+                                     base_seed=base_seed,
+                                     setup=tt.select_variant(cfg, tframe, tidx),
+                                     max_rounds=8, inner_rounds=2, s_rows=S_ROWS)
     assert tres.n_rounds == int(res.n_rounds) <= 8
     a = {k: np.asarray(v) for k, v in vars(res.photons).items()}
     b = convert.photons_to_numpy(tres.photons)

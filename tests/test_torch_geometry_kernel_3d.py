@@ -17,20 +17,26 @@ cell rows and domain vector.  Both draw the same counter stream, so:
 * idle-block lanes are untouched and pool lanes stay put.
 
 Every frame has a nonzero fluid velocity, so fault F1 (the JAX kernel's
-Stokes chain where beta_f = 0) does not enter.
+Stokes chain where beta_f = 0) does not enter.  The 3-D spherical frame is
+hot (5e8 K), so its electron-frame energies reach the band of fault F6: the
+port's repaired Klein-Nishina form is replaced there by JAX's float32 form
+(``monkeypatch``) so that both accept the same scatterings.
 """
 import pytest
 import torch
 
-from test_torch_geometry_cases import check_twin_against_jax_kernel
+from mcrat_tpu_torch.ops import fused_round as fr
+
+from test_torch_geometry_cases import check_twin_against_jax_kernel, jax_f32_kn
 
 torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("variant", ["ultra_cart3", "packed_cart3", "packed_sph3", "packed_pol3"])
-def test_variant_twin_matches_jax_kernel_lane_for_lane(variant):
+def test_variant_twin_matches_jax_kernel_lane_for_lane(variant, monkeypatch):
     # one round per call: the 3-D fluid velocity is per cell, so a second
     # round adds no geometry; the 3-D spherical frame is hot (Maxwell-Juttner
     # electrons)
+    monkeypatch.setattr(fr, "_kn_cross_section", jax_f32_kn)
     check_twin_against_jax_kernel(variant, temp=5e8 if variant == "packed_sph3" else 1e5,
                                   inner_rounds=1, min_stalled=50)

@@ -60,9 +60,10 @@ def test_cell_tables_match_jax(name):
             np.testing.assert_array_equal(tdev.phys.numpy(), np.asarray(jdev.packed_slim)[4:8])
         else:
             assert tdev.phys is None
-    variant, table = tt.select_variant(cfg, tframe_conv, tidx)
+    variant, table, kflags = tt.select_variant(cfg, tframe_conv, tidx)
     assert variant == name
     assert table.shape[0] == fr.VARIANTS[name].width
+    assert kflags == tt.KernelFlags()  # DIRECT
     assert tt.unsupported_reason(cfg, tframe_conv, tidx) is None
 
 

@@ -6,7 +6,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SOURCES = sorted((ROOT / "mcrat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "mcrat_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_frames.py"]
 ALLOWED_FROM_JAX_PACKAGE = {"mcrat_tpu", "mcrat_tpu.config", "mcrat_tpu.constants"}
 
 
@@ -34,4 +35,5 @@ def test_no_jax_and_only_config_constants(path):
 
 def test_package_sources_found():
     names = {p.name for p in SOURCES}
-    assert {"transport.py", "grid.py", "fused_round.py", "chip_smoke.py"} <= names
+    assert {"transport.py", "grid.py", "fused_round.py", "chip_smoke.py",
+            "profile_torch_frames.py"} <= names

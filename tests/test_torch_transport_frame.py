@@ -114,7 +114,8 @@ def test_f1_zero_velocity_polarization_matches_xla():
                                 make_key(3), max_rounds=1)
     tph, tframe, tidx = _port(host, photons)
     res_t = tt.transport_rounds_fused(CFG, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
-                                      base_seed=77, max_rounds=1, inner_rounds=1, s_rows=8)
+                                      base_seed=77, setup=tt.select_variant(CFG, tframe, tidx),
+                                      max_rounds=1, inner_rounds=1, s_rows=8)
 
     def once(ph):
         m = ph["num_scatt"] == 1
