@@ -1,24 +1,42 @@
 """Carry state from the JAX package into the port, through numpy.
 
 The JAX package's objects are passed in as numpy arrays (``np.asarray`` of
-each field), so this module needs no jax: tests and tools use it to feed
-both packages the same photons, frames and grids.
+each field) or read by field name, so this module imports nothing of the
+JAX package: tests and tools use it to feed both packages the same
+configuration, photons, frames and grids.
 """
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import numpy as np
 import torch
 
-from mcrat_tpu.config import Config
-
+from .config import Config
 from .grid import HydroFrameHost, RectilinearIndex, build_rectilinear_index
 from .ops.hot_xsec import HotCrossSectionTable
 from .transport import Photons
 
 PHOTON_FIELDS = tuple(f.name for f in dataclasses.fields(Photons))
 _INT_FIELDS = ("cell", "ptype")
+
+
+def config_from_reference(obj) -> Config:
+    """The port's :class:`~mcrat_tpu_torch.config.Config` from any object
+    with its field names (``mcrat_tpu.config.Config``): enums are taken by
+    ``.value`` into the port's own enums, so identity checks in the port
+    (``cfg.geometry is Geometry.SPHERICAL``) hold.  A port Config is
+    returned as it is."""
+    if isinstance(obj, Config):
+        return obj
+    kw = {}
+    for f in dataclasses.fields(Config):
+        val = getattr(obj, f.name)
+        if isinstance(f.default, enum.Enum):
+            val = type(f.default)(val.value)
+        kw[f.name] = val
+    return Config(**kw)
 
 
 def photons_from_numpy(arrays: dict, device="cpu", dtype=torch.float32) -> Photons:
@@ -49,7 +67,7 @@ def frame_from_numpy_fields(cfg: Config, fields: dict) -> HydroFrameHost:
             continue
         val = fields[name]
         kw[name] = val if name == "jet_axis" or val is None else np.array(val, dtype=np.float64)
-    return HydroFrameHost(cfg=cfg, **kw)
+    return HydroFrameHost(cfg=config_from_reference(cfg), **kw)
 
 
 def xsec_table_from_numpy(log_e, log_t, thermal, nonthermal=None,

@@ -20,7 +20,7 @@ Photons always live in 3-D Cartesian "MCRaT coordinates".
 """
 from __future__ import annotations
 
-from mcrat_tpu.config import Config, Dims, Geometry
+from .config import Config, Dims, Geometry
 
 from ._xp import xp_for
 

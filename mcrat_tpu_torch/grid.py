@@ -20,8 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mcrat_tpu.config import Config, Dims, Geometry
-from mcrat_tpu.constants import A_RAD, M_P
+from .config import Config, Dims, Geometry
+from .constants import A_RAD, M_P
 
 from . import geometry as geo
 

@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from mcrat_tpu.config import Config, Dims, Geometry, SimType
-from mcrat_tpu.constants import A_RAD, C_LIGHT, M_P
+from ..config import Config, Dims, Geometry, SimType
+from ..constants import A_RAD, C_LIGHT, M_P
 
 from ..grid import HydroFrameHost, frame_from_numpy
 

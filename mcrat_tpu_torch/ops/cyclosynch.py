@@ -12,8 +12,8 @@ import math
 
 import numpy as np
 
-from mcrat_tpu.config import BFieldCalc, Config, NonthermalDist
-from mcrat_tpu.constants import A_RAD, C_LIGHT, K_B, KB_OVER_MEC2, M_P
+from ..config import BFieldCalc, Config, NonthermalDist
+from ..constants import A_RAD, C_LIGHT, K_B, KB_OVER_MEC2, M_P
 
 from .._xp import xp_for
 from .electrons import (

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import math
 
-from mcrat_tpu.constants import ME_C2
+from ..constants import ME_C2
 
 from .._xp import xp_for
 

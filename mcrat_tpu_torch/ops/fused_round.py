@@ -67,7 +67,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mcrat_tpu.constants import C_LIGHT, KB_OVER_MEC2, M_P, THOM_X_SECT
+from ..constants import C_LIGHT, KB_OVER_MEC2, M_P, THOM_X_SECT
 
 from ..grid import PCOL, PCOL_SLIM
 from . import rng
@@ -259,7 +259,7 @@ def nonthermal_constants(cfg, sub1: tuple) -> NtConstants:
     """The :class:`NtConstants` of a nonthermal config, ``sub1`` the global
     subgroup-1 fit (``ops.hot_xsec._sub1_cheb_static``), from float64 Python
     arithmetic as ``pallas_round._make_nonthermal_gamma`` forms it."""
-    from mcrat_tpu.config import NonthermalDist
+    from ..config import NonthermalDist
 
     from .electrons import broken_power_law_norm
 

@@ -33,8 +33,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mcrat_tpu.config import Config, NonthermalDist
-from mcrat_tpu.constants import KB_OVER_MEC2
+from ..config import Config, NonthermalDist
+from ..constants import KB_OVER_MEC2
 
 from .compton import kn_cross_section
 from .cyclosynch import electron_dist_subgroup_dens

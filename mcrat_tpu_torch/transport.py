@@ -28,10 +28,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from mcrat_tpu.config import (
+from .config import (
     Config, Dims, Geometry, NonthermalDist, PhotonType, Spectrum, TauCalculation,
 )
-from mcrat_tpu.constants import C_LIGHT, H_OVER_MEC2, K_B, ME_C2, PL_CONST
+from .constants import C_LIGHT, H_OVER_MEC2, K_B, ME_C2, PL_CONST
 
 from . import geometry as geo
 from .grid import HydroFrame, HydroFrameHost, RectilinearIndex, find_cell_direct

@@ -79,9 +79,10 @@ def test_f6_frame_scatterings_match_float64_engine():
     tph = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(ph64).items()})
     tframe = convert.frame_from_numpy_fields(cfg, vars(host)).to_device("cpu")
     tidx = convert.index_from_edges(*edges)
+    tcfg = convert.config_from_reference(cfg)
     tres = tt.transport_rounds_fused(
-        cfg, tph, tframe, tidx, torch.full((tph.capacity,), 0.3), base_seed=99,
-        setup=tt.select_variant(cfg, tframe, tidx), max_rounds=24, inner_rounds=2, s_rows=8)
+        tcfg, tph, tframe, tidx, torch.full((tph.capacity,), 0.3), base_seed=99,
+        setup=tt.select_variant(tcfg, tframe, tidx), max_rounds=24, inner_rounds=2, s_rows=8)
     a = np.asarray(res.photons.num_scatt)[np.asarray(res.photons.alive)]
     b = tres.photons.num_scatt[tres.photons.alive].double().numpy()
     # comoving photons in the F6 band, and a few scatterings each

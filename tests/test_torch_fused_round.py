@@ -43,6 +43,11 @@ from mcrat_tpu.ops import pallas_round as pr
 from mcrat_tpu.ops.rng import make_key
 from mcrat_tpu_torch import convert
 from mcrat_tpu_torch import transport as tt
+from mcrat_tpu_torch.config import Config as TConfig
+from mcrat_tpu_torch.config import Dims as TDims
+from mcrat_tpu_torch.config import Geometry as TGeometry
+from mcrat_tpu_torch.config import NonthermalDist as TNonthermal
+from mcrat_tpu_torch.config import TauCalculation as TTau
 from mcrat_tpu_torch.ops import fused_round as fr
 from mcrat_tpu_torch.ops import rng as trng
 
@@ -199,10 +204,11 @@ def test_glue_matches_jax_fused_transport_flagship_frame():
                                        jnp.iinfo(jnp.int32).max, dtype=jnp.int32))
     tframe = convert.frame_from_numpy_fields(cfg, vars(host)).to_device("cpu")
     tidx = convert.index_from_edges(*edges)
+    tcfg = convert.config_from_reference(cfg)
     tres = tt.transport_rounds_fused(
-        cfg, convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}),
+        tcfg, convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}),
         tframe, tidx, torch.from_numpy(np.array(t_rem)), base_seed=base_seed,
-        setup=tt.select_variant(cfg, tframe, tidx), max_rounds=8, inner_rounds=2, s_rows=S_ROWS)
+        setup=tt.select_variant(tcfg, tframe, tidx), max_rounds=8, inner_rounds=2, s_rows=S_ROWS)
     a = {k: np.asarray(v) for k, v in vars(res.photons).items()}
     b = convert.photons_to_numpy(tres.photons)
     assert tres.n_rounds == int(res.n_rounds) == 8
@@ -243,7 +249,8 @@ def test_fused_rounds_wrapper_checks_inputs():
 
 
 def test_unported_configurations_raise():
-    cfg, host, idx, edges, photons = _cylinder(100.0, False, 7, 1500, 4000)
+    jcfg, host, idx, edges, photons = _cylinder(100.0, False, 7, 1500, 4000)
+    cfg = convert.config_from_reference(jcfg)
     ph = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()})
     frame = convert.frame_from_numpy_fields(cfg, vars(host)).to_device("cpu")
     index = convert.index_from_edges(*edges)
@@ -253,12 +260,12 @@ def test_unported_configurations_raise():
         tt.transport_frame(cfg, ph, frame, index, 0.05, torch.Generator())
     # TABLE and nonthermal electrons are ported, but TABLE without its tables
     # raises: no quiet sigma_hat = 1
-    table = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL,
-                   tau_calculation=TauCalculation.TABLE)
-    nonthermal = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL,
-                        tau_calculation=TauCalculation.TABLE,
-                        nonthermal_e_dist=NonthermalDist.POWERLAW, powerlaw_index=2.5,
-                        gamma_min=1.0, gamma_max=100.0)
+    table = TConfig(dims=TDims.TWO, geometry=TGeometry.CYLINDRICAL,
+                    tau_calculation=TTau.TABLE)
+    nonthermal = TConfig(dims=TDims.TWO, geometry=TGeometry.CYLINDRICAL,
+                         tau_calculation=TTau.TABLE,
+                         nonthermal_e_dist=TNonthermal.POWERLAW, powerlaw_index=2.5,
+                         gamma_min=1.0, gamma_max=100.0)
     for c in (table, nonthermal):
         assert tt.unsupported_reason(c, frame, index) is None
         assert not tt.fused_transport_available(c, ph, frame, index)
@@ -273,11 +280,11 @@ def test_unported_configurations_raise():
     nonuniform = convert.index_from_edges(edges[0], np.geomspace(1.8e12, 2.9e12, 65))
     assert tt.unsupported_reason(cfg, frame, nonuniform) is None
     assert tt.select_variant(cfg, frame, nonuniform)[0] == "slim_cyl2"
-    sph = Config(dims=Dims.TWO, geometry=Geometry.SPHERICAL)
+    sph = TConfig(dims=TDims.TWO, geometry=TGeometry.SPHERICAL)
     assert tt.unsupported_reason(sph, frame, index) is None
     # still to port: cyclo-synchrotron, the AMR index, float64
-    assert "item 11" in tt.unsupported_reason(Config(
-        dims=Dims.TWO, geometry=Geometry.CYLINDRICAL, cyclosynchrotron=True), frame, index)
+    assert "item 11" in tt.unsupported_reason(TConfig(
+        dims=TDims.TWO, geometry=TGeometry.CYLINDRICAL, cyclosynchrotron=True), frame, index)
     assert "item 12" in tt.unsupported_reason(cfg, frame, object())
     with pytest.raises(NotImplementedError, match="item 12"):
         tt.transport_rounds_fused(cfg, ph, frame, object(), tt.frame_time(ph, 0.05),

@@ -74,7 +74,7 @@ def xsec_tables(dist=None):
     if dist:
         cfg = table_cfg(Config(), dist)
         nt = jhx.build_nonthermal_table(cfg)[1]
-        frac = tcs.electron_dist_subgroup_dens(cfg)
+        frac = tcs.electron_dist_subgroup_dens(convert.config_from_reference(cfg))
     return convert.xsec_table_from_numpy(log_e, log_t, thermal, nt, frac)
 
 
@@ -122,12 +122,14 @@ def frame_case(name, gamma=2.0, temp=1e5, thin=False, port=False):
     a free path is a sizeable fraction of a cell, so that lanes both scatter
     and leave their cells within a kernel call of one second."""
     an, frame_from_numpy = (tan, tgrid.frame_from_numpy) if port else (jan, jframe_from_numpy)
+    # the port's models take the port's Config
+    conv = convert.config_from_reference if port else (lambda c: c)
     kind = name.split("_", 1)[1]
     inj = dict(r_inj=2e12, theta_max=np.pi / 30)
     if kind in ("sph2", "sph25"):
         dims = Dims.TWO if kind == "sph2" else Dims.TWO_POINT_FIVE
-        cfg = Config(dims=dims, geometry=Geometry.SPHERICAL,
-                     simulation_type=SimType.SPHERICAL_OUTFLOW, dtype="float32")
+        cfg = conv(Config(dims=dims, geometry=Geometry.SPHERICAL,
+                          simulation_type=SimType.SPHERICAL_OUTFLOW, dtype="float32"))
         # tests/test_pallas_round.py::_spherical_problem, ten times closer in
         host, edges = an.synthetic_spherical_frame(
             cfg, 5e11, 4e12, nr=48, ntheta=6, theta_max=np.pi / 3,
@@ -137,9 +139,9 @@ def frame_case(name, gamma=2.0, temp=1e5, thin=False, port=False):
             _set_v2(host, 0.8, 0.3)
         inj = dict(r_inj=1e12, theta_max=np.pi / 6)
     elif kind in ("cyl2", "cyl25"):
-        cfg = Config(dims=Dims.TWO if kind == "cyl2" else Dims.TWO_POINT_FIVE,
-                     geometry=Geometry.CYLINDRICAL,
-                     simulation_type=SimType.CYLINDRICAL_OUTFLOW, dtype="float32")
+        cfg = conv(Config(dims=Dims.TWO if kind == "cyl2" else Dims.TWO_POINT_FIVE,
+                          geometry=Geometry.CYLINDRICAL,
+                          simulation_type=SimType.CYLINDRICAL_OUTFLOW, dtype="float32"))
         edges = CYL_EDGES
         if name == "slim_cyl2":
             edges = (CYL_EDGES[0], np.geomspace(1.8e12, 2.9e12, 65))
@@ -152,12 +154,12 @@ def frame_case(name, gamma=2.0, temp=1e5, thin=False, port=False):
         elif kind == "cyl25":
             _set_v2(host, 0.8, 0.3)
     else:
-        cfg = Config(dims=Dims.THREE,
-                     geometry=dict(cart3=Geometry.CARTESIAN, sph3=Geometry.SPHERICAL,
-                                   pol3=Geometry.POLAR)[kind],
-                     simulation_type=(SimType.SPHERICAL_OUTFLOW if kind == "sph3"
-                                      else SimType.CYLINDRICAL_OUTFLOW),
-                     dtype="float32")
+        cfg = conv(Config(dims=Dims.THREE,
+                          geometry=dict(cart3=Geometry.CARTESIAN, sph3=Geometry.SPHERICAL,
+                                        pol3=Geometry.POLAR)[kind],
+                          simulation_type=(SimType.SPHERICAL_OUTFLOW if kind == "sph3"
+                                           else SimType.CYLINDRICAL_OUTFLOW),
+                          dtype="float32"))
         if kind == "cart3":
             ez = (np.linspace if name == "ultra_cart3" else np.geomspace)(1.8e12, 2.9e12, 33)
             edges = (np.linspace(-4e11, 4e11, 17), np.linspace(-4e11, 4e11, 17), ez)
@@ -253,8 +255,9 @@ def lane_inputs(name, seed=7, gamma=2.0, temp=1e5, xsec=None, dist=None):
     cfg, host, edges, inj = frame_case(name, gamma, temp, thin=True)
     if xsec is not None:
         cfg = table_cfg(cfg, dist)
+    tcfg = convert.config_from_reference(cfg)
     if dist:
-        host.nonthermal_dens = tcs.nonthermal_electron_dens(cfg, host)
+        host.nonthermal_dens = tcs.nonthermal_electron_dens(tcfg, host)
     photons = inject(host, inj, seed)
     jframe = host.to_device(dtype=jnp.float32)
     jidx = build_rectilinear_index(*edges, dtype="float32")
@@ -311,7 +314,7 @@ def lane_inputs(name, seed=7, gamma=2.0, temp=1e5, xsec=None, dist=None):
         geom = dom
         kw["slim"] = var.source == "slim"
     tframe, tidx, _ = to_port(cfg, host, edges)
-    tname, ttable, kflags = tt.select_variant(cfg, tframe, tidx, xsec)
+    tname, ttable, kflags = tt.select_variant(tcfg, tframe, tidx, xsec)
     assert tname == name, (tname, name)
     width = var.width
     np.testing.assert_array_equal(ttable.numpy()[:width], np.asarray(table, np.float32))
@@ -322,7 +325,7 @@ def lane_inputs(name, seed=7, gamma=2.0, temp=1e5, xsec=None, dist=None):
         kw["cheb_base"] = width
         if dist:
             kw["nonthermal"] = True
-            kw["nt_sub1"] = thx._sub1_cheb_static(cfg, xsec.log_e, xsec.nonthermal[:, 0])
+            kw["nt_sub1"] = thx._sub1_cheb_static(tcfg, xsec.log_e, xsec.nonthermal[:, 0])
     rows = np.ascontiguousarray(table[:, safe])
     return dict(cfg=cfg, state=state, alive=alive, pool=pool, safe=safe, flags=flags,
                 jflags=jflags, rows=rows, geom=geom, jax_kw=kw, table=ttable,

@@ -49,9 +49,10 @@ def test_transport_frame_matches_xla(kind, variant):
                                build_rectilinear_index(*edges, dtype="float32"),
                                jnp.float32(dt), make_key(1), fused=False)
     tframe, tidx, tph = to_port(cfg, host, edges, photons)
-    assert tt.select_variant(cfg, tframe, tidx)[0] == variant
+    tcfg = convert.config_from_reference(cfg)
+    assert tt.select_variant(tcfg, tframe, tidx)[0] == variant
     launches = fr.fused_rounds.launches
-    res_t = tt.transport_frame(cfg, tph, tframe, tidx, dt, torch.Generator().manual_seed(1),
+    res_t = tt.transport_frame(tcfg, tph, tframe, tidx, dt, torch.Generator().manual_seed(1),
                                fused=True, chunk_rounds=8, s_rows=8)
     assert fr.fused_rounds.launches == launches  # CPU: the twin, never the kernel
     alive = res_t.photons.alive
@@ -96,9 +97,10 @@ def test_f1_zero_velocity_polarization_3d_matches_xla():
                                 build_rectilinear_index(*edges, dtype="float32"), t_rem,
                                 make_key(3), max_rounds=1)
     tframe, tidx, tph = to_port(cfg, host, edges, photons)
-    assert tt.select_variant(cfg, tframe, tidx)[0] == "ultra_cart3"
-    res_t = tt.transport_rounds_fused(cfg, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
-                                      base_seed=77, setup=tt.select_variant(cfg, tframe, tidx),
+    tcfg = convert.config_from_reference(cfg)
+    assert tt.select_variant(tcfg, tframe, tidx)[0] == "ultra_cart3"
+    res_t = tt.transport_rounds_fused(tcfg, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
+                                      base_seed=77, setup=tt.select_variant(tcfg, tframe, tidx),
                                       max_rounds=1, inner_rounds=1, s_rows=8)
 
     def once(ph):

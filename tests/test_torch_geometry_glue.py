@@ -52,9 +52,10 @@ def run_both(kind, cold):
     base_seed = int(jax.random.randint(key, (), jnp.iinfo(jnp.int32).min,
                                        jnp.iinfo(jnp.int32).max, dtype=jnp.int32))
     tframe, tidx, tph = to_port(cfg, host, edges, photons)
-    tres = tt.transport_rounds_fused(cfg, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
+    tcfg = convert.config_from_reference(cfg)
+    tres = tt.transport_rounds_fused(tcfg, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
                                      base_seed=base_seed,
-                                     setup=tt.select_variant(cfg, tframe, tidx),
+                                     setup=tt.select_variant(tcfg, tframe, tidx),
                                      max_rounds=8, inner_rounds=2, s_rows=S_ROWS)
     assert tres.n_rounds == int(res.n_rounds) <= 8
     a = {k: np.asarray(v) for k, v in vars(res.photons).items()}

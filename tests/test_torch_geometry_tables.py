@@ -18,6 +18,7 @@ from test_torch_geometry_cases import VARIANT_CASES, frame_case, to_port
 from mcrat_tpu import grid as jgrid
 from mcrat_tpu.config import Config, Dims, Geometry
 from mcrat_tpu.constants import M_P
+from mcrat_tpu_torch import convert
 from mcrat_tpu_torch import grid as tgrid
 from mcrat_tpu_torch import transport as tt
 from mcrat_tpu_torch.ops import fused_round as fr
@@ -39,7 +40,8 @@ def test_cell_tables_match_jax(name):
                                    err_msg=f)
     jdev = jhost.to_device(dtype=jnp.float32)
     jpacked = np.asarray(jdev.packed)
-    assert jpacked.shape[0] == tgrid.packed_width(cfg) == (
+    tcfg = convert.config_from_reference(cfg)
+    assert jpacked.shape[0] == tgrid.packed_width(tcfg) == (
         24 if name == "packed_sph3" else 16)
     # the port's own frame, and the JAX frame carried across by convert
     tframe_conv, tidx, _ = to_port(cfg, jhost, edges)
@@ -60,11 +62,11 @@ def test_cell_tables_match_jax(name):
             np.testing.assert_array_equal(tdev.phys.numpy(), np.asarray(jdev.packed_slim)[4:8])
         else:
             assert tdev.phys is None
-    variant, table, kflags = tt.select_variant(cfg, tframe_conv, tidx)
+    variant, table, kflags = tt.select_variant(tcfg, tframe_conv, tidx)
     assert variant == name
     assert table.shape[0] == fr.VARIANTS[name].width
     assert kflags == tt.KernelFlags()  # DIRECT
-    assert tt.unsupported_reason(cfg, tframe_conv, tidx) is None
+    assert tt.unsupported_reason(tcfg, tframe_conv, tidx) is None
 
 
 def test_row_layout_matches_jax():
@@ -73,7 +75,7 @@ def test_row_layout_matches_jax():
     for dims, geom in [(Dims.TWO, Geometry.SPHERICAL), (Dims.THREE, Geometry.SPHERICAL),
                        (Dims.THREE, Geometry.POLAR), (Dims.TWO_POINT_FIVE, Geometry.CARTESIAN)]:
         cfg = Config(dims=dims, geometry=geom)
-        assert tgrid.packed_width(cfg) == jgrid.packed_width(cfg)
+        assert tgrid.packed_width(convert.config_from_reference(cfg)) == jgrid.packed_width(cfg)
 
 
 @pytest.mark.parametrize("dims,geom", [
@@ -92,8 +94,8 @@ def test_fluid_beta_from_rows_matches_jax(dims, geom):
     x[:50] = y[:50] = 0.0  # on the axis: azimuth taken as 0
     want = np.asarray(jgrid.fluid_beta_from_rows(cfg, jnp.asarray(rows), jnp.asarray(x),
                                                  jnp.asarray(y)))
-    got = tgrid.fluid_beta_from_rows(cfg, torch.from_numpy(rows), torch.from_numpy(x),
-                                     torch.from_numpy(y)).numpy()
+    got = tgrid.fluid_beta_from_rows(convert.config_from_reference(cfg), torch.from_numpy(rows),
+                                     torch.from_numpy(x), torch.from_numpy(y)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-15)
 
 

@@ -53,6 +53,7 @@ def _close(a, b):
 @pytest.mark.parametrize("dims,geom", GEOMETRIES, ids=lambda v: v.name)
 def test_geometry_matches_jax(dims, geom, as_tensor):
     cfg = Config(dims=dims, geometry=geom)
+    tcfg = convert.config_from_reference(cfg)
     xyz, hyd, vec, size = _inputs()
 
     def conv(a):
@@ -64,14 +65,14 @@ def test_geometry_matches_jax(dims, geom, as_tensor):
     for name in ("mcrat_to_hydro", "hydro_to_spherical", "hydro_to_mcrat"):
         src = xyz if name == "mcrat_to_hydro" else hyd
         want = getattr(jgeo, name)(cfg, *src)
-        got = out(getattr(tgeo, name)(cfg, *[conv(a) for a in src]))
+        got = out(getattr(tgeo, name)(tcfg, *[conv(a) for a in src]))
         for w, g in zip(want, got):
             _close(g, w)
     want = jgeo.hydro_vector_to_cartesian(cfg, *vec, *hyd)
-    got = out(tgeo.hydro_vector_to_cartesian(cfg, *[conv(a) for a in (*vec, *hyd)]))
+    got = out(tgeo.hydro_vector_to_cartesian(tcfg, *[conv(a) for a in (*vec, *hyd)]))
     for w, g in zip(want, got):
         _close(g, w)
-    _close(out([tgeo.element_volume(cfg, *[conv(a) for a in (*hyd, *size)])])[0],
+    _close(out([tgeo.element_volume(tcfg, *[conv(a) for a in (*hyd, *size)])])[0],
            jgeo.element_volume(cfg, *hyd, *size))
     probe = hyd + size * 0.3 * np.sign(np.random.default_rng(1).normal(size=hyd.shape))
     for use_r2 in (False, True):
@@ -83,10 +84,11 @@ def test_geometry_matches_jax(dims, geom, as_tensor):
 def _frames(prep):
     cfg = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL,
                  simulation_type=SimType.CYLINDRICAL_OUTFLOW, dtype="float32")
+    tcfg = convert.config_from_reference(cfg)
     r0e = np.linspace(0.0, 3.2e11, 33)
     r1e = np.linspace(1.8e12, 2.9e12, 65)
     jhost = jgrid.frame_from_numpy(cfg, jan.make_grid_2d(cfg, r0e, r1e))
-    thost = tgrid.frame_from_numpy(cfg, tan.make_grid_2d(cfg, r0e, r1e))
+    thost = tgrid.frame_from_numpy(tcfg, tan.make_grid_2d(tcfg, r0e, r1e))
     getattr(jan, prep)(jhost)
     getattr(tan, prep)(thost)
     return cfg, jhost, thost, (r0e, r1e)
@@ -145,7 +147,7 @@ def _angular_positions(cfg, edges, seed=3, n=10_000):
         h.append(rs.uniform(0.0, 2 * np.pi, n))  # the photon azimuth
     if cfg.geometry is Geometry.SPHERICAL:
         h[1] = np.clip(h[1], 0.0, np.pi)
-    pts = np.stack(tgeo.hydro_to_mcrat(cfg, *h[:3]), axis=1)
+    pts = np.stack(tgeo.hydro_to_mcrat(convert.config_from_reference(cfg), *h[:3]), axis=1)
     axis = np.stack([np.zeros(300), np.zeros(300), rs.uniform(lo[0], hi[0], 300)], axis=1)
     far = rs.normal(size=(200, 3)) * 1e15
     return np.concatenate([pts, axis, far]).astype(np.float32)
@@ -156,7 +158,7 @@ def _near_faces(cfg, edges, pos, ulps=4):
     ulps of a cell face on some axis, measured in the float32 quantity the
     lookup rounds: the radius or azimuth itself, and cos(theta) = z/r for a
     spherical theta (arccos magnifies one ulp of z/r near the jet axis)."""
-    h = tgeo.mcrat_to_hydro(cfg, *pos.astype(np.float64).T)
+    h = tgeo.mcrat_to_hydro(convert.config_from_reference(cfg), *pos.astype(np.float64).T)
     eps = np.finfo(np.float32).eps
     near = np.zeros(len(pos), bool)
     for axis, (coord, e) in enumerate(zip(h, edges)):
@@ -201,8 +203,9 @@ def test_find_cell_direct_identical_to_jax(kind):
                else np.geomspace(1.8e12, 2.9e12, 65))
         edges = (np.linspace(0.0, 3.2e11, 33), r1e)
         arrays = jan.make_grid_2d(cfg, *edges)
+    tcfg = convert.config_from_reference(cfg)
     jhost = jgrid.frame_from_numpy(cfg, arrays)
-    thost = tgrid.frame_from_numpy(cfg, arrays)
+    thost = tgrid.frame_from_numpy(tcfg, arrays)
     jidx = jgrid.build_rectilinear_index(*edges, dtype="float32")
     tidx = convert.index_from_edges(*edges)
     assert tidx.uniform == jidx.uniform and tidx.three_d == jidx.three_d
@@ -213,7 +216,7 @@ def test_find_cell_direct_identical_to_jax(kind):
     jcell, jin = jax.jit(
         lambda p: jgrid.find_cell_direct(cfg, jidx, jhost.to_device(dtype=jnp.float32), p)
     )(jnp.asarray(pos))
-    tcell, tin = tgrid.find_cell_direct(cfg, tidx, thost.to_device("cpu"), torch.from_numpy(pos))
+    tcell, tin = tgrid.find_cell_direct(tcfg, tidx, thost.to_device("cpu"), torch.from_numpy(pos))
     differ = (tcell.numpy() != np.asarray(jcell)) | (tin.numpy() != np.asarray(jin))
     if kind in ANGULAR:
         assert differ.sum() <= 5, differ.sum()

@@ -59,18 +59,20 @@ def test_thermal_table_matches_jax(thermal):
 @pytest.mark.parametrize("dist", sorted(NT_DISTS))
 def test_nonthermal_table_matches_jax(dist):
     cfg = _cfg(dist)
+    tcfg = convert.config_from_reference(cfg)
     _, tab_j = jhx.build_nonthermal_table(cfg)
-    _, tab_t = thx.build_nonthermal_table(cfg)
+    _, tab_t = thx.build_nonthermal_table(tcfg)
     assert tab_t.shape == (thx.N_PH_E + 1, cfg.n_gamma)
     np.testing.assert_allclose(tab_t, tab_j, rtol=TABLE_RTOL, atol=TABLE_ATOL)
 
 
 def test_cache_written_by_either_package_loads_in_the_other(tmp_path, monkeypatch):
     cfg = _cfg("powerlaw")
-    assert thx._cache_header(cfg) == jhx._cache_header(cfg)
+    tcfg = convert.config_from_reference(cfg)
+    assert thx._cache_header(tcfg) == jhx._cache_header(cfg)
     assert thx.CACHE_VERSION == jhx.CACHE_VERSION
     port_path, jax_path = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
-    tp = thx.load_or_build(cfg, port_path)  # builds and writes
+    tp = thx.load_or_build(tcfg, port_path)  # builds and writes
     tj = jhx.load_or_build(cfg, jax_path, dtype="float64")  # builds and writes
 
     def no_build(*args, **kwargs):
@@ -79,7 +81,7 @@ def test_cache_written_by_either_package_loads_in_the_other(tmp_path, monkeypatc
     for mod in (jhx, thx):
         monkeypatch.setattr(mod, "build_thermal_table", no_build)
         monkeypatch.setattr(mod, "build_nonthermal_table", no_build)
-    from_jax = thx.load_or_build(cfg, jax_path)
+    from_jax = thx.load_or_build(tcfg, jax_path)
     for name in ("log_e", "log_t", "thermal", "nonthermal", "subgroup_frac"):
         np.testing.assert_array_equal(getattr(from_jax, name), np.asarray(getattr(tj, name)))
     from_port = jhx.load_or_build(cfg, port_path, dtype="float64")
@@ -87,7 +89,7 @@ def test_cache_written_by_either_package_loads_in_the_other(tmp_path, monkeypatc
         np.testing.assert_array_equal(np.asarray(getattr(from_port, name)), getattr(tp, name))
     # the other config's header does not match: it would rebuild
     with pytest.raises(AssertionError, match="loaded"):
-        thx.load_or_build(_cfg("broken"), jax_path)
+        thx.load_or_build(convert.config_from_reference(_cfg("broken")), jax_path)
 
 
 def _jax_table(thermal_arrays):
@@ -161,10 +163,11 @@ def test_interpolation_matches_jax(thermal):
 @pytest.mark.parametrize("dist", sorted(NT_DISTS))
 def test_sub1_fit_and_subgroup_fractions_match_jax(dist):
     cfg = _cfg(dist)
+    tcfg = convert.config_from_reference(cfg)
     log_e, nt = jhx.build_nonthermal_table(cfg, n_gamma_nodes=32, n_mu_nodes=16)
-    np.testing.assert_allclose(tcs.electron_dist_subgroup_dens(cfg),
+    np.testing.assert_allclose(tcs.electron_dist_subgroup_dens(tcfg),
                                jcs.electron_dist_subgroup_dens(cfg), rtol=1e-12)
-    np.testing.assert_allclose(thx._sub1_cheb_static(cfg, log_e, nt[:, 0]),
+    np.testing.assert_allclose(thx._sub1_cheb_static(tcfg, log_e, nt[:, 0]),
                                jhx._sub1_cheb_static(cfg, log_e, nt[:, 0]),
                                rtol=1e-12, atol=1e-12)
 
@@ -178,11 +181,12 @@ def test_nonthermal_electron_densities_match_jax(dist, b_field):
     host, _ = synthetic_spherical_frame(cfg, r_min=1e12, r_max=2e13, nr=24, ntheta=4,
                                         theta_max=np.pi / 3)
     thost = convert.frame_from_numpy_fields(cfg, vars(host))
+    tcfg = convert.config_from_reference(cfg)
     want = jcs.nonthermal_electron_dens(cfg, host)
-    got = tcs.nonthermal_electron_dens(cfg, thost)
+    got = tcs.nonthermal_electron_dens(tcfg, thost)
     assert (got > 0).all()
     np.testing.assert_allclose(got, want, rtol=1e-12)
-    np.testing.assert_allclose(tcs.b_magnitude(cfg, thost), np.asarray(jcs.b_magnitude(cfg, host)),
+    np.testing.assert_allclose(tcs.b_magnitude(tcfg, thost), np.asarray(jcs.b_magnitude(cfg, host)),
                                rtol=1e-12)
     np.testing.assert_allclose(tcs.dimless_theta(thost.temp), jcs.dimless_theta(host.temp),
                                rtol=1e-15)
@@ -241,10 +245,10 @@ def test_frame_host_packs_nonthermal_density():
     from mcrat_tpu_torch.grid import frame_from_numpy as tframe_from_numpy
     from mcrat_tpu_torch.models.analytic import make_grid_2d
 
-    cfg = _cfg("powerlaw")
-    host = tframe_from_numpy(cfg, make_grid_2d(cfg, np.linspace(0, 1e11, 5),
-                                               np.linspace(1e12, 2e12, 9)))
-    host.nonthermal_dens = tcs.nonthermal_electron_dens(cfg, host)
+    tcfg = convert.config_from_reference(_cfg("powerlaw"))
+    host = tframe_from_numpy(tcfg, make_grid_2d(tcfg, np.linspace(0, 1e11, 5),
+                                                np.linspace(1e12, 2e12, 9)))
+    host.nonthermal_dens = tcs.nonthermal_electron_dens(tcfg, host)
     frame = host.to_device("cpu")
     np.testing.assert_array_equal(frame.packed[PCOL["nonthermal_dens"]].numpy(),
                                   host.nonthermal_dens.astype(np.float32))

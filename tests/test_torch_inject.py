@@ -16,6 +16,7 @@ from mcrat_tpu.grid import frame_from_numpy as jframe
 from mcrat_tpu.models import analytic as jan
 from mcrat_tpu_torch import convert
 from mcrat_tpu_torch import transport as tt
+from mcrat_tpu_torch.config import Spectrum as TSpectrum
 from mcrat_tpu_torch.grid import frame_from_numpy as tframe
 from mcrat_tpu_torch.models import analytic as tan
 from test_torch_geometry_cases import frame_case
@@ -37,13 +38,13 @@ def _hosts(kind):
                      simulation_type=SimType.SPHERICAL_OUTFLOW)
         jhost, _ = jan.synthetic_spherical_frame(cfg, 5e12, 4e13, nr=48, ntheta=6,
                                                  theta_max=np.pi / 3)
-        thost, _ = tan.synthetic_spherical_frame(cfg, 5e12, 4e13, nr=48, ntheta=6,
-                                                 theta_max=np.pi / 3)
+        thost, _ = tan.synthetic_spherical_frame(convert.config_from_reference(cfg), 5e12, 4e13,
+                                                 nr=48, ntheta=6, theta_max=np.pi / 3)
         return jhost, thost, dict(r_inj=1e13, theta_max=np.pi / 6)
     cfg = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL,
                  simulation_type=SimType.CYLINDRICAL_OUTFLOW)
     grid = jan.make_grid_2d(cfg, np.linspace(0.0, 3.2e11, 33), np.linspace(1.8e12, 2.9e12, 65))
-    jhost, thost = jframe(cfg, grid), tframe(cfg, grid)
+    jhost, thost = jframe(cfg, grid), tframe(convert.config_from_reference(cfg), grid)
     jan.apply_simulation_type(jhost)
     tan.apply_simulation_type(thost)
     return jhost, thost, dict(r_inj=2e12, theta_max=np.pi / 30)
@@ -62,7 +63,8 @@ def test_inject_photons_identical_to_jax(kind, spect, seed):
     common = dict(ph_weight=1e50, min_photons=1500, max_photons=4000, spect=spect,
                   theta_min=0.0, fps=5.0, **kw)
     ja, jw = jt.inject_photons(jhost, rng=np.random.default_rng(seed), **common)
-    ta, tw = tt.inject_photons(thost, rng=np.random.default_rng(seed), **common)
+    ta, tw = tt.inject_photons(thost, rng=np.random.default_rng(seed),
+                               **{**common, "spect": TSpectrum(spect.value)})
     assert tw == jw
     assert len(ta["weight"]) == len(ja["weight"]) > 0
     for k in ("cell", "ptype", "weight", "num_scatt"):

@@ -55,14 +55,15 @@ def test_nonthermal_rounds_match_xla(tmp_path):
                                 build_rectilinear_index(*edges, dtype="float32"), t_rem,
                                 make_key(13), xsec_table=tab32, max_rounds=20)
     thost = convert.frame_from_numpy_fields(cfg, vars(host))
-    np.testing.assert_allclose(tcs.nonthermal_electron_dens(cfg, thost), host.nonthermal_dens,
+    tcfg = convert.config_from_reference(cfg)
+    np.testing.assert_allclose(tcs.nonthermal_electron_dens(tcfg, thost), host.nonthermal_dens,
                                rtol=1e-12)
     tph = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()})
     tframe, tidx = thost.to_device("cpu"), convert.index_from_edges(*edges)
-    setup = tt.select_variant(cfg, tframe, tidx, xsec)
+    setup = tt.select_variant(tcfg, tframe, tidx, xsec)
     name, _, kflags = setup
     assert name == "packed_sph2" and kflags.cheb_base == 16 and kflags.nt is not None
-    res_t = tt.transport_rounds_fused(cfg, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
+    res_t = tt.transport_rounds_fused(tcfg, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
                                       base_seed=13, setup=setup, max_rounds=20, inner_rounds=2,
                                       s_rows=8)
 

@@ -34,6 +34,7 @@ torch.set_num_threads(1)
 CFG = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL, dtype="float32",
              simulation_type=SimType.CYLINDRICAL_OUTFLOW, tau_calculation=TauCalculation.TABLE)
 EDGES = (np.linspace(0.0, 3.2e11, 33), np.linspace(1.8e12, 2.9e12, 65))
+TCFG = convert.config_from_reference(CFG)
 
 
 @pytest.fixture(scope="module")
@@ -73,11 +74,11 @@ def test_table_rounds_match_xla(hot_frame):
                                 build_rectilinear_index(*EDGES, dtype="float32"), t_rem,
                                 make_key(9), xsec_table=tab32, max_rounds=16)
     tph, tframe, tidx = _port(host, photons)
-    name, table, kflags = tt.select_variant(CFG, tframe, tidx, xsec)
+    name, table, kflags = tt.select_variant(TCFG, tframe, tidx, xsec)
     assert name == "ultra_cyl2" and kflags.cheb_base == 4 and table.shape[0] == 4 + 16
     launches = fr.fused_rounds.launches
     t0 = torch.from_numpy(np.array(t_rem))
-    res_t = tt.transport_rounds_fused(CFG, tph, tframe, tidx, t0, base_seed=9,
+    res_t = tt.transport_rounds_fused(TCFG, tph, tframe, tidx, t0, base_seed=9,
                                       setup=(name, table, kflags), max_rounds=16,
                                       inner_rounds=2, s_rows=8)
     assert fr.fused_rounds.launches == launches  # CPU: the twin, never the kernel
@@ -89,8 +90,9 @@ def test_table_rounds_match_xla(hot_frame):
     assert b["e"] == pytest.approx(a["e"], rel=0.15)
     assert b["r"] == pytest.approx(a["r"], rel=1e-3)
     # the hot suppression is real: DIRECT (sigma_hat = 1) scatters more
-    direct = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL, dtype="float32",
-                    simulation_type=SimType.CYLINDRICAL_OUTFLOW)
+    direct = convert.config_from_reference(
+        Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL, dtype="float32",
+               simulation_type=SimType.CYLINDRICAL_OUTFLOW))
     res_d = tt.transport_rounds_fused(direct, tph, tframe, tidx, t0, base_seed=9,
                                       setup=tt.select_variant(direct, tframe, tidx),
                                       max_rounds=16, inner_rounds=2, s_rows=8)
@@ -103,7 +105,7 @@ def test_table_frame_matches_xla(hot_frame):
                                build_rectilinear_index(*EDGES, dtype="float32"),
                                jnp.float32(0.05), make_key(1), xsec_table=tab32, fused=False)
     tph, tframe, tidx = _port(host, photons)
-    res_t = tt.transport_frame(CFG, tph, tframe, tidx, 0.05, torch.Generator().manual_seed(1),
+    res_t = tt.transport_frame(TCFG, tph, tframe, tidx, 0.05, torch.Generator().manual_seed(1),
                                fused=True, chunk_rounds=8, s_rows=8, xsec_table=xsec)
     assert res_t.n_rounds > 8  # several chunks
     alive = res_t.photons.alive

@@ -30,6 +30,7 @@ torch.set_num_threads(1)
 CFG = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL,
              simulation_type=SimType.CYLINDRICAL_OUTFLOW, dtype="float32")
 EDGES = (np.linspace(0.0, 3.2e11, 33), np.linspace(1.8e12, 2.9e12, 65))
+TCFG = convert.config_from_reference(CFG)
 
 
 def _port(host, photons):
@@ -65,7 +66,7 @@ def test_transport_frame_matches_xla(hot):
                                jnp.float32(0.05), make_key(1), fused=False)
     tph, tframe, tidx = _port(host, photons)
     launches = fr.fused_rounds.launches
-    res_t = tt.transport_frame(CFG, tph, tframe, tidx, 0.05, torch.Generator().manual_seed(1),
+    res_t = tt.transport_frame(TCFG, tph, tframe, tidx, 0.05, torch.Generator().manual_seed(1),
                                fused=True, chunk_rounds=8, s_rows=8)
     assert fr.fused_rounds.launches == launches  # CPU: the twin, never the kernel
     assert res_t.n_rounds > 8  # several chunks, with compaction between them
@@ -113,8 +114,8 @@ def test_f1_zero_velocity_polarization_matches_xla():
                                 build_rectilinear_index(*EDGES, dtype="float32"), t_rem,
                                 make_key(3), max_rounds=1)
     tph, tframe, tidx = _port(host, photons)
-    res_t = tt.transport_rounds_fused(CFG, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
-                                      base_seed=77, setup=tt.select_variant(CFG, tframe, tidx),
+    res_t = tt.transport_rounds_fused(TCFG, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
+                                      base_seed=77, setup=tt.select_variant(TCFG, tframe, tidx),
                                       max_rounds=1, inner_rounds=1, s_rows=8)
 
     def once(ph):
