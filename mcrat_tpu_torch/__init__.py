@@ -7,7 +7,8 @@ on any (dims x geometry) frame, on a rectilinear grid or on an AMR cell list
 or TABLE (hot cross-section) optical depth, thermal and nonthermal
 electrons, float32, in PyTorch, with the fused transport round as a
 hand-written CUDA kernel (``ops/fused_round.py``, ``csrc/fused_round.cu``)
-on an NVIDIA H100.
+on an NVIDIA H100.  Entry points put their tensors on ``DEFAULT_DEVICE``
+("cuda") unless the caller passes ``device=``; without a card they raise.
 
 Module names mirror ``mcrat_tpu`` so each counterpart is easy to find.  The
 package imports torch and numpy and nothing of the JAX package: it keeps its
@@ -43,3 +44,4 @@ from .constants import (  # noqa: F401
     PL_CONST,
     THOM_X_SECT,
 )
+from .device import DEFAULT_DEVICE, resolve_device  # noqa: F401

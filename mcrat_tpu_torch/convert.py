@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .config import Config
+from .device import resolve_device
 from .grid import HydroFrameHost, RectilinearIndex, build_rectilinear_index
 from .ops.hot_xsec import HotCrossSectionTable
 from .transport import Photons
@@ -39,10 +40,11 @@ def config_from_reference(obj) -> Config:
     return Config(**kw)
 
 
-def photons_from_numpy(arrays: dict, device="cpu", dtype=torch.float32) -> Photons:
+def photons_from_numpy(arrays: dict, device=None, dtype=torch.float32) -> Photons:
     """Photons from a dict holding the fields of ``mcrat_tpu.transport.
     Photons`` (p, comv_p, pos, s, weight, num_scatt, cell, ptype) as numpy
-    arrays."""
+    arrays, on ``device`` (default: the card)."""
+    device = resolve_device(device)
     return Photons(**{
         k: torch.as_tensor(np.array(arrays[k]),
                            dtype=torch.int32 if k in _INT_FIELDS else dtype,
@@ -84,9 +86,10 @@ def xsec_table_from_numpy(log_e, log_t, thermal, nonthermal=None,
 
 
 def index_from_edges(edges0, edges1, edges2=None, dtype=torch.float32,
-                     device="cpu") -> RectilinearIndex:
+                     device=None) -> RectilinearIndex:
     """A RectilinearIndex over the edge arrays of ``mcrat_tpu.grid.
-    RectilinearIndex`` (numpy; ``edges2`` None for 2-D grids)."""
+    RectilinearIndex`` (numpy; ``edges2`` None for 2-D grids), on ``device``
+    (default: the card)."""
     return build_rectilinear_index(
         np.asarray(edges0, dtype=np.float64), np.asarray(edges1, dtype=np.float64),
         None if edges2 is None else np.asarray(edges2, dtype=np.float64),

@@ -24,6 +24,7 @@ from .config import Config, Dims, Geometry
 from .constants import A_RAD, M_P
 
 from . import geometry as geo
+from .device import resolve_device
 
 # Row layout of HydroFrame.packed (mcrat_tpu.grid.PCOL).  In 3-D, v0..v2 hold
 # the fluid velocity already in MCRaT Cartesian (to_device pre-transforms
@@ -241,8 +242,10 @@ class HydroFrameHost:
             packed[PCOL[name], :] = val
         return packed
 
-    def to_device(self, device="cpu", dtype=torch.float32) -> HydroFrame:
-        """Copy the frame onto ``device`` as ``dtype`` tensors."""
+    def to_device(self, device=None, dtype=torch.float32) -> HydroFrame:
+        """Copy the frame onto ``device`` (default: the card) as ``dtype``
+        tensors."""
+        device = resolve_device(device)
         n = self.num_elements
         nt = self.nonthermal_dens if self.nonthermal_dens is not None else np.zeros(n)
 
@@ -336,8 +339,10 @@ def _axis_uniform(edges: np.ndarray) -> bool:
 
 
 def build_rectilinear_index(edges0, edges1, edges2=None, dtype=torch.float32,
-                            device="cpu") -> RectilinearIndex:
-    """Index over the given cell edges (numpy, host float64)."""
+                            device=None) -> RectilinearIndex:
+    """Index over the given cell edges (numpy, host float64), on ``device``
+    (default: the card)."""
+    device = resolve_device(device)
     e0 = np.asarray(edges0, dtype=np.float64)
     e1 = np.asarray(edges1, dtype=np.float64)
     e2 = np.asarray(edges2, dtype=np.float64) if edges2 is not None else np.array([0.0, 1.0])

@@ -35,6 +35,7 @@ import torch
 
 from ..config import Config, NonthermalDist
 from ..constants import KB_OVER_MEC2
+from ..device import resolve_device
 
 from .compton import kn_cross_section
 from .cyclosynch import electron_dist_subgroup_dens
@@ -175,11 +176,13 @@ def _cache_header(cfg: Config) -> dict:
 
 
 def load_or_build(cfg: Config, cache_path: Optional[str] = None,
-                  device="cpu") -> HotCrossSectionTable:
+                  device=None) -> HotCrossSectionTable:
     """Load the cached tables if the header matches the config (grid extents
     and distribution parameters, as validateThermalFile/validateNonthermalFile,
     reference: hot_x_section.c:852-1235), else build them (float64 on
-    ``device``) and write the cache (atomic write-then-swap)."""
+    ``device``, default: the card) and write the cache (atomic
+    write-then-swap)."""
+    device = resolve_device(device)
     header = _cache_header(cfg)
     nonthermal = cfg.nonthermal_e_dist is not NonthermalDist.OFF
     data = None

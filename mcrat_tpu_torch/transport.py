@@ -34,6 +34,7 @@ from .config import (
 from .constants import C_LIGHT, H_OVER_MEC2, K_B, ME_C2, PL_CONST
 
 from . import geometry as geo
+from .device import resolve_device
 from .grid import HydroFrame, HydroFrameHost, RectilinearIndex, find_cell_direct
 from .ops import fused_round as fr
 from .ops import hot_xsec
@@ -99,7 +100,11 @@ class PhotonsMeta(NamedTuple):
     n_injected: int
 
 
-def empty_photons(capacity: int, dtype=torch.float32, device="cpu") -> Photons:
+def empty_photons(capacity: int, dtype=torch.float32, device=None) -> Photons:
+    """An all-NULL population of ``capacity`` slots on ``device`` (default:
+    the card)."""
+    device = resolve_device(device)
+
     def z(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -283,8 +288,10 @@ def inject_photons(
 
 
 def photons_from_arrays(arrays: dict, capacity: Optional[int] = None,
-                        dtype=torch.float32, device="cpu", weight_norm=None):
-    """Pack host photon arrays into a fixed-capacity Photons + meta."""
+                        dtype=torch.float32, device=None, weight_norm=None):
+    """Pack host photon arrays into a fixed-capacity Photons + meta, on
+    ``device`` (default: the card)."""
+    device = resolve_device(device)
     n = len(arrays["weight"])
     cap = capacity or n
     if cap < n:

@@ -76,9 +76,9 @@ def test_f6_frame_scatterings_match_float64_engine():
     res = jt.transport_rounds(dataclass_f64(cfg), ph64, host.to_device(dtype=jnp.float64),
                               build_rectilinear_index(*edges, dtype="float64"), t_rem,
                               make_key(4), max_rounds=24)
-    tph = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(ph64).items()})
+    tph = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(ph64).items()}, device="cpu")
     tframe = convert.frame_from_numpy_fields(cfg, vars(host)).to_device("cpu")
-    tidx = convert.index_from_edges(*edges)
+    tidx = convert.index_from_edges(*edges, device="cpu")
     tcfg = convert.config_from_reference(cfg)
     tres = tt.transport_rounds_fused(
         tcfg, tph, tframe, tidx, torch.full((tph.capacity,), 0.3), base_seed=99,

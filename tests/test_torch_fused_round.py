@@ -203,10 +203,10 @@ def test_glue_matches_jax_fused_transport_flagship_frame():
     base_seed = int(jax.random.randint(key, (), jnp.iinfo(jnp.int32).min,
                                        jnp.iinfo(jnp.int32).max, dtype=jnp.int32))
     tframe = convert.frame_from_numpy_fields(cfg, vars(host)).to_device("cpu")
-    tidx = convert.index_from_edges(*edges)
+    tidx = convert.index_from_edges(*edges, device="cpu")
     tcfg = convert.config_from_reference(cfg)
     tres = tt.transport_rounds_fused(
-        tcfg, convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}),
+        tcfg, convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}, device="cpu"),
         tframe, tidx, torch.from_numpy(np.array(t_rem)), base_seed=base_seed,
         setup=tt.select_variant(tcfg, tframe, tidx), max_rounds=8, inner_rounds=2, s_rows=S_ROWS)
     a = {k: np.asarray(v) for k, v in vars(res.photons).items()}
@@ -251,9 +251,9 @@ def test_fused_rounds_wrapper_checks_inputs():
 def test_unported_configurations_raise():
     jcfg, host, idx, edges, photons = _cylinder(100.0, False, 7, 1500, 4000)
     cfg = convert.config_from_reference(jcfg)
-    ph = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()})
+    ph = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}, device="cpu")
     frame = convert.frame_from_numpy_fields(cfg, vars(host)).to_device("cpu")
-    index = convert.index_from_edges(*edges)
+    index = convert.index_from_edges(*edges, device="cpu")
     # no silent fallback: on CPU the default refuses, fused=True runs the twin
     assert not tt.fused_transport_available(cfg, ph, frame, index)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
@@ -277,7 +277,8 @@ def test_unported_configurations_raise():
     with pytest.raises(ValueError, match="subgroup"):
         tt.select_variant(nonthermal, frame, index, thermal_only)
     # geometry variants are ported: non-uniform grids and spherical frames run
-    nonuniform = convert.index_from_edges(edges[0], np.geomspace(1.8e12, 2.9e12, 65))
+    nonuniform = convert.index_from_edges(edges[0], np.geomspace(1.8e12, 2.9e12, 65),
+                                         device="cpu")
     assert tt.unsupported_reason(cfg, frame, nonuniform) is None
     assert tt.select_variant(cfg, frame, nonuniform)[0] == "slim_cyl2"
     sph = TConfig(dims=TDims.TWO, geometry=TGeometry.SPHERICAL)
@@ -290,7 +291,7 @@ def test_unported_configurations_raise():
         tt.transport_rounds_fused(cfg, ph, frame, object(), tt.frame_time(ph, 0.05),
                                   base_seed=0, setup=tt.select_variant(cfg, frame, index))
     ph64 = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()},
-                                      dtype=torch.float64)
+                                      dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="float64"):
         tt.transport_rounds_fused(cfg, ph64, frame, index, tt.frame_time(ph64, 0.05),
                                   base_seed=0, setup=tt.select_variant(cfg, frame, index))

@@ -239,9 +239,9 @@ def inject(host, inj, seed, n_min=1000, n_max=2 * BLOCK):
 def to_port(cfg, host, edges, photons=None):
     """The port's frame, index and photons, carried across as numpy."""
     tframe = convert.frame_from_numpy_fields(cfg, vars(host)).to_device("cpu")
-    tidx = convert.index_from_edges(*edges)
+    tidx = convert.index_from_edges(*edges, device="cpu")
     tph = None if photons is None else convert.photons_from_numpy(
-        {k: np.asarray(v) for k, v in vars(photons).items()})
+        {k: np.asarray(v) for k, v in vars(photons).items()}, device="cpu")
     return tframe, tidx, tph
 
 

@@ -207,7 +207,7 @@ def test_find_cell_direct_identical_to_jax(kind):
     jhost = jgrid.frame_from_numpy(cfg, arrays)
     thost = tgrid.frame_from_numpy(tcfg, arrays)
     jidx = jgrid.build_rectilinear_index(*edges, dtype="float32")
-    tidx = convert.index_from_edges(*edges)
+    tidx = convert.index_from_edges(*edges, device="cpu")
     assert tidx.uniform == jidx.uniform and tidx.three_d == jidx.three_d
     for a in ("lo", "inv_d", "edges0", "edges1", "edges2"):
         np.testing.assert_array_equal(getattr(tidx, a).numpy(), np.asarray(getattr(jidx, a)))

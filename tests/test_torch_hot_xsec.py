@@ -72,7 +72,7 @@ def test_cache_written_by_either_package_loads_in_the_other(tmp_path, monkeypatc
     assert thx._cache_header(tcfg) == jhx._cache_header(cfg)
     assert thx.CACHE_VERSION == jhx.CACHE_VERSION
     port_path, jax_path = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
-    tp = thx.load_or_build(tcfg, port_path)  # builds and writes
+    tp = thx.load_or_build(tcfg, port_path, device="cpu")  # builds and writes
     tj = jhx.load_or_build(cfg, jax_path, dtype="float64")  # builds and writes
 
     def no_build(*args, **kwargs):
@@ -81,7 +81,7 @@ def test_cache_written_by_either_package_loads_in_the_other(tmp_path, monkeypatc
     for mod in (jhx, thx):
         monkeypatch.setattr(mod, "build_thermal_table", no_build)
         monkeypatch.setattr(mod, "build_nonthermal_table", no_build)
-    from_jax = thx.load_or_build(tcfg, jax_path)
+    from_jax = thx.load_or_build(tcfg, jax_path, device="cpu")
     for name in ("log_e", "log_t", "thermal", "nonthermal", "subgroup_frac"):
         np.testing.assert_array_equal(getattr(from_jax, name), np.asarray(getattr(tj, name)))
     from_port = jhx.load_or_build(cfg, port_path, dtype="float64")
@@ -89,7 +89,8 @@ def test_cache_written_by_either_package_loads_in_the_other(tmp_path, monkeypatc
         np.testing.assert_array_equal(np.asarray(getattr(from_port, name)), getattr(tp, name))
     # the other config's header does not match: it would rebuild
     with pytest.raises(AssertionError, match="loaded"):
-        thx.load_or_build(convert.config_from_reference(_cfg("broken")), jax_path)
+        thx.load_or_build(convert.config_from_reference(_cfg("broken")), jax_path,
+                          device="cpu")
 
 
 def _jax_table(thermal_arrays):

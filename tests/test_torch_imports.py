@@ -37,3 +37,37 @@ def test_package_sources_found():
     names = {p.name for p in SOURCES}
     assert {"transport.py", "grid.py", "fused_round.py", "config.py", "constants.py",
             "chip_smoke.py", "profile_torch_frames.py"} <= names
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without ``device=`` every entry point puts its tensors on the card,
+    and without a card it raises: nothing falls back to the CPU."""
+    import numpy as np
+    import torch
+
+    from mcrat_tpu_torch import DEFAULT_DEVICE, Config, Dims, Geometry, convert, transport
+    from mcrat_tpu_torch.grid import build_rectilinear_index
+    from mcrat_tpu_torch.grid import frame_from_numpy
+    from mcrat_tpu_torch.models.analytic import make_grid_2d
+    from mcrat_tpu_torch.ops import hot_xsec
+
+    assert DEFAULT_DEVICE == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL)
+    edges = (np.linspace(0.0, 1.0, 3), np.linspace(1.0, 2.0, 3))
+    host = frame_from_numpy(cfg, make_grid_2d(cfg, *edges))
+    arrays = {k: np.zeros((1, 4) if k in ("p", "comv_p", "s") else (1, 3) if k == "pos"
+                          else 1) for k in convert.PHOTON_FIELDS}
+    calls = [
+        lambda: host.to_device(),
+        lambda: build_rectilinear_index(*edges),
+        lambda: transport.empty_photons(4),
+        lambda: transport.photons_from_arrays(arrays),
+        lambda: hot_xsec.load_or_build(cfg),
+        lambda: convert.photons_from_numpy(arrays),
+        lambda: convert.index_from_edges(*edges),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert host.to_device("cpu").packed.device.type == "cpu"

@@ -73,7 +73,8 @@ def test_inject_photons_identical_to_jax(kind, spect, seed):
         np.testing.assert_allclose(ta[k], ja[k], rtol=1e-12, atol=0, err_msg=k)
 
     jph, jmeta = jt.photons_from_arrays(ja, capacity=len(ja["weight"]) + 100, dtype=jnp.float32)
-    tph, tmeta = tt.photons_from_arrays(ta, capacity=len(ta["weight"]) + 100)
+    tph, tmeta = tt.photons_from_arrays(ta, capacity=len(ta["weight"]) + 100,
+                                        device="cpu")
     assert tmeta == jmeta
     got = convert.photons_to_numpy(tph)
     for k, v in vars(jph).items():
@@ -90,7 +91,7 @@ def test_photon_conversion_roundtrip():
                               rng=np.random.default_rng(0), **kw)
     jph, _ = jt.photons_from_arrays(ja, capacity=None, dtype=jnp.float32)
     arrays = {k: np.asarray(v) for k, v in vars(jph).items()}
-    back = convert.photons_to_numpy(convert.photons_from_numpy(arrays))
+    back = convert.photons_to_numpy(convert.photons_from_numpy(arrays, device="cpu"))
     for k, v in arrays.items():
         assert back[k].dtype == v.dtype, k
         np.testing.assert_array_equal(back[k], v, err_msg=k)

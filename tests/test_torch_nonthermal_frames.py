@@ -58,8 +58,8 @@ def test_nonthermal_rounds_match_xla(tmp_path):
     tcfg = convert.config_from_reference(cfg)
     np.testing.assert_allclose(tcs.nonthermal_electron_dens(tcfg, thost), host.nonthermal_dens,
                                rtol=1e-12)
-    tph = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()})
-    tframe, tidx = thost.to_device("cpu"), convert.index_from_edges(*edges)
+    tph = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}, device="cpu")
+    tframe, tidx = thost.to_device("cpu"), convert.index_from_edges(*edges, device="cpu")
     setup = tt.select_variant(tcfg, tframe, tidx, xsec)
     name, _, kflags = setup
     assert name == "packed_sph2" and kflags.cheb_base == 16 and kflags.nt is not None

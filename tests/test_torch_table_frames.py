@@ -62,9 +62,9 @@ def _stats(d, n_scatt):
 
 
 def _port(host, photons):
-    return (convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}),
+    return (convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}, device="cpu"),
             convert.frame_from_numpy_fields(CFG, vars(host)).to_device("cpu"),
-            convert.index_from_edges(*EDGES))
+            convert.index_from_edges(*EDGES, device="cpu"))
 
 
 def test_table_rounds_match_xla(hot_frame):

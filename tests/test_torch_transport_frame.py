@@ -34,9 +34,9 @@ TCFG = convert.config_from_reference(CFG)
 
 
 def _port(host, photons):
-    return (convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}),
+    return (convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}, device="cpu"),
             convert.frame_from_numpy_fields(CFG, vars(host)).to_device("cpu"),
-            convert.index_from_edges(*EDGES))
+            convert.index_from_edges(*EDGES, device="cpu"))
 
 
 def _stats(ph, n_scatt):
