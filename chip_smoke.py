@@ -3,8 +3,10 @@
 
 Drives the port's paths -- inject_photons -> photons_from_arrays ->
 transport_frame, float32, through the hand-written CUDA fused-round kernel
-(58 instantiations: 11 geometry variants x DIRECT / TABLE, 7 packed variants
-with nonthermal electrons, each with Stokes on and off) -- and checks them:
+(86 instantiations: 11 geometry variants x DIRECT / TABLE, the 7 packed
+variants with nonthermal electrons, and the 7 packed variants with aux planes
+(K5, the carried AMR path), thermal and nonthermal, each with Stokes on and
+off) -- and checks them:
 
   0. device: nvidia-smi name/power limit, torch, CUDA and nvcc versions;
      exits non-zero without a CUDA device;
@@ -28,8 +30,15 @@ with nonthermal electrons, each with Stokes on and off) -- and checks them:
      the phi-velocity flagship grid with every third cell free of thermal
      electrons (the subgroup-1 fallback); then the TABLE and nonthermal main
      paths' own frames (5. and 6.), Stokes on and off (the DIRECT main
-     paths' frames are those of the flagship and spherical cases above).
-     NS, out-flags and every state plane must be identical;
+     paths' frames are those of the flagship and spherical cases above);
+     aux planes (K5: TABLE and the power law through a BinnedIndex over the
+     cells, TABLE spread temperatures) on the seven frames of packed
+     variants; then the three AMR main paths' own frames (6b.).
+     NS, out-flags and every state plane must be identical.  Each timed
+     instantiation gets its bound: the larger of the bytes one call must
+     move over 3.35 TB/s and its float operations (counted from the
+     kernel source, at the twin's tally of this call's rounds, scatter
+     attempts and rejection trials) over 67 TFLOP/s;
   3. the flagship path -- the 2-D cylindrical Gamma=100 outflow, 160x512
      uniform grid, ~1M photons, 64-round chunks with compaction: one warm-up
      + median of 3 transport_frame runs, with the kernel's launch count (the
@@ -44,8 +53,23 @@ with nonthermal electrons, each with Stokes on and off) -- and checks them:
   6. the nonthermal main path -- bench.py:278-294, the same with a power law
      p = 2.5, gamma 1-100, 3 subgroups, nonthermal density from the
      equipartition B field, default_rng(3): the same as 3.;
+  6b. the three AMR main paths -- the flagship outflow and domain on FLASH
+     leaf blocks of 8x8 cells on three refinement levels (dr0 = 1e9 cm for
+     r0 < 1.28e11, the flagship's 2e9 cm to 2.56e11, 4e9 cm beyond;
+     167,936 cells), built in memory by io.flash.cells_from_blocks and
+     indexed by a BinnedIndex (the carried path): amr_cyl2 (DIRECT,
+     default_rng(0)), amr_cyl2 (aux) (T' = 5e8 K, TABLE, default_rng(2))
+     and amr_cyl2 (aux_nt) (+ the power law, default_rng(3)): the same as
+     3.; before them the AMR frame's cell lookup (find_cell_rows, the index
+     search and the cached-cell pin) on the card against the same lookup on
+     the CPU, on the injected photons, 2^20 random points and points on
+     block seams and level boundaries; after them amr_cyl2's mean energy,
+     mean scatterings and mean Q against the flagship's, within 4 sigma
+     (the same uniform outflow);
   7. every other frame of 2. once through the kernel with Stokes on and once
-     with Stokes off, with the frame checks;
+     with Stokes off, with the frame checks (the aux cases through
+     transport_frame on their BinnedIndex: the carried path on every
+     geometry);
   8. prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -55,6 +79,7 @@ else the first frame of 7. that runs it; a line per instantiation names
 that path.  Run from the repository root: ``python3 chip_smoke.py``.  Imports no
 JAX.
 """
+import collections
 import dataclasses
 import json
 import os
@@ -71,6 +96,10 @@ import torch  # noqa: E402
 
 # the hot cross-section tables' cache (git-ignored)
 TABLE_DIR = os.path.join(ROOT, "build", "xsec")
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
 
 
 def sh(cmd):
@@ -123,6 +152,9 @@ NT_DISTS = dict(
 # the frames of the seven packed variants, with nonthermal electrons
 NT_PATHS = ("flagship_phi_velocity", "spherical", "cylindrical_2.5d", "spherical_2.5d",
             "cartesian_3d_geomspace_z", "spherical_3d", "polar_3d")
+# the AMR main frame's refinement levels: (r0_lo, r0_hi, blocks along r0,
+# blocks along r1) over r1 in [1.8e12, 2.9e12], 8x8 cells a block
+AMR_BANDS = [(0.0, 1.28e11, 16, 128), (1.28e11, 2.56e11, 8, 64), (2.56e11, 3.2e11, 2, 32)]
 # path name -> (frame window dt_max [s], injection fps, kernel variant it selects)
 PATHS = {
     "flagship": (0.2, 5.0, "ultra_cyl2"),
@@ -136,16 +168,24 @@ PATHS = {
     "cartesian_3d_geomspace_z": (0.2, 5.0, "packed_cart3"),
     "spherical_3d": (0.3, 5.0, "packed_sph3"),
     "polar_3d": (0.05, 5.0, "packed_pol3"),
+    "amr_cyl2": (0.2, 5.0, "packed_cyl2"),
 }
 # every (path, mode) case of the kernel-vs-twin phase; modes: direct, table
 # (TABLE optical depth), nt / bpl (TABLE + nonthermal electrons), nt_ne0 (nt
-# with every third cell free of thermal electrons)
-CASES = ([(n, "direct") for n in PATHS] + [(n, "table") for n in PATHS]
+# with every third cell free of thermal electrons), aux / aux_nt (TABLE,
+# thermal or the power law, through aux planes: the carried path on a
+# BinnedIndex over the frame's cells)
+RECT_PATHS = [n for n in PATHS if n != "amr_cyl2"]
+AUX_MODES = ("aux", "aux_nt")
+CASES = ([(n, "direct") for n in RECT_PATHS] + [(n, "table") for n in RECT_PATHS]
          + [(n, "nt") for n in NT_PATHS]
-         + [("spherical", "bpl"), ("flagship_phi_velocity", "nt_ne0")])
+         + [("spherical", "bpl"), ("flagship_phi_velocity", "nt_ne0")]
+         + [(n, m) for m in AUX_MODES for n in NT_PATHS])
 # the main paths: (path, mode) -> (injection seed, T' = 5e8 K), as bench.py
 MAIN = {("flagship", "direct"): (0, False), ("spherical", "direct"): (0, False),
-        ("flagship", "table"): (2, True), ("flagship", "nt"): (3, True)}
+        ("flagship", "table"): (2, True), ("flagship", "nt"): (3, True),
+        ("amr_cyl2", "direct"): (0, False), ("amr_cyl2", "aux"): (2, True),
+        ("amr_cyl2", "aux_nt"): (3, True)}
 
 
 @dataclasses.dataclass
@@ -162,7 +202,7 @@ def table_cfg(cfg, mode):
     """``cfg`` in TABLE mode, with the nonthermal distribution of ``mode``."""
     from mcrat_tpu_torch import NonthermalDist, TauCalculation
 
-    dist = dict(NT_DISTS.get("nt" if mode == "nt_ne0" else mode, {}))
+    dist = dict(NT_DISTS.get({"nt_ne0": "nt", "aux_nt": "nt"}.get(mode, mode), {}))
     if dist:
         dist["nonthermal_e_dist"] = NonthermalDist[dist["nonthermal_e_dist"]]
     return dataclasses.replace(cfg, tau_calculation=TauCalculation.TABLE, **dist)
@@ -183,7 +223,7 @@ def xsec_tables(cfg, device):
         tables[mode] = hot_xsec.load_or_build(table_cfg(cfg, mode), path, device=device)
         print(f"[tables] {mode}: {'loaded' if cached else 'built'} {path} in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
-    tables["nt_ne0"] = tables["nt"]
+    tables.update(nt_ne0=tables["nt"], aux=tables["table"], aux_nt=tables["nt"])
     return tables
 
 
@@ -193,18 +233,30 @@ def problem(name, device, n_min, n_max, seed=0, hot=False, mode="direct", tables
     sets it up: the flagship as bench.py:63-92, the spherical main grid as
     mcrat_tpu/driver.py:901-921 for the mc.par of bench.py:424-430, the 3-D
     cartesian frame as bench.py:95-127, the 3-D spherical and polar frames
-    as tests/test_pallas_round.py:281-324 at 128x32x32 and 64x32x128 cells;
+    as tests/test_pallas_round.py:281-324 at 128x32x32 and 64x32x128 cells,
+    the AMR frame as the flagship's outflow on AMR_BANDS' FLASH blocks;
     ``hot`` at T' = 5e8 K, ``spread`` with cell temperatures spread over
     1e5-5e9 K; ``mode`` (see CASES) sets the optical depth and electrons,
     nonthermal densities from the equipartition B field (bench.py:292)."""
     from mcrat_tpu_torch import M_P, Config, Dims, Geometry, SimType, Spectrum, transport
-    from mcrat_tpu_torch.grid import build_rectilinear_index, frame_from_numpy
+    from mcrat_tpu_torch.grid import frame_from_numpy
+    from mcrat_tpu_torch.io.flash import cells_from_blocks
+    from mcrat_tpu_torch.io.hydro import build_index
     from mcrat_tpu_torch.ops.cyclosynch import nonthermal_electron_dens
     from mcrat_tpu_torch.models.analytic import (
-        apply_simulation_type, make_grid_2d, synthetic_spherical_frame)
+        amr_blocks_2d, apply_simulation_type, make_grid_2d, synthetic_spherical_frame)
 
     inj = dict(r_inj=2e12, theta_max=np.pi / 30)
-    if name.startswith("spherical") and "3d" not in name:
+    if name == "amr_cyl2":
+        cfg = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL,
+                     simulation_type=SimType.CYLINDRICAL_OUTFLOW, dtype="float32")
+        coords, bsz = amr_blocks_2d(AMR_BANDS, 1.8e12, 2.9e12)
+        ones = np.ones((len(coords), 64))
+        host = cells_from_blocks(cfg, coords, bsz, dict(velx=0 * ones, vely=0 * ones,
+                                                        dens=ones, pres=ones))
+        apply_simulation_type(host)
+        edges = None
+    elif name.startswith("spherical") and "3d" not in name:
         dims = Dims.TWO_POINT_FIVE if name.endswith("2.5d") else Dims.TWO
         cfg = Config(dims=dims, geometry=Geometry.SPHERICAL,
                      simulation_type=SimType.SPHERICAL_OUTFLOW, dtype="float32")
@@ -258,7 +310,7 @@ def problem(name, device, n_min, n_max, seed=0, hot=False, mode="direct", tables
     if mode != "direct":
         cfg = table_cfg(cfg, mode)
         xsec = tables[mode]
-    if mode in ("nt", "bpl", "nt_ne0"):
+    if mode in ("nt", "bpl", "nt_ne0", "aux_nt"):
         host.nonthermal_dens = nonthermal_electron_dens(cfg, host)
     if mode == "nt_ne0":
         # every third cell's electrons are all nonthermal, at the cell's
@@ -267,7 +319,8 @@ def problem(name, device, n_min, n_max, seed=0, hot=False, mode="direct", tables
         host.nonthermal_dens[empty] = host.dens[empty] / M_P
         host.dens[empty] = 0.0
         host.dens_lab[empty] = 0.0
-    index = build_rectilinear_index(*edges, device=device)
+    # the aux modes run the carried path: a BinnedIndex over the cells
+    index = build_index(cfg, host, None if mode in AUX_MODES else edges, device=device)
     arrays, _ = transport.inject_photons(
         host, ph_weight=1e50, min_photons=n_min, max_photons=n_max,
         spect=Spectrum.BLACKBODY, theta_min=0.0, fps=PATHS[name][1],
@@ -275,19 +328,86 @@ def problem(name, device, n_min, n_max, seed=0, hot=False, mode="direct", tables
     photons, _ = transport.photons_from_arrays(arrays, device=device)
     frame = host.to_device(device)
     variant = transport.select_variant(cfg, frame, index, xsec)[0]
-    if mode in ("direct", "table") and variant != PATHS[name][2]:
+    if mode in ("direct", "table", *AUX_MODES) and variant != PATHS[name][2]:
         raise RuntimeError(f"{name} ({mode}) selects {variant}, not {PATHS[name][2]}")
     return Problem(cfg, photons, frame, index, xsec, PATHS[name][0])
+
+
+# Float operations of the kernel (csrc/fused_round.cu), counted from its
+# source: each +, -, *, /, sqrt, rsqrt, min, max and each transcendental
+# (logf, expf, sinf, cosf) one operation, the double Klein-Nishina form two
+# per double operation; selects, compares and the integer counter hash not
+# counted.  Per unit of the twin's tally (fused_round.WORK_KEYS):
+OPS = dict(
+    lane_round=41,  # cos(beta, p) 20, rate 3, free path + move 18, per round
+    in_grid_round=37,  # the comoving boost
+    attempt=147,  # electron direction 57, rest-frame boost + axes 50, sigma_KN 40
+    attempt_stokes=207,  # + three Stokes rotations (69 each) in the attempt
+    mb=22,  # Maxwell-Boltzmann speed draw (+ theta)
+    mj_trial=27,  # one Maxwell-Juttner trial
+    nt_draw=30,  # population draw and inverse-CDF gamma (power law)
+    scatter=96,  # outgoing photon, two boosts
+    scatter_stokes=434,  # + Fano matrix, four rotations, polarized angle set-up
+    theta_trial=16,
+    phi_trial=9,
+    phi_trial_stokes=23,
+    cheb=43,  # one Chebyshev sigma_hat, every round (CHEB)
+    cheb_nt=53,  # + the subgroup-1 sigma and the biased total (CHEB_NT)
+)
+# per round: fluid velocity at the photon and the post-move membership test
+OPS_GEO = dict(cyl2=(8, 12), sph2=(14, 20), cart3=(0, 12), sph3=(0, 32), pol3=(0, 24))
+
+
+def bound(inst, var, n_lanes, run_lanes, n_cells, table_rows, work, stokes_on):
+    """(bound_ms, bound_by) of one call: the larger of the bytes it must move
+    (flags and out-flags of every lane; state read and written, cell index
+    and, for aux families, the two aux planes of each lane that runs; the
+    rows of each distinct cell those lanes reference, once) over the HBM
+    rate, and of its float operations (OPS at the twin's tally of this
+    call) over the float32 rate."""
+    aux = "+aux" in inst
+    nbytes = (n_lanes * (4 + 4) + run_lanes * (2 * 64 + 4 + (8 if aux else 0))
+              + n_cells * table_rows * 4)
+    w = work
+    fluid, member = OPS_GEO[var.geom]
+    ops = (w.get("lane_rounds", 0.0) * (OPS["lane_round"] + fluid + member + (2 if var.v2 else 0))
+           + w.get("in_grid_rounds", 0.0) * OPS["in_grid_round"]
+           + w.get("attempts", 0.0) * OPS["attempt_stokes" if stokes_on else "attempt"]
+           + w.get("mb", 0.0) * OPS["mb"] + w.get("mj_trials", 0.0) * OPS["mj_trial"]
+           + w.get("nt_draws", 0.0) * OPS["nt_draw"]
+           + w.get("scatters", 0.0) * OPS["scatter_stokes" if stokes_on else "scatter"]
+           + w.get("theta_trials", 0.0) * OPS["theta_trial"]
+           + w.get("phi_trials", 0.0) * OPS["phi_trial_stokes" if stokes_on else "phi_trial"])
+    if "+cheb" in inst:
+        ops += w.get("lane_rounds", 0.0) * OPS["cheb_nt" if "+nt" in inst else "cheb"]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def lane_cells(prob, state):
+    """Each lane's cell and in-grid flag, as the frame's glue finds them:
+    find_cell_direct on a RectilinearIndex; on a BinnedIndex the cached-cell
+    pin (the photons' injection cells) and the index search."""
+    from mcrat_tpu_torch.grid import BinnedIndex, find_cell_direct, find_cell_rows
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    pos = state[fr.SP_X: fr.SP_Z + 1].T
+    if isinstance(prob.index, BinnedIndex):
+        cached = torch.full((state.shape[1],), -1, dtype=torch.int32, device=state.device)
+        cached[:prob.photons.capacity] = prob.photons.cell
+        return find_cell_rows(prob.cfg, prob.index, prob.frame, pos, cached)
+    return find_cell_direct(prob.cfg, prob.index, prob.frame, pos)
 
 
 def kernel_vs_twin(name, prob, stokes_on, idle_block=None, pool_lanes=False, time_it=False,
                    s_rows=128, seed=20240917):
     """One fused_rounds call (inner_rounds=4) over every lane, kernel and
-    twin on the same inputs; ``pool_lanes`` marks every 7th live lane as a
+    twin on the same inputs (aux planes from transport.aux_planes where the
+    frame's path takes them); ``pool_lanes`` marks every 7th live lane as a
     CS pool photon.  Fails unless NS, out-flags and every state plane are
-    identical.  Returns (instantiation, max_abs_err, kernel ms, twin ms)."""
+    identical.  Returns (instantiation, max_abs_err, kernel ms, twin ms,
+    (bound ms, bound by))."""
     from mcrat_tpu_torch import transport
-    from mcrat_tpu_torch.grid import find_cell_direct
     from mcrat_tpu_torch.ops import fused_round as fr
 
     cfg, photons, frame, index = prob.cfg, prob.photons, prob.frame, prob.index
@@ -296,7 +416,7 @@ def kernel_vs_twin(name, prob, stokes_on, idle_block=None, pool_lanes=False, tim
     state, alive, pool = transport.lane_planes(photons, t_rem, s_rows)
     if pool_lanes:
         pool = alive & (torch.arange(alive.numel(), device=device) % 7 == 3)
-    cell, in_grid = find_cell_direct(cfg, index, frame, state[fr.SP_X: fr.SP_Z + 1].T)
+    cell, in_grid = lane_cells(prob, state)
     safe = torch.clamp(cell, 0, frame.num_elements - 1).to(torch.int32)
     flags = transport.lane_flags(alive, pool, in_grid)
     block_lanes = s_rows * fr.LANES
@@ -305,15 +425,19 @@ def kernel_vs_twin(name, prob, stokes_on, idle_block=None, pool_lanes=False, tim
         block_act[idle_block] = 0
     grid = transport.grid_scalars(frame, index)
     variant, table, kflags = transport.select_variant(cfg, frame, index, prob.xsec)
-    inst = fr.instantiation(variant, kflags.cheb_base, kflags.nt, stokes_on)
+    inst = fr.instantiation(variant, kflags.cheb_base, kflags.nt, stokes_on,
+                            kflags.aux is not None)
+    aux = (None if kflags.aux is None else
+           transport.aux_planes(cfg, kflags.aux, frame, safe, state[fr.SP_C0]).contiguous())
     args = (safe, flags, table, block_act, seed, grid)
     kw = dict(stokes_on=stokes_on, inner_rounds=4, block_lanes=block_lanes, variant=variant,
-              cheb_base=kflags.cheb_base, nt=kflags.nt)
+              cheb_base=kflags.cheb_base, nt=kflags.nt, aux=aux)
     sk, st = state.clone(), state.clone()
     ok_ = fr.fused_rounds(sk, *args, **kw)
+    fr.fused_rounds_reference.work = collections.Counter()
     ot_ = fr.fused_rounds_reference(st, *args, **kw)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    work = {k: float(v) for k, v in fr.fused_rounds_reference.work.items()}
+    fr.fused_rounds_reference.work = None
     lane_on = torch.repeat_interleave(block_act != 0, block_lanes)
     live = lane_on & alive
     same = (sk[fr.SP_NS] == st[fr.SP_NS]) & (ok_ == ot_)
@@ -330,7 +454,7 @@ def kernel_vs_twin(name, prob, stokes_on, idle_block=None, pool_lanes=False, tim
           f"{n_diff}; max abs err {max_abs:.3e}; idle lanes untouched {idle_ok}", flush=True)
     if n_diff or max_abs != 0.0 or not idle_ok:
         raise RuntimeError(f"kernel disagrees with its twin ({name}, {inst})")
-    k_ms = t_ms = None
+    k_ms = t_ms = bnd = None
     if time_it:
         def run(fn):
             s = state.clone()
@@ -339,9 +463,14 @@ def kernel_vs_twin(name, prob, stokes_on, idle_block=None, pool_lanes=False, tim
             run(fn)()  # warm-up
         k_ms = float(np.median([timed(run(fr.fused_rounds), device) for _ in range(5)]))
         t_ms = float(np.median([timed(run(fr.fused_rounds_reference), device) for _ in range(5)]))
+        runs = live & (state[fr.SP_TREM] > 0)
+        n_cells = int(torch.unique(safe[runs]).numel())
+        bnd = bound(inst, fr.VARIANTS[variant], state.shape[1], int(runs.sum()), n_cells,
+                    table.shape[0], work, stokes_on)
         print(f"[kernel-vs-twin] {name} ({inst}): one fused_rounds call ({state.shape[1]} lanes, "
-              f"4 rounds): kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms (median of 5)", flush=True)
-    return inst, max_abs, k_ms, t_ms
+              f"4 rounds): kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms (median of 5); bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}; work {work})", flush=True)
+    return inst, max_abs, k_ms, t_ms, bnd
 
 
 def run_frame(prob, seed, rounds_fn, dt_max=0.2, stokes_on=True):
@@ -402,7 +531,8 @@ def instantiation_of(prob, stokes_on=True):
     from mcrat_tpu_torch.ops import fused_round as fr
 
     variant, _, kflags = transport.select_variant(prob.cfg, prob.frame, prob.index, prob.xsec)
-    return fr.instantiation(variant, kflags.cheb_base, kflags.nt, stokes_on)
+    return fr.instantiation(variant, kflags.cheb_base, kflags.nt, stokes_on,
+                            kflags.aux is not None)
 
 
 def check_launches(name, inst, launches, twin_launches, device):
@@ -430,7 +560,8 @@ def main_path(name, prob, card, device):
     """One warm-up + the median of 3 frames through the kernel, the frame
     checks, then the same frame (seed 2: the same random numbers) once
     through the twin, statistics held against the kernel's, and once with
-    Stokes off.  Returns the kernel launches by instantiation."""
+    Stokes off.  Returns the kernel launches by instantiation and the median
+    frame's result."""
     from mcrat_tpu_torch.ops import fused_round as fr
 
     photons = prob.photons
@@ -467,7 +598,7 @@ def main_path(name, prob, card, device):
     print(f"[{name}/twin] frames identical photon for photon: {not differ}", flush=True)
     if differ:
         raise RuntimeError(f"{name}: the twin frame differs from the kernel frame in {differ}")
-    return {**launches, **frame_stokes_off(name, prob, card, device)}
+    return {**launches, **frame_stokes_off(name, prob, card, device)}, res
 
 
 def frame_stokes_off(name, prob, card, device):
@@ -506,6 +637,72 @@ def f6_check(device):
     if err > 1e-6 or not torch.equal(got, twin) or (
             device.type == "cuda" and fr.kn_cross_section.launches != 1):
         raise RuntimeError("the kernel's Klein-Nishina cross section fails the F6 check")
+
+
+def amr_lookup_check(prob):
+    """find_cell_rows on the card against the same lookup on the CPU: the
+    injected photons with their cached cells, 2^20 random points and points
+    on the block seams and level boundaries with none.  Fails unless every
+    cell and in-grid flag is identical."""
+    from mcrat_tpu_torch import geometry as geo
+    from mcrat_tpu_torch.grid import find_cell_rows
+
+    cfg, frame, index, ph = prob.cfg, prob.frame, prob.index, prob.photons
+    rs = np.random.default_rng(5)
+    n = 1 << 20
+    r0 = rs.uniform(-1e10, 3.3e11, n)
+    r1 = rs.uniform(1.75e12, 2.95e12, n)
+    # a quarter on block edges of every level: r0 and r1 multiples of the
+    # finest block size, the level boundaries among them
+    q = n // 4
+    r0[:q] = rs.integers(0, 41, q) * 8e9
+    r1[q:2 * q] = 1.8e12 + rs.integers(0, 129, q) * (1.1e12 / 128)
+    phi = rs.uniform(0.0, 2 * np.pi, n)
+    pts = np.stack(geo.hydro_to_mcrat(cfg, r0, r1, phi), axis=1).astype(np.float32)
+    pos = torch.cat([ph.pos, torch.from_numpy(pts).to(ph.device)])
+    cached = torch.cat([ph.cell, torch.full((n,), -1, dtype=torch.int32, device=ph.device)])
+    t0 = time.perf_counter()
+    cell, in_grid = find_cell_rows(cfg, index, frame, pos, cached)
+    if pos.device.type == "cuda":
+        torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t0)
+
+    def cpu(obj):
+        return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).cpu()
+                                           for f in dataclasses.fields(obj)
+                                           if torch.is_tensor(getattr(obj, f.name))})
+
+    cell_c, in_c = find_cell_rows(cfg, cpu(index), cpu(frame), pos.cpu(), cached.cpu())
+    differ = int(((cell.cpu() != cell_c) | (in_grid.cpu() != in_c)).sum())
+    print(f"[amr lookup] {pos.shape[0]} points ({ph.capacity} photons with their cached "
+          f"cells, {n} searched): {int(in_c.sum())} in the grid, cells differing card vs "
+          f"CPU {differ}; card {card_ms:.2f} ms; index dims {index.dims}, max_slab "
+          f"{index.max_slab}", flush=True)
+    if differ:
+        raise RuntimeError("the AMR cell lookup on the card differs from the CPU's")
+
+
+def same_outflow_check(prob_a, res_a, prob_b, res_b):
+    """The flagship and the AMR frame hold the same uniform outflow: mean lab
+    energy, mean scatterings and mean Stokes Q of their live photons agree
+    within 4 sigma (standard errors of the two means)."""
+    out = {}
+    for key, prob, res in (("flagship", prob_a, res_a), ("amr_cyl2", prob_b, res_b)):
+        ph = res.photons
+        alive = ph.alive
+        cols = dict(e=ph.p[alive, 0], ns=ph.num_scatt[alive], q=ph.s[alive, 1])
+        out[key] = {k: (float(v.double().mean()), float(v.double().std()) / float(alive.sum()) ** 0.5)
+                    for k, v in cols.items()}
+    bad = []
+    for k in ("e", "ns", "q"):
+        (a, sa), (b, sb) = out["flagship"][k], out["amr_cyl2"][k]
+        z = abs(a - b) / max(np.hypot(sa, sb), 1e-30)
+        print(f"[amr vs flagship] mean {k}: flagship {a:.6e} +- {sa:.2e}, amr_cyl2 {b:.6e} +- "
+              f"{sb:.2e}: {z:.2f} sigma", flush=True)
+        if z > 4.0:
+            bad.append(k)
+    if bad:
+        raise RuntimeError(f"the AMR frame's statistics differ from the flagship's: {bad}")
 
 
 def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300_000),
@@ -549,7 +746,7 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
     f6_check(device)
 
     # 2. kernel vs twin on the card, every instantiation on a frame that selects it
-    probs, errs, times = {}, {}, {}
+    probs, errs, times, bounds = {}, {}, {}, {}
     for name, mode in CASES:
         big = mode == "direct" and name in ("flagship", "spherical", "cartesian_3d")
         t0 = time.perf_counter()
@@ -558,34 +755,40 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
         print(f"[setup] {name} ({mode}) frame + injection of {prob.photons.capacity} photons: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         for stokes_on in (True, False):
-            inst, err, k_ms, t_ms = kernel_vs_twin(
+            inst, err, k_ms, t_ms, bnd = kernel_vs_twin(
                 f"{name} ({mode}), Stokes {'on' if stokes_on else 'off'}", prob, stokes_on,
                 time_it=True)
             errs[inst] = max(errs.get(inst, 0.0), err)
             times.setdefault(inst, (k_ms, t_ms))
+            bounds.setdefault(inst, bnd)
         if (name, mode) == ("flagship", "direct"):
             hot = problem("flagship", device, *hot_n, seed=1, hot=True)
-            inst, err, _, _ = kernel_vs_twin("hot 5e8 K, block 1 idle, pool lanes", hot, True,
-                                             idle_block=1, pool_lanes=True)
+            inst, err, *_ = kernel_vs_twin("hot 5e8 K, block 1 idle, pool lanes", hot, True,
+                                           idle_block=1, pool_lanes=True)
             errs[inst] = max(errs[inst], err)
             del hot
 
-    # the TABLE and nonthermal main paths' own frames, kernel vs twin (the
-    # DIRECT main paths' frames are the flagship and spherical cases above)
+    # the main paths' own frames, kernel vs twin (the DIRECT main paths'
+    # rectilinear frames are the flagship and spherical cases above; the
+    # TABLE case there is a spread-temperature side frame, not bench.py's)
     mains = {}
     for (name, mode), (seed, hot) in MAIN.items():
-        if mode == "direct":
+        if mode == "direct" and (name, mode) in probs:
             mains[name, mode] = probs[name, mode]
             continue
+        t0 = time.perf_counter()
         prob = mains[name, mode] = problem(name, device, n_min, n_max, seed=seed, hot=hot,
                                            mode=mode, tables=tables)
+        print(f"[setup] {name} ({mode}) main path, {prob.frame.num_elements} cells, "
+              f"{prob.photons.capacity} photons: {time.perf_counter() - t0:.2f} s", flush=True)
         for stokes_on in (True, False):
-            inst, err, _, _ = kernel_vs_twin(
+            inst, err, *_ = kernel_vs_twin(
                 f"{name} ({mode}) main path, Stokes {'on' if stokes_on else 'off'}", prob,
                 stokes_on)
             errs[inst] = max(errs[inst], err)
+    amr_lookup_check(mains["amr_cyl2", "direct"])
 
-    # 3.-6. the main paths: flagship, 2-D spherical, TABLE and nonthermal
+    # 3.-6b. the main paths: flagship, 2-D spherical, TABLE, nonthermal, AMR
     launches, owner = {}, {}  # instantiation -> launches, the path they come from
 
     def count(path, lk):
@@ -593,9 +796,13 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
             if k not in launches:
                 launches[k], owner[k] = v, path
 
+    results = {}
     for (name, mode), prob in mains.items():
         path = name if mode == "direct" else f"{name} ({mode})"
-        count(f"{path} main path", main_path(path, prob, card, device))
+        lk, results[name, mode] = main_path(path, prob, card, device)
+        count(f"{path} main path", lk)
+    same_outflow_check(mains["flagship", "direct"], results["flagship", "direct"],
+                       mains["amr_cyl2", "direct"], results["amr_cyl2", "direct"])
 
     # 7. every other frame once, Stokes on and off
     for (name, mode), prob in probs.items():
@@ -612,8 +819,8 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
 
     # 8. result lines
     names = fr.instantiations()
-    missing = [n for n in names if n not in errs or (device.type == "cuda"
-                                                     and not launches.get(n))]
+    missing = [n for n in names if n not in errs or n not in times or (
+        device.type == "cuda" and not launches.get(n))]
     if missing:
         raise RuntimeError(f"instantiations not checked or not launched on a path: {missing}")
     for n in names:
@@ -621,15 +828,21 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
 
     def replaces(inst):
         var = fr.VARIANTS[inst.split("+")[0].split("/")[0]]
-        extra = ("" if "+cheb" not in inst else ",890-931,968-985" if "+nt" not in inst
-                 else ",318-406,890-944,968-985,1019-1035")
-        return f"mcrat_tpu/ops/pallas_round.py:1185 ({var.replaces}{extra})"
+        nt = "+nt" in inst
+        if "+cheb" in inst:
+            extra = ",890-944,968-985" if nt else ",890-931,968-985"
+        else:
+            extra = ",71-75,784-788,879-888,1072-1080" if "+aux" in inst else ""
+        return (f"mcrat_tpu/ops/pallas_round.py:1185 ({var.replaces}{extra}"
+                f"{',318-406,1019-1035' if nt else ''})")
 
+    print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": f"fused_rounds[{n}]", "route": "cuda",
         "source": "mcrat_tpu_torch/csrc/fused_round.cu", "replaces": replaces(n),
         "launches": launches.get(n, 0), "max_abs_err": errs[n],
         "ms": times[n][0], "plain_ms": times[n][1],
+        "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": None,
     } for n in names]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu" if device.type == "cuda" else device.type,

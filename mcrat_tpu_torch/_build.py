@@ -82,7 +82,7 @@ def load_fused_round() -> ctypes.CDLL:
             i32, i32, i32, i32, i32,  # stokes_on, inner_rounds, el_iters, kn_iters, block_lanes
             f32, f32, f32, f32, f32,  # kb_over_mec2, thom, c_light, inv_c, inv_mp
             i32, ctypes.POINTER(f32), i32,  # cheb_base, NtConsts floats (host), their count
-            p,  # stream
+            p, p,  # aux planes (device, or NULL), stream
         ]
         lib.mcrat_fused_rounds.restype = ctypes.c_int
         lib.mcrat_kn_cross_section.argtypes = [p, p, i64, p]  # energies, out, n, stream

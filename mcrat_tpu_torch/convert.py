@@ -15,7 +15,8 @@ import torch
 
 from .config import Config
 from .device import resolve_device
-from .grid import HydroFrameHost, RectilinearIndex, build_rectilinear_index
+from .grid import (BinnedIndex, HydroFrameHost, RectilinearIndex,
+                   build_rectilinear_index)
 from .ops.hot_xsec import HotCrossSectionTable
 from .transport import Photons
 
@@ -94,3 +95,20 @@ def index_from_edges(edges0, edges1, edges2=None, dtype=torch.float32,
         np.asarray(edges0, dtype=np.float64), np.asarray(edges1, dtype=np.float64),
         None if edges2 is None else np.asarray(edges2, dtype=np.float64),
         dtype=dtype, device=device)
+
+
+def binned_index_from_numpy(cell_ids, bin_start, bin_count, grid_min, inv_bin, dims,
+                            max_slab: int, dtype=torch.float32, device=None) -> BinnedIndex:
+    """A BinnedIndex from the arrays of ``mcrat_tpu.grid.BinnedIndex``
+    (numpy) and its static ``dims`` and ``max_slab``, on ``device``
+    (default: the card)."""
+    device = resolve_device(device)
+
+    def i32(a):
+        return torch.as_tensor(np.array(a, dtype=np.int32), device=device)
+
+    return BinnedIndex(
+        cell_ids=i32(cell_ids), bin_start=i32(bin_start), bin_count=i32(bin_count),
+        grid_min=torch.as_tensor(np.array(grid_min), dtype=dtype, device=device),
+        inv_bin=torch.as_tensor(np.array(inv_bin), dtype=dtype, device=device),
+        dims=tuple(int(d) for d in dims), max_slab=int(max_slab))

@@ -4,7 +4,8 @@
 // :1185, kernel body _make_kernel :574-1111) with DIRECT Thomson or TABLE
 // (hot cross-section) optical depth, thermal electrons and, in TABLE mode on
 // the packed variants, nonthermal (broken) power-law electrons, Stokes on or
-// off, for every (dims x geometry) frame on a rectilinear grid.  Its plain
+// off, for every (dims x geometry) frame on a rectilinear grid or an AMR cell
+// list (the carried path, TABLE through per-lane aux planes).  Its plain
 // PyTorch twin is mcrat_tpu_torch/ops/fused_round.py::fused_rounds_reference;
 // the two are held against each other lane for lane, so every formula below
 // keeps the twin's operation order (and the build turns off FMA contraction).
@@ -26,7 +27,17 @@
 //              972-983,1019-1035): biased total rate tau0 + N_GAMMA tau_norm,
 //              population draw and subgroup inverse-CDF gamma from a runtime
 //              constant struct (NtConsts); the 7 packed variants
-// 58 instantiations in all (22 + 22 + 14, each with Stokes on and off).
+//   3 AUX      TABLE on the carried AMR path (pallas_round.py:71-75,784-788,
+//              879-888,1072-1080): n_sigma (the biased total tau coefficient
+//              before the fluid factor) read per lane from aux plane 0 in
+//              place of n_e sigma_T, rate = n_sigma (1 - beta cos); a lane
+//              that scatters with time left also stalls, since its plane is
+//              then stale; the 7 packed variants
+//   4 AUX_NT   AUX + nonthermal electrons: the thermal probability p_th from
+//              aux plane 1 feeds CHEB_NT's population draw and subgroup
+//              sampler (the same 117-draw layout); the 7 packed variants
+// 86 instantiations in all (22 + 22 + 14 + 14 + 14, each with Stokes on and
+// off).
 //
 // Variants (template parameters; the C entry point dispatches on an int code,
 // the same codes as fused_round.VARIANTS); one call's time on an H100, kernel
@@ -48,12 +59,19 @@
 // cell's values come from (the Cell struct below) and in the geometry of the
 // fluid velocity and of the membership test; the round body is shared.
 //
-// What bounds it on this card: arithmetic, not memory, in every variant.  A
-// lane reads 128 B of state (16 f32 planes) + 8 B of flags/cell and 16-96 B
-// of its cell's row (+64 B of Chebyshev rows in TABLE mode), and writes
-// 128 B per call, against ~115 uniforms
-// (murmur3 finalizer each) and ~40 transcendentals (log, sin/cos, sqrt,
-// rsqrt, divisions) per round -- the kernel is ALU/SFU and register bound.
+// What bounds it on this card.  A running lane reads 64 B of state (16 f32
+// planes), 8 B of flags and cell index and its cell's row, 16-96 B (+64 B of
+// Chebyshev rows in TABLE mode, or 8 B of aux planes in the AUX families),
+// and writes 64 B + 4 B of out-flags per call.  Against that it does ~115
+// uniforms (a murmur3 finalizer each, integer work) and ~40 transcendentals
+// (log, sin/cos, sqrt, rsqrt, divisions) per round.  The least time of a
+// call (PERF.md section 6: its bytes over the HBM rate against its float
+// operations over the float32 rate) is mostly set by the bytes, but the
+// calls take many times that bound: what the float count leaves out, the
+// integer hashing, the SFU, divergent rejection loops and 80-116 registers
+// a thread, sets the time -- the kernel is ALU/SFU and register bound, not
+// memory bound.  K5 (AUX, AUX_NT) adds 8 B a lane and no float work (its
+// per-round work is DIRECT's, plus the sampler in AUX_NT), so it stays so.
 // The design follows from that:
 //   * no shared memory, TMA or wgmma: state is streamed once, coalesced
 //     (planes are structure-of-arrays, neighbouring lanes at neighbouring
@@ -120,7 +138,7 @@ struct Consts {
   float kb_over_mec2, thom, c_light, inv_c, inv_mp;  // from mcrat_tpu.constants
 };
 
-enum Tau { DIRECT = 0, CHEB = 1, CHEB_NT = 2 };
+enum Tau { DIRECT = 0, CHEB = 1, CHEB_NT = 2, AUX = 3, AUX_NT = 4 };
 constexpr int CHEB_DLO = 5, CHEB_DHI = 8;  // ops/hot_xsec.py CHEB_*
 constexpr int P_NTDENS = 12;
 
@@ -503,7 +521,7 @@ struct Cell {
                                        const Grid& g, const Consts& cst, int cheb_base) {
     const float* row = t + cl;
 #define AT(r) row[(int64_t)(r) * ncell]
-    if (TAU != DIRECT) {
+    if (TAU == CHEB || TAU == CHEB_NT) {
       inv_knee = AT(cheb_base);
 #pragma unroll
       for (int k = 0; k <= CHEB_DLO; ++k) c_lo[k] = AT(cheb_base + 1 + k);
@@ -678,7 +696,9 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
                     int64_t ncell, const int* __restrict__ block_act,
                     int* __restrict__ out_flags, int seed, Grid g, Consts cst,
                     int inner_rounds, int el_iters, int kn_iters, int block_lanes,
-                    int cheb_base, NtConsts ntc) {
+                    int cheb_base, NtConsts ntc, const float* __restrict__ aux) {
+  constexpr bool IS_AUX = TAU == AUX || TAU == AUX_NT;
+  constexpr bool NT = TAU == CHEB_NT || TAU == AUX_NT;
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   const int64_t pid = lane / block_lanes;
@@ -713,8 +733,11 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
   const uint32_t lane_in = (uint32_t)(lane - pid * block_lanes);
   const uint32_t base =
       (uint32_t)seed + (uint32_t)pid * 1442695041u + lane_in * 0x9E3779B9u;
-  const Offsets off = draw_offsets(el_iters, kn_iters, TAU == CHEB_NT);
-  const float n_sigma = cc.n_e * cst.thom;
+  const Offsets off = draw_offsets(el_iters, kn_iters, NT);
+  // AUX: the biased total tau coefficient and the thermal probability, fixed
+  // for the call (the lane stalls once they go stale)
+  const float n_sigma = IS_AUX ? aux[lane] : cc.n_e * cst.thom;
+  const float p_th_aux = TAU == AUX_NT ? aux[n + lane] : 1.0f;
   bool stalled = false, promoted = false;
 
   for (int r = 0; r < inner_rounds; ++r) {
@@ -737,8 +760,8 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
     // boost (a lane outside the grid keeps its c0; its rate is unused).
     // Nonthermal: the biased total tau0 + N_GAMMA tau_norm, tau_norm = tau0
     // in thermal cells, else subgroup 1's (Src/optical_depth.c:60-112)
-    float rate, p_th = 1.0f;
-    if (TAU == DIRECT) {
+    float rate, p_th = p_th_aux;
+    if (TAU == DIRECT || IS_AUX) {
       rate = n_sigma * (1.0f - cc.beta_mag * cos_ang);
     } else {
       const float nsig_th = n_sigma * cheb_eval(c0 * cc.inv_knee, cc.span_inv, cc.c_lo, cc.c_hi);
@@ -771,6 +794,7 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
     t_rem = t_rem - dt;
 
     // 5. scatter attempt (null collision on KN reject)
+    bool scattered = false;
     if (will) {
       // F1 repair: z-hat replaces the degenerate +-beta_f reference vector
       const bool flow = fl_norm > 0.0f;
@@ -779,7 +803,7 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
       float qc = q, uc = u;
       if (STOKES) rotate_basis(p1, p2, p3, 0.0f, 0.0f, 1.0f, p1, p2, p3, frx, fry, frz, qc, uc);
       float g_e, gb_e;
-      if (TAU == CHEB_NT) {
+      if (NT) {
         // scattering population: thermal w.p. p_th, else the subgroups in
         // equal slices of the rest, inverse-CDF gamma within the subgroup
         const float u_pop = uniform(base, k0 + off.pop);
@@ -875,11 +899,14 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
         c3 = o3;
         ns = ns + 1.0f;
         promoted = promoted || is_pool;
+        scattered = true;
       }
     }
 
-    // 6. post-move cell/domain membership: stall lanes that left
+    // 6. post-move cell/domain membership: stall lanes that left; AUX also
+    // stalls lanes that scattered
     if (in_grid && !cc.contains(px, py, pz, g) && t_rem > 0.0f) stalled = true;
+    if (IS_AUX && scattered && t_rem > 0.0f) stalled = true;
   }
 
   state[SP_P0 * n + lane] = p0;
@@ -915,6 +942,7 @@ struct Launch {
   Consts cst;
   int inner_rounds, el_iters, kn_iters, block_lanes, cheb_base;
   NtConsts ntc;
+  const float* aux;
 };
 
 template <int TAU, int GEO, int SRC, bool V2>
@@ -925,12 +953,12 @@ void launch(const Launch& a, bool stokes, cudaStream_t s) {
     fused_rounds_kernel<true, GEO, SRC, V2, TAU><<<blocks, threads, 0, s>>>(
         a.state, a.n, a.cell, a.flags, a.table, a.ncell, a.block_act, a.out_flags, a.seed,
         a.g, a.cst, a.inner_rounds, a.el_iters, a.kn_iters, a.block_lanes, a.cheb_base,
-        a.ntc);
+        a.ntc, a.aux);
   } else {
     fused_rounds_kernel<false, GEO, SRC, V2, TAU><<<blocks, threads, 0, s>>>(
         a.state, a.n, a.cell, a.flags, a.table, a.ncell, a.block_act, a.out_flags, a.seed,
         a.g, a.cst, a.inner_rounds, a.el_iters, a.kn_iters, a.block_lanes, a.cheb_base,
-        a.ntc);
+        a.ntc, a.aux);
   }
 }
 
@@ -957,10 +985,10 @@ extern "C" int mcrat_kn_cross_section(const float* e, float* out, int64_t n, voi
 namespace {
 
 // one family's instantiations, by variant code; false for an unknown code
-// or an ultra/slim variant with nonthermal electrons
+// or an ultra/slim variant in a family of the packed variants only
 template <int TAU>
 bool launch_variant(int variant, const Launch& a, bool st, cudaStream_t s) {
-  if constexpr (TAU != CHEB_NT) {  // CHEB_NT: the packed variants only
+  if constexpr (TAU == DIRECT || TAU == CHEB) {  // the others: packed variants only
     switch (variant) {
       case 0: launch<TAU, CYL2, ULTRA, false>(a, st, s); return true;
       case 1: launch<TAU, SPH2, ULTRA, false>(a, st, s); return true;
@@ -984,9 +1012,11 @@ bool launch_variant(int variant, const Launch& a, bool st, cudaStream_t s) {
 
 // variant codes as in mcrat_tpu_torch/ops/fused_round.py::VARIANTS, tau the
 // optical-depth family (fused_round.TAU_*), nt the host array of the n_nt
-// NtConsts floats; returns cudaGetLastError() after the launch
+// NtConsts floats, aux the (2, n) device planes of the AUX families (else
+// unused); returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for an unknown code or family, an NtConsts of
-// another size, or an ultra/slim variant with nonthermal electrons)
+// another size, an ultra/slim variant in a packed-only family, or an AUX
+// family without aux planes)
 extern "C" int mcrat_fused_rounds(int variant, int tau, float* state, int64_t n,
                                   const int* cell, const int* flags, const float* table,
                                   int64_t ncell, const int* block_act, int* out_flags,
@@ -996,14 +1026,15 @@ extern "C" int mcrat_fused_rounds(int variant, int tau, float* state, int64_t n,
                                   int stokes_on, int inner_rounds, int el_iters, int kn_iters,
                                   int block_lanes, float kb_over_mec2, float thom,
                                   float c_light, float inv_c, float inv_mp, int cheb_base,
-                                  const float* nt, int n_nt, void* stream) {
+                                  const float* nt, int n_nt, const float* aux, void* stream) {
   if (n_nt * sizeof(float) != sizeof(NtConsts) || nt == nullptr)
     return (int)cudaErrorInvalidValue;
+  if ((tau == AUX || tau == AUX_NT) && aux == nullptr) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   Launch a{state, n, cell, flags, table, ncell, block_act, out_flags, seed,
            Grid{dom0, dom1, dom2, dom3, dom4, dom5, lo0, d0, lo1, d1, lo2, d2, n1, n2},
            Consts{kb_over_mec2, thom, c_light, inv_c, inv_mp},
-           inner_rounds, el_iters, kn_iters, block_lanes, cheb_base, NtConsts{}};
+           inner_rounds, el_iters, kn_iters, block_lanes, cheb_base, NtConsts{}, aux};
   memcpy(&a.ntc, nt, sizeof(NtConsts));
   const bool st = stokes_on != 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -1012,6 +1043,8 @@ extern "C" int mcrat_fused_rounds(int variant, int tau, float* state, int64_t n,
     case DIRECT: ok = launch_variant<DIRECT>(variant, a, st, s); break;
     case CHEB: ok = launch_variant<CHEB>(variant, a, st, s); break;
     case CHEB_NT: ok = launch_variant<CHEB_NT>(variant, a, st, s); break;
+    case AUX: ok = launch_variant<AUX>(variant, a, st, s); break;
+    case AUX_NT: ok = launch_variant<AUX_NT>(variant, a, st, s); break;
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

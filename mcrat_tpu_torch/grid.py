@@ -11,6 +11,9 @@ construction and injection work on; :meth:`HydroFrameHost.to_device` makes the t
 :class:`RectilinearIndex` locates photons on structured grids: uniform axes
 by ``floor((x - lo) * inv_d)``, others by ``searchsorted``; cell order is the
 C-order raveled meshgrid, ``idx = (i * n1 + j) * n2 + k``.
+:class:`BinnedIndex` locates them in an unstructured cell list (AMR output):
+a uniform-bin CSR index searched over each photon's +-1 bin neighbourhood,
+behind the cached-cell pin of :func:`find_cell_rows`.
 """
 from __future__ import annotations
 
@@ -360,6 +363,187 @@ def build_rectilinear_index(edges0, edges1, edges2=None, dtype=torch.float32,
     )
 
 
+def torch_dtype(cfg: Config) -> torch.dtype:
+    return torch.float64 if cfg.dtype == "float64" else torch.float32
+
+
+# Live temporaries of the binned search per (lane, candidate): the int64 slab
+# index, the candidate id and its four (2-D) or six (3-D) gathered geometry
+# values, the per-axis tests and the hit mask -- ~100 bytes, rounded up.
+_SEARCH_BYTES_PER_CANDIDATE = 128
+# the binned search holds at most this many bytes of candidate slabs at once
+SEARCH_BUDGET_BYTES = 256 << 20
+
+
+@dataclasses.dataclass
+class BinnedIndex:
+    """Uniform-bin CSR index over an unstructured cell list (AMR output)
+    (mcrat_tpu.grid.BinnedIndex): cells counting-sorted into uniform bins no
+    smaller than the largest cell along each axis, so a containing cell's
+    centre is within one bin of the photon.  ``cell_ids`` (Ncell,) int32
+    lists the cells by flat bin id ``(k * d1 + j) * d0 + i``, bin b holding
+    ``cell_ids[bin_start[b]: bin_start[b] + bin_count[b]]``."""
+
+    cell_ids: torch.Tensor  # (Ncell,) int32, sorted by flat bin id
+    bin_start: torch.Tensor  # (nbins,) int32
+    bin_count: torch.Tensor  # (nbins,) int32
+    grid_min: torch.Tensor  # (3,)
+    inv_bin: torch.Tensor  # (3,) 1 / bin size
+    dims: tuple = (1, 1, 1)
+    max_slab: int = 64  # candidates searched per bin
+
+    @property
+    def device(self) -> torch.device:
+        return self.cell_ids.device
+
+    def _bin(self, x, axis: int) -> torch.Tensor:
+        """Bin index along one axis, truncated toward zero and clipped (the
+        float is clamped first, so out-of-range values cannot overflow)."""
+        d = self.dims[axis]
+        f = (x - self.grid_min[axis]) * self.inv_bin[axis]
+        f = torch.clamp(torch.nan_to_num(f, nan=0.0), -1.0, float(d))
+        return torch.clamp(f.to(torch.int64), 0, d - 1)
+
+    def _find_chunk(self, r0, r1, r2, frame: HydroFrame) -> torch.Tensor:
+        d0, d1, d2 = self.dims
+        use_r2 = d2 > 1
+        i, j, k = self._bin(r0, 0), self._bin(r1, 1), self._bin(r2, 2)
+        ncell = self.cell_ids.shape[0]
+        found = torch.full(r0.shape, -1, dtype=torch.int32, device=r0.device)
+        slab = torch.arange(self.max_slab, device=r0.device)
+        geo_cols = (frame.r0, frame.r1, frame.r2, frame.dr0, frame.dr1, frame.dr2)
+        p0, p1, p2 = r0[:, None], r1[:, None], r2[:, None]
+        offs = (-1, 0, 1)
+        # neighbour order (dz, dy, dx) and the first hit in a bin, as JAX's
+        # search: points on a seam (in_block's <=) resolve to the same cell
+        for dz in (offs if use_r2 else (0,)):
+            for dy in offs:
+                for dx in offs:
+                    ii = torch.clamp(i + dx, 0, d0 - 1)
+                    jj = torch.clamp(j + dy, 0, d1 - 1)
+                    kk = torch.clamp(k + dz, 0, d2 - 1)
+                    flat = (kk * d1 + jj) * d0 + ii
+                    start = self.bin_start[flat].to(torch.int64)
+                    count = self.bin_count[flat].to(torch.int64)
+                    gidx = torch.clamp(start[:, None] + slab, 0, ncell - 1)
+                    cand = self.cell_ids[gidx].to(torch.int64)
+                    c0, c1, c2, s0, s1, s2 = (col[cand] for col in geo_cols)
+                    ok = geo.in_block(p0, p1, p2, c0, c1, c2, s0, s1, s2, use_r2=use_r2)
+                    ok = ok & (slab < count[:, None])
+                    hit = torch.argmax(ok.to(torch.uint8), dim=-1, keepdim=True)
+                    cand_hit = torch.gather(cand, 1, hit)[:, 0].to(torch.int32)
+                    found = torch.where((found < 0) & ok.any(dim=-1), cand_hit, found)
+        return found
+
+    def find(self, r0, r1, r2, frame: HydroFrame) -> torch.Tensor:
+        """Containing cell (int32, -1 where no cell holds the point) of 1-D
+        hydro coordinates: an AABB test over the candidate slabs of the
+        point's +-1 bin neighbourhood (JAX's ``BinnedIndex.find``).  Runs in
+        chunks of lanes so that the (lanes, max_slab) slabs hold at most
+        :data:`SEARCH_BUDGET_BYTES`."""
+        chunk = max(1024, SEARCH_BUDGET_BYTES // (_SEARCH_BYTES_PER_CANDIDATE * self.max_slab))
+        n = r0.shape[0]
+        if n <= chunk:
+            return self._find_chunk(r0, r1, r2, frame)
+        return torch.cat([self._find_chunk(r0[a:a + chunk], r1[a:a + chunk], r2[a:a + chunk],
+                                           frame) for a in range(0, n, chunk)])
+
+
+def build_binned_index(host: HydroFrameHost, target_bins: int = 1 << 20,
+                       max_slab_cap: int = 512, device=None) -> BinnedIndex:
+    """Host-side construction of a :class:`BinnedIndex` (counting sort and
+    prefix sums, mcrat_tpu.grid.build_binned_index), on ``device`` (default:
+    the card).  Bin sizes are floored at the largest cell size per axis, so
+    the +-1 neighbourhood cannot miss a containing cell.  The sort is the
+    stable one of the JAX package's host runtime (native/mcrat_native.cpp),
+    in numpy: ``cell_ids``, ``bin_start``, ``bin_count``, ``dims`` and
+    ``max_slab`` equal the JAX package's."""
+    device = resolve_device(device)
+    cfg = host.cfg
+    use_r2 = cfg.dims is Dims.THREE
+    lo = np.array([
+        (host.r0 - host.dr0 / 2).min(),
+        (host.r1 - host.dr1 / 2).min(),
+        (host.r2 - host.dr2 / 2).min() if use_r2 else 0.0,
+    ])
+    hi = np.array([
+        (host.r0 + host.dr0 / 2).max(),
+        (host.r1 + host.dr1 / 2).max(),
+        (host.r2 + host.dr2 / 2).max() if use_r2 else 1.0,
+    ])
+    span = np.maximum(hi - lo, 1e-300)
+    max_cell = np.array([host.dr0.max(), host.dr1.max(), host.dr2.max() if use_r2 else span[2]])
+    ndim = 3 if use_r2 else 2
+    per_axis = max(1, int(round(target_bins ** (1.0 / ndim))))
+    bin_size = np.maximum(span / per_axis, max_cell)
+    dims = np.maximum((span / bin_size).astype(int), 1)
+    if not use_r2:
+        dims[2] = 1
+        bin_size[2] = span[2]
+    inv_bin = 1.0 / bin_size
+    # stable counting sort by flat bin id
+    i = np.clip(((host.r0 - lo[0]) * inv_bin[0]).astype(np.int64), 0, dims[0] - 1)
+    j = np.clip(((host.r1 - lo[1]) * inv_bin[1]).astype(np.int64), 0, dims[1] - 1)
+    k = (np.clip(((host.r2 - lo[2]) * inv_bin[2]).astype(np.int64), 0, dims[2] - 1)
+         if dims[2] > 1 else np.zeros(host.num_elements, np.int64))
+    flat = (k * dims[1] + j) * dims[0] + i
+    order = np.argsort(flat, kind="stable").astype(np.int32)
+    counts = np.bincount(flat, minlength=int(dims.prod())).astype(np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    dt = torch_dtype(cfg)
+    return BinnedIndex(
+        cell_ids=torch.as_tensor(order, device=device),
+        bin_start=torch.as_tensor(starts, device=device),
+        bin_count=torch.as_tensor(counts, device=device),
+        grid_min=torch.as_tensor(lo, dtype=dt, device=device),
+        inv_bin=torch.as_tensor(inv_bin, dtype=dt, device=device),
+        dims=(int(dims[0]), int(dims[1]), int(dims[2])),
+        max_slab=int(min(max(counts.max(), 1), max_slab_cap)),
+    )
+
+
+def _hydro_inside(cfg: Config, frame: HydroFrame, pos):
+    """Hydro coordinates of (N, 3) MCRaT positions and the strict domain test."""
+    r0, r1, r2 = geo.mcrat_to_hydro(cfg, pos[..., 0], pos[..., 1], pos[..., 2])
+    dom = frame.domain
+    inside = (r0 > dom[0, 0]) & (r0 < dom[0, 1]) & (r1 > dom[1, 0]) & (r1 < dom[1, 1])
+    if cfg.dims is Dims.THREE:
+        inside = inside & (r2 > dom[2, 0]) & (r2 < dom[2, 1])
+    return r0, r1, r2, inside
+
+
+def gather_rows(frame: HydroFrame, cell) -> torch.Tensor:
+    """The packed rows (W, N) of the cells ``cell`` (clipped to a valid
+    index; mcrat_tpu.grid.gather_rows)."""
+    safe = torch.clamp(cell, 0, frame.num_elements - 1).to(torch.int64)
+    return frame.packed[:, safe]
+
+
+def find_cell_rows(cfg: Config, index, frame: HydroFrame, pos, cached):
+    """Containing-cell lookup behind the cached-cell pin
+    (mcrat_tpu.grid.find_cell_rows, findContainingHydroCell, reference:
+    Src/mclib.c:436-615): a photon still inside its cached cell's box keeps
+    it (this also pins the choice on overlapping seams); the index searches
+    the others, only those lanes.  Out-of-domain photons get -1.
+
+    The JAX package carries each lane's (16, N) packed rows beside its cell;
+    the port's kernel reads a cell's rows by its index, and on every in-grid
+    lane JAX's carried rows equal ``frame.packed[:, cell]``, so only the cell
+    is carried.  ``pos`` is (N, 3) MCRaT Cartesian, ``cached`` (N,) int32.
+    Returns (cell int32, in_grid bool)."""
+    r0, r1, r2, inside = _hydro_inside(cfg, frame, pos)
+    safe = torch.clamp(cached, 0, frame.num_elements - 1).to(torch.int64)
+    in_cached = (cached >= 0) & geo.in_block(
+        r0, r1, r2, frame.r0[safe], frame.r1[safe], frame.r2[safe],
+        frame.dr0[safe], frame.dr1[safe], frame.dr2[safe], use_r2=cfg.dims is Dims.THREE)
+    cell = torch.where(in_cached, cached.to(torch.int32), -1)
+    miss = torch.nonzero(~in_cached & inside).flatten()
+    if miss.numel():
+        cell[miss] = index.find(r0[miss], r1[miss], r2[miss], frame)
+    cell = torch.where(inside, cell, -1)
+    return cell, inside & (cell >= 0)
+
+
 def find_cell_direct(cfg: Config, index: RectilinearIndex, frame: HydroFrame, pos):
     """Containing-cell lookup for the rectilinear index.
 
@@ -367,10 +551,6 @@ def find_cell_direct(cfg: Config, index: RectilinearIndex, frame: HydroFrame, po
     photons get cell = -1.  ``pos`` is (N, 3) MCRaT Cartesian.  Returns
     (cell int32, in_grid bool).
     """
-    r0, r1, r2 = geo.mcrat_to_hydro(cfg, pos[..., 0], pos[..., 1], pos[..., 2])
-    dom = frame.domain
-    inside = (r0 > dom[0, 0]) & (r0 < dom[0, 1]) & (r1 > dom[1, 0]) & (r1 < dom[1, 1])
-    if cfg.dims is Dims.THREE:
-        inside = inside & (r2 > dom[2, 0]) & (r2 < dom[2, 1])
+    r0, r1, r2, inside = _hydro_inside(cfg, frame, pos)
     cell = torch.where(inside, index.find(r0, r1, r2), -1).to(torch.int32)
     return cell, inside & (cell >= 0)

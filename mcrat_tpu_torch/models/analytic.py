@@ -38,6 +38,25 @@ def make_grid_2d(cfg: Config, r0_edges, r1_edges) -> dict:
     )
 
 
+def amr_blocks_2d(bands, r1_lo: float, r1_hi: float):
+    """FLASH-style leaf blocks tiling a 2-D domain in refinement bands.
+
+    ``bands`` lists ``(r0_lo, r0_hi, n0, n1)``: the strip r0_lo <= r0 <
+    r0_hi over [r1_lo, r1_hi] cut into n0 x n1 blocks of equal size, each
+    block 8 x 8 cells (``io.flash.cells_from_blocks``).  Returns (coords,
+    block_size), (nblk, 2) block centres and extents, blocks in band order,
+    r1 fastest within a band."""
+    coords, sizes = [], []
+    for r0_lo, r0_hi, n0, n1 in bands:
+        b0, b1 = (r0_hi - r0_lo) / n0, (r1_hi - r1_lo) / n1
+        c0 = r0_lo + (np.arange(n0) + 0.5) * b0
+        c1 = r1_lo + (np.arange(n1) + 0.5) * b1
+        g0, g1 = np.meshgrid(c0, c1, indexing="ij")
+        coords.append(np.stack([g0.ravel(), g1.ravel()], axis=-1))
+        sizes.append(np.tile([b0, b1], (n0 * n1, 1)))
+    return np.concatenate(coords), np.concatenate(sizes)
+
+
 def cylindrical_prep(host: HydroFrameHost, gamma_infinity=100.0, t_comov=1e5, ddensity=3e-7):
     """Cylindrical outflow overwrite (reference: Src/analytic_outflows.c:7-68).
 

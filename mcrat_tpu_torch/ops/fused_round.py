@@ -3,7 +3,8 @@
 Port of ``mcrat_tpu/ops/pallas_round.py::fused_rounds`` with DIRECT
 (Thomson) or TABLE (hot cross-section) optical depth, thermal electrons and,
 in TABLE mode, nonthermal (broken) power-law electrons, Stokes on or off,
-for every (dims x geometry) frame on a rectilinear grid.  One call runs
+for every (dims x geometry) frame on a rectilinear grid or an AMR cell
+list.  One call runs
 ``inner_rounds`` complete transport rounds per photon lane:
 
     comoving boost -> tau-rate -> free path -> move -> electron draw
@@ -30,7 +31,12 @@ table at row ``cheb_base`` (the variant's width): sigma_hat is evaluated
 every round at the current comoving energy (:func:`_cheb_eval`).
 Nonthermal electrons (``nt``, :class:`NtConstants`) add the biased
 multi-population rate, the population draw and the subgroup inverse-CDF
-gamma (:func:`_population_gamma`), and two draws per round.
+gamma (:func:`_population_gamma`), and two draws per round.  The carried
+AMR path reads TABLE mode from two per-lane aux planes instead (``aux``,
+(2, Npad): the biased total tau coefficient and the thermal probability,
+``transport.aux_planes``) on the packed variants, and a lane stalls after
+it scatters too, since its planes are then stale (pallas_round.py:879-888,
+1078-1079).
 
 :func:`fused_rounds_reference` is the plain twin, vectorized over lanes.
 :func:`fused_rounds` is the wrapper: on CPU tensors it runs the twin, on CUDA
@@ -255,14 +261,18 @@ class NtConstants(NamedTuple):
 N_NT_CONSTS = 39
 
 
-def nonthermal_constants(cfg, sub1: tuple) -> NtConstants:
+def nonthermal_constants(cfg, sub1: tuple = None) -> NtConstants:
     """The :class:`NtConstants` of a nonthermal config, ``sub1`` the global
     subgroup-1 fit (``ops.hot_xsec._sub1_cheb_static``), from float64 Python
-    arithmetic as ``pallas_round._make_nonthermal_gamma`` forms it."""
+    arithmetic as ``pallas_round._make_nonthermal_gamma`` forms it.  The aux
+    planes carry the rate, so the aux-plane family takes no fit (``sub1``
+    None: its fields are 0)."""
     from ..config import NonthermalDist
 
     from .electrons import broken_power_law_norm
 
+    if sub1 is None:
+        sub1 = (0.0,) * (5 + CHEB_DLO + CHEB_DHI)
     lg_min = math.log10(cfg.gamma_min)
     dg = (math.log10(cfg.gamma_max) - lg_min) / cfg.n_gamma
     ln10 = math.log(10.0)
@@ -348,10 +358,12 @@ def _rotate_basis(vo, ro, vn, rn, q, u):
     return c2 * q - s2 * u, s2 * q + c2 * u
 
 
-def _thermal_gamma_beta(base, k0, temp, off: DrawOffsets):
+def _thermal_gamma_beta(base, k0, temp, off: DrawOffsets, tally=None):
     """Thermal (gamma, gamma beta), chosen per lane: Maxwell-Boltzmann chi2_3
     speed draw below the 1e7 K switch, Maxwell-Juttner Gamma-mixture
-    rejection above it (pallas_round._thermal_gamma_beta)."""
+    rejection above it (pallas_round._thermal_gamma_beta).  ``tally`` (a
+    dict) receives each lane's Maxwell-Juttner trials up to acceptance
+    (``mj``) and its branch (``cold``)."""
     theta = torch.clamp(temp * KB_OVER_MEC2, min=TINY)
     # Maxwell-Boltzmann: beta^2 = theta * chi2_3 from three uniforms
     u1 = rng.uniform_pos(base, k0 + off.mb)
@@ -370,7 +382,9 @@ def _thermal_gamma_beta(base, k0, temp, off: DrawOffsets):
     cum2 = inv_mass
     xi = torch.full_like(theta, 1.5)
     done = torch.zeros_like(theta, dtype=torch.bool)
+    trials = torch.zeros_like(theta)
     for t in range(EL_ITERS):
+        trials = trials + (~done).to(theta.dtype)
         k = k0 + off.mj + 5 * t
         v0 = rng.uniform_pos(base, k)
         v1 = rng.uniform_pos(base, k + 1)
@@ -390,6 +404,8 @@ def _thermal_gamma_beta(base, k0, temp, off: DrawOffsets):
     g_mj = 1.0 + a
     gb_mj = torch.sqrt(torch.clamp(a * (2.0 + a), min=0.0))
     cold = theta < THETA_MB_SWITCH
+    if tally is not None:
+        tally.update(mj=trials, cold=cold)
     return torch.where(cold, g_mb, g_mj), torch.where(cold, gb_mb, gb_mj)
 
 
@@ -469,12 +485,15 @@ def kn_cross_section(e):
 kn_cross_section.launches = 0
 
 
-def _sample_kn_angles(base, k0, off: DrawOffsets, e0, q, u, stokes_on):
+def _sample_kn_angles(base, k0, off: DrawOffsets, e0, q, u, stokes_on, tally=None):
     """KN theta rejection + (polarized) phi disk-point rejection
-    (pallas_round._sample_kn_angles)."""
+    (pallas_round._sample_kn_angles).  ``tally`` (a dict) receives each
+    lane's theta and phi trials up to acceptance."""
     cos_theta = torch.zeros_like(e0)
     done = torch.zeros_like(e0, dtype=torch.bool)
+    theta_trials = torch.zeros_like(e0)
     for t in range(KN_ITERS):
+        theta_trials = theta_trials + (~done).to(e0.dtype)
         k = k0 + off.theta + 2 * t
         c = 2.0 * rng.uniform(base, k) - 1.0
         y = 2.0 * rng.uniform(base, k + 1)
@@ -500,7 +519,9 @@ def _sample_kn_angles(base, k0, off: DrawOffsets, e0, q, u, stokes_on):
     x_acc = torch.ones_like(e0)
     y_acc = torch.zeros_like(e0)
     done = torch.zeros_like(e0, dtype=torch.bool)
+    phi_trials = torch.zeros_like(e0)
     for t in range(KN_ITERS):
+        phi_trials = phi_trials + (~done).to(e0.dtype)
         k = k0 + off.phi + 2 * t
         x = 2.0 * rng.uniform(base, k) - 1.0
         y = 2.0 * rng.uniform(base, k + 1) - 1.0
@@ -517,11 +538,13 @@ def _sample_kn_angles(base, k0, off: DrawOffsets, e0, q, u, stokes_on):
         y_acc = torch.where(take, y, y_acc)
         done = done | ok
     inv_r = torch.rsqrt(torch.clamp(x_acc * x_acc + y_acc * y_acc, min=TINY))
+    if tally is not None:
+        tally.update(theta=theta_trials, phi=phi_trials)
     return cos_theta, sin_theta, x_acc * inv_r, y_acc * inv_r
 
 
 def _single_scatter(base, k0, off: DrawOffsets, g0, e1x, e1y, e1z, c0, c1, c2, c3,
-                    q, u, v, f_ref, stokes_on):
+                    q, u, v, f_ref, stokes_on, tally=None):
     """One polarized KN scatter attempt in the electron rest frame
     (pallas_round._single_scatter, collapsed Stokes chain).  ``f_ref`` is
     the fluid-boost reference vector of the chain (beta_f, or z-hat where
@@ -544,7 +567,7 @@ def _single_scatter(base, k0, off: DrawOffsets, g0, e1x, e1y, e1z, c0, c1, c2, c
     a_c1 = torch.where(e_pos, rho0 * inv_e0, 1.0)
     a_s1 = r3 * inv_e0
     scattered = rng.uniform(base, k0 + off.acc) <= _kn_cross_section(e0)
-    ct, st, c_phi, s_phi = _sample_kn_angles(base, k0, off, e0, q, u, stokes_on)
+    ct, st, c_phi, s_phi = _sample_kn_angles(base, k0, off, e0, q, u, stokes_on, tally)
     e1 = e0 / (1.0 + e0 * (1.0 - ct))
     sx = e1 * ct
     sy = e1 * st * s_phi
@@ -812,13 +835,17 @@ def _nonthermal_gamma(u, sub_f, nt: NtConstants):
     return torch.where(x <= nt.f_break, lo, hi)
 
 
-def _population_gamma(base, k0, off: DrawOffsets, nt: NtConstants, p_th, g_th, gb_th):
+def _population_gamma(base, k0, off: DrawOffsets, nt: NtConstants, p_th, g_th, gb_th,
+                      tally=None):
     """Scattering population from the biased optical depths (transport.
     _tau_rate, generateSingleElectron, Src/electron.c:7-68): thermal with
     probability ``p_th``, else the subgroups in equal slices of the rest;
-    a nonthermal lane takes its subgroup's inverse-CDF gamma."""
+    a nonthermal lane takes its subgroup's inverse-CDF gamma.  ``tally``
+    receives the population (``thermal``)."""
     u_pop = rng.uniform(base, k0 + off.pop)
     is_th = u_pop <= p_th
+    if tally is not None:
+        tally["thermal"] = is_th
     slice_w = torch.clamp((1.0 - p_th) * nt.inv_n_gamma, min=TINY)
     sub_f = torch.clamp(torch.floor((u_pop - p_th) / slice_w), 0.0, nt.n_gamma_m1)
     g_nt = _nonthermal_gamma(rng.uniform(base, k0 + off.pop + 1), sub_f, nt)
@@ -827,13 +854,20 @@ def _population_gamma(base, k0, off: DrawOffsets, nt: NtConstants, p_th, g_th, g
 
 
 def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rounds,
-            nt: NtConstants = None):
+            nt: NtConstants = None, aux=None, work=None):
     """``inner_rounds`` rounds over a flat set of lanes (pallas_round
-    round_body).  Returns the new 16 planes and the (stalled, promoted)
-    masks."""
+    round_body).  ``aux`` is None or the lanes' (2, n) aux planes.  ``work``
+    (a Counter) adds up the work the kernel does on these lanes: the
+    :data:`WORK_KEYS`.  Returns the new 16 planes and the (stalled,
+    promoted) masks."""
     (p0, p1, p2, p3, px, py, pz, q, u, v, t_rem, ns, c0, c1, c2, c3) = st
     beta_mag = cell.beta_mag
-    n_sigma = cell.n_e * THOM_X_SECT
+    if aux is None:
+        n_sigma = cell.n_e * THOM_X_SECT
+    else:
+        # TABLE through the aux planes: the biased total tau coefficient
+        # and the thermal probability, fixed for the call
+        n_sigma, p_th = aux[0], aux[1]
     off = OFFSETS if nt is None else OFFSETS_NT
     z_hat = (0.0, 0.0, 1.0)
     stalled = torch.zeros_like(alive)
@@ -909,13 +943,23 @@ def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rou
         else:
             f_ref = None
             qc, uc = q, u
-        g_e, gb_e = _thermal_gamma_beta(base, k0, cell.temp, off)
+        tally = {} if work is not None else None
+        g_e, gb_e = _thermal_gamma_beta(base, k0, cell.temp, off, tally)
         if nt is not None:
-            g_e, gb_e = _population_gamma(base, k0, off, nt, p_th, g_e, gb_e)
+            g_e, gb_e = _population_gamma(base, k0, off, nt, p_th, g_e, gb_e, tally)
         g0, ex, ey, ez = _electron_from_gamma(base, k0, off, g_e, gb_e, c1, c2, c3)
         sc, o0, o1, o2, o3, q2, u2, v2 = _single_scatter(
-            base, k0, off, g0, ex, ey, ez, c0, c1, c2, c3, qc, uc, v, f_ref, stokes_on)
+            base, k0, off, g0, ex, ey, ez, c0, c1, c2, c3, qc, uc, v, f_ref, stokes_on, tally)
         scattered = will & sc
+        if work is not None:
+            th = will & tally.get("thermal", torch.ones_like(will))
+            for key, n in (("lane_rounds", act), ("in_grid_rounds", act & in_grid),
+                           ("attempts", will), ("mb", th & tally["cold"]),
+                           ("mj_trials", torch.where(th & ~tally["cold"], tally["mj"], 0.0)),
+                           ("nt_draws", will & ~th), ("scatters", scattered),
+                           ("theta_trials", torch.where(scattered, tally["theta"], 0.0)),
+                           ("phi_trials", torch.where(scattered, tally["phi"], 0.0))):
+                work[key] = work[key] + n.sum()  # a tensor: no host sync
         l0, l1, l2, l3 = _boost(-bx, -by, -bz, o0, o1, o2, o3)
         if stokes_on:
             inv_ge = 1.0 / g0
@@ -937,23 +981,30 @@ def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rou
         ns = ns + scattered.to(ns.dtype)
         promoted = promoted | (scattered & is_pool)
 
-        # 6. post-move cell/domain membership: stall lanes that left
+        # 6. post-move cell/domain membership: stall lanes that left; with
+        # aux planes also lanes that scattered (their planes are stale)
         in_cell = cell.contains(px, py, pz)
         stalled = stalled | (act & in_grid & ~in_cell & (t_rem > 0))
+        if aux is not None:
+            stalled = stalled | (scattered & (t_rem > 0))
     planes = (p0, p1, p2, p3, px, py, pz, q, u, v, t_rem, ns, c0, c1, c2, c3)
     return planes, stalled, promoted
 
 
-def _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt):
+def _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt,
+                aux=None):
     if variant not in VARIANTS:
         raise ValueError(f"unknown kernel variant {variant!r}; one of {sorted(VARIANTS)}")
     var = VARIANTS[variant]
     if cheb_base not in (0, var.width):
         raise ValueError(f"cheb_base of {variant} is 0 (DIRECT) or {var.width} (TABLE), "
                          f"not {cheb_base}")
-    if nt is not None and not (cheb_base and var.source == "packed"):
-        raise ValueError(f"nonthermal electrons need TABLE rows on a packed variant, not "
+    if aux is not None and (cheb_base or var.source != "packed"):
+        raise ValueError(f"aux planes run on a packed variant without Chebyshev rows, not "
                          f"{variant} with cheb_base={cheb_base}")
+    if nt is not None and not ((cheb_base or aux is not None) and var.source == "packed"):
+        raise ValueError(f"nonthermal electrons need TABLE rows or aux planes on a packed "
+                         f"variant, not {variant} with cheb_base={cheb_base}")
     width = var.width + (CHEB_ROWS if cheb_base else 0)
     n = state.shape[1]
     if state.dim() != 2 or state.shape[0] != N_STATE or state.dtype != torch.float32:
@@ -972,12 +1023,16 @@ def _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb
         raise ValueError("cell and flags must have one entry per lane")
     if block_act.shape[0] != n // block_lanes:
         raise ValueError("block_act must have one entry per block")
+    if aux is not None and (aux.dim() != 2 or tuple(aux.shape) != (2, n)
+                            or aux.dtype != torch.float32 or not aux.is_contiguous()):
+        raise ValueError(f"aux must be a contiguous (2, {n}) float32 tensor, got "
+                         f"{tuple(aux.shape)} {aux.dtype}")
     if (table.dim() != 2 or table.shape[0] != width or table.dtype != torch.float32
             or not table.is_contiguous() or table.shape[1] == 0):
         raise ValueError(f"the {variant} cell table (phys/packed) must be a contiguous "
                          f"({width}, Ncell) float32 tensor, got {tuple(table.shape)} "
                          f"{table.dtype}")
-    devs = {t.device for t in (state, cell, flags, table, block_act)}
+    devs = {t.device for t in (state, cell, flags, table, block_act, aux) if t is not None}
     if len(devs) != 1:
         raise ValueError(f"all inputs must be on one device, got {devs}")
 
@@ -986,7 +1041,7 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
                            grid: GridScalars, stokes_on: bool = True,
                            inner_rounds: int = 4, block_lanes: int = 16384,
                            variant: str = "ultra_cyl2", cheb_base: int = 0,
-                           nt: NtConstants = None):
+                           nt: NtConstants = None, aux=None):
     """Plain PyTorch twin of the fused-round kernel.
 
     ``state`` (16, Npad) f32 is updated IN PLACE on the lanes of active
@@ -995,11 +1050,13 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
     variant's (W, Ncell) cell table (:data:`VARIANTS`), ``block_act``
     (Npad / block_lanes,) i32 marks blocks with at least one active lane.
     TABLE mode (``cheb_base`` = the variant's width) reads the CHEB_ROWS
-    Chebyshev rows appended to the table; ``nt`` adds nonthermal electrons
-    (packed variants, TABLE mode only).  Returns the (Npad,) int32 out-flags
+    Chebyshev rows appended to the table; ``aux`` (2, Npad) float32 runs
+    TABLE mode from per-lane aux planes instead (packed variants,
+    ``cheb_base`` 0); ``nt`` adds nonthermal electrons (packed variants,
+    TABLE mode only).  Returns the (Npad,) int32 out-flags
     (OUT_STALLED | OUT_PROMOTED; 0 on idle blocks).
     """
-    _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt)
+    _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt, aux)
     fused_rounds_reference.launches += 1
     n = state.shape[1]
     out = torch.zeros(n, dtype=torch.int32, device=state.device)
@@ -1015,7 +1072,8 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
         tuple(sub[i] for i in range(N_STATE)),
         (fl & FLAG_ALIVE) != 0, (fl & FLAG_POOL) != 0, (fl & FLAG_INGRID) != 0,
         _Cell(VARIANTS[variant], table, cl, grid, cheb_base, nt is not None), base,
-        stokes_on, inner_rounds, nt,
+        stokes_on, inner_rounds, nt, None if aux is None else aux[:, lanes],
+        fused_rounds_reference.work,
     )
     state[:, lanes] = torch.stack(planes)
     out[lanes] = stalled.to(torch.int32) * OUT_STALLED + promoted.to(torch.int32) * OUT_PROMOTED
@@ -1023,35 +1081,53 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
 
 
 fused_rounds_reference.launches = 0
+# the kernel's work on the twin's inputs (see _rounds): None, or a
+# collections.Counter that the twin's calls add to, for a caller that counts
+# a call's operations (its operation bound)
+WORK_KEYS = ("lane_rounds", "in_grid_rounds", "attempts", "mb", "mj_trials", "nt_draws",
+             "scatters", "theta_trials", "phi_trials")
+fused_rounds_reference.work = None
 
 # the kernel's optical-depth families (csrc/fused_round.cu enum Tau)
-TAU_DIRECT, TAU_CHEB, TAU_CHEB_NT = 0, 1, 2
+TAU_DIRECT, TAU_CHEB, TAU_CHEB_NT, TAU_AUX, TAU_AUX_NT = 0, 1, 2, 3, 4
+_TAU_SUFFIX = {TAU_DIRECT: "", TAU_CHEB: "+cheb", TAU_CHEB_NT: "+cheb+nt", TAU_AUX: "+aux",
+               TAU_AUX_NT: "+aux+nt"}
 
 
-def tau_family(cheb_base: int, nt) -> int:
+def tau_family(cheb_base: int, nt, aux: bool = False) -> int:
+    if aux:
+        return TAU_AUX_NT if nt is not None else TAU_AUX
     return TAU_CHEB_NT if nt is not None else (TAU_CHEB if cheb_base else TAU_DIRECT)
 
 
-def instantiation(variant: str, cheb_base: int = 0, nt=None, stokes_on: bool = True) -> str:
+def instantiation(variant: str, cheb_base: int = 0, nt=None, stokes_on: bool = True,
+                  aux: bool = False) -> str:
     """The name of a kernel instantiation: the variant, ``+cheb`` in TABLE
-    mode, ``+nt`` with nonthermal electrons, ``/stokes_off`` without Stokes
-    (``ultra_cyl2``, ``packed_sph2+cheb+nt/stokes_off``, ...)."""
-    return (variant + {TAU_DIRECT: "", TAU_CHEB: "+cheb", TAU_CHEB_NT: "+cheb+nt"}[
-        tau_family(cheb_base, nt)] + ("" if stokes_on else "/stokes_off"))
+    mode with Chebyshev rows, ``+aux`` in TABLE mode with aux planes,
+    ``+nt`` with nonthermal electrons, ``/stokes_off`` without Stokes
+    (``ultra_cyl2``, ``packed_sph2+cheb+nt/stokes_off``,
+    ``packed_cyl2+aux``, ...)."""
+    return (variant + _TAU_SUFFIX[tau_family(cheb_base, nt, aux)]
+            + ("" if stokes_on else "/stokes_off"))
 
 
 def instantiations() -> list:
-    """The names of all 58 kernel instantiations."""
-    return [instantiation(v, var.width if tau else 0, True if tau == TAU_CHEB_NT else None, s)
-            for tau in (TAU_DIRECT, TAU_CHEB, TAU_CHEB_NT) for v, var in VARIANTS.items()
-            if tau != TAU_CHEB_NT or var.source == "packed" for s in (True, False)]
+    """The names of all 86 kernel instantiations: DIRECT and CHEB on the 11
+    variants, CHEB_NT, AUX and AUX_NT on the 7 packed ones, each with
+    Stokes on and off."""
+    return [instantiation(v, var.width if tau in (TAU_CHEB, TAU_CHEB_NT) else 0,
+                          True if tau in (TAU_CHEB_NT, TAU_AUX_NT) else None, s,
+                          aux=tau in (TAU_AUX, TAU_AUX_NT))
+            for tau in (TAU_DIRECT, TAU_CHEB, TAU_CHEB_NT, TAU_AUX, TAU_AUX_NT)
+            for v, var in VARIANTS.items()
+            if tau in (TAU_DIRECT, TAU_CHEB) or var.source == "packed" for s in (True, False)]
 
 
 def fused_rounds(state, cell, flags, table, block_act, seed: int,
                  grid: GridScalars, stokes_on: bool = True,
                  inner_rounds: int = 4, block_lanes: int = 16384,
                  variant: str = "ultra_cyl2", cheb_base: int = 0,
-                 nt: NtConstants = None):
+                 nt: NtConstants = None, aux=None):
     """Run ``inner_rounds`` fused transport rounds over the lane planes.
 
     Same contract as :func:`fused_rounds_reference` (``state`` updated in
@@ -1060,18 +1136,19 @@ def fused_rounds(state, cell, flags, table, block_act, seed: int,
     stream, building it on first use, and raise if the build or the launch
     fails.  ``fused_rounds.launches`` counts kernel launches,
     ``fused_rounds.variant_launches`` the same per :func:`instantiation`
-    (58 in all, :func:`instantiations`).
+    (86 in all, :func:`instantiations`).
     """
     if state.device.type == "cpu":
         return fused_rounds_reference(
             state, cell, flags, table, block_act, seed, grid, stokes_on,
-            inner_rounds, block_lanes, variant, cheb_base, nt)
+            inner_rounds, block_lanes, variant, cheb_base, nt, aux)
     if state.device.type != "cuda":
         raise ValueError(f"fused_rounds runs on cpu or cuda tensors, not {state.device}")
-    _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt)
+    _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt, aux)
     from .._build import load_fused_round
 
-    tau = tau_family(cheb_base, nt)
+    tau = tau_family(cheb_base, nt, aux is not None)
+    name = instantiation(variant, cheb_base, nt, stokes_on, aux is not None)
     lib = load_fused_round()
     n = state.shape[1]
     out = torch.empty(n, dtype=torch.int32, device=state.device)
@@ -1089,14 +1166,14 @@ def fused_rounds(state, cell, flags, table, block_act, seed: int,
         ctypes.c_int32(inner_rounds), ctypes.c_int32(EL_ITERS),
         ctypes.c_int32(KN_ITERS), ctypes.c_int32(block_lanes),
         f(KB_OVER_MEC2), f(THOM_X_SECT), f(C_LIGHT), f(_INV_C), f(_INV_MP),
-        ctypes.c_int32(cheb_base), consts, ctypes.c_int32(N_NT_CONSTS), stream,
+        ctypes.c_int32(cheb_base), consts, ctypes.c_int32(N_NT_CONSTS),
+        None if aux is None else aux.data_ptr(), stream,
     )
     if err != 0:
         msg = lib.mcrat_error_string(err).decode()
-        raise RuntimeError(f"fused_round kernel launch failed "
-                           f"({instantiation(variant, cheb_base, nt, stokes_on)}): {msg}")
+        raise RuntimeError(f"fused_round kernel launch failed ({name}): {msg}")
     fused_rounds.launches += 1
-    fused_rounds.variant_launches[instantiation(variant, cheb_base, nt, stokes_on)] += 1
+    fused_rounds.variant_launches[name] += 1
     return out
 
 

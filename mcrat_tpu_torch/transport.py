@@ -12,12 +12,13 @@ is a fixed-capacity structure of arrays (:class:`Photons`) with masking in
 place of the reference's null-photon slot recycling (Src/photons.c).
 Four-momenta are dimensionless (units of m_e c); positions are in cm.
 
-Slice covered: every (dims x geometry) frame on a
-:class:`~mcrat_tpu_torch.grid.RectilinearIndex`, uniform or not -- 2-D and
-2.5-D cartesian/cylindrical/spherical, 3-D cartesian/spherical/polar --
-with DIRECT (Thomson) or TABLE (hot cross-section, ``ops.hot_xsec``)
-optical depth, thermal electrons and, in TABLE mode, nonthermal (broken)
-power-law electrons, float32, Stokes on or off.  Other configurations raise
+Slice covered: every (dims x geometry) frame -- 2-D and 2.5-D
+cartesian/cylindrical/spherical, 3-D cartesian/spherical/polar -- on a
+:class:`~mcrat_tpu_torch.grid.RectilinearIndex` (uniform or not) or on an
+AMR cell list (:class:`~mcrat_tpu_torch.grid.BinnedIndex`), with DIRECT
+(Thomson) or TABLE (hot cross-section, ``ops.hot_xsec``) optical depth,
+thermal electrons and, in TABLE mode, nonthermal (broken) power-law
+electrons, float32, Stokes on or off.  Other configurations raise
 ``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
@@ -31,11 +32,12 @@ import torch
 from .config import (
     Config, Dims, Geometry, NonthermalDist, PhotonType, Spectrum, TauCalculation,
 )
-from .constants import C_LIGHT, H_OVER_MEC2, K_B, ME_C2, PL_CONST
+from .constants import C_LIGHT, H_OVER_MEC2, K_B, M_P, ME_C2, PL_CONST, THOM_X_SECT
 
 from . import geometry as geo
 from .device import resolve_device
-from .grid import HydroFrame, HydroFrameHost, RectilinearIndex, find_cell_direct
+from .grid import (PCOL, BinnedIndex, HydroFrame, HydroFrameHost, RectilinearIndex,
+                   find_cell_direct, find_cell_rows, gather_rows)
 from .ops import fused_round as fr
 from .ops import hot_xsec
 from .ops.fourvec import lorentz_boost
@@ -53,7 +55,6 @@ ROADMAP_ITEMS = dict(
     xla="ROADMAP.md queue 1 item 5 (the XLA-path physics ops and "
         "transport_rounds: float64 and non-CUDA runs)",
     cyclosynch="ROADMAP.md queue 1 item 11 (cyclo-synchrotron)",
-    amr="ROADMAP.md queue 1 item 12 (AMR cell-list path, BinnedIndex)",
 )
 
 
@@ -365,11 +366,11 @@ def unsupported_reason(cfg: Config, frame: HydroFrame, index) -> Optional[str]:
     will port it), or None when it can."""
     if cfg.cyclosynchrotron:
         return "cyclo-synchrotron: " + ROADMAP_ITEMS["cyclosynch"]
-    if not isinstance(index, RectilinearIndex):
-        return f"{type(index).__name__}: " + ROADMAP_ITEMS["amr"]
+    if not isinstance(index, (RectilinearIndex, BinnedIndex)):
+        return f"{type(index).__name__}: not a spatial index (RectilinearIndex, BinnedIndex)"
     if cfg.geometry not in FRAMES[cfg.dims]:
         return f"{cfg.dims.name} {cfg.geometry.name}: not a frame mcrat_tpu defines"
-    if index.three_d != (cfg.dims is Dims.THREE):
+    if isinstance(index, RectilinearIndex) and index.three_d != (cfg.dims is Dims.THREE):
         return f"a {'3-D' if index.three_d else '2-D'} index on a {cfg.dims.name} frame"
     return None
 
@@ -402,9 +403,10 @@ def check_xsec_table(cfg: Config, xsec_table) -> None:
 def fused_transport_available(cfg: Config, photons: Photons, frame: HydroFrame,
                               index, xsec_table=None) -> bool:
     """True when the CUDA fused-round kernel covers this run: CUDA float32
-    photons, any (dims x geometry) frame on a RectilinearIndex, DIRECT
-    optical depth, or TABLE with its tables.  There is no capacity floor:
-    every chunk, compacted tail included, goes through the kernel."""
+    photons, any (dims x geometry) frame on a RectilinearIndex or a
+    BinnedIndex, DIRECT optical depth, or TABLE with its tables.  There is
+    no capacity floor: every chunk, compacted tail included, goes through
+    the kernel."""
     return (
         photons.device.type == "cuda"
         and photons.p.dtype == torch.float32
@@ -415,15 +417,17 @@ def fused_transport_available(cfg: Config, photons: Photons, frame: HydroFrame,
 
 class KernelFlags(NamedTuple):
     """Optical-depth flags of a kernel call: ``cheb_base`` (0 for DIRECT,
-    else the table row where the TABLE Chebyshev rows start) and ``nt`` (the
-    nonthermal constants, or None)."""
+    else the table row where the TABLE Chebyshev rows start), ``nt`` (the
+    nonthermal constants, or None) and ``aux`` (the hot cross-section
+    tables of TABLE through per-lane aux planes, :func:`aux_planes`: the
+    carried AMR path; None otherwise)."""
 
     cheb_base: int = 0
     nt: Optional[fr.NtConstants] = None
+    aux: Optional[hot_xsec.HotCrossSectionTable] = None
 
 
-def select_variant(cfg: Config, frame: HydroFrame, index: RectilinearIndex,
-                   xsec_table=None):
+def select_variant(cfg: Config, frame: HydroFrame, index, xsec_table=None):
     """The kernel variant, its cell table and its :class:`KernelFlags` for a
     frame (``mcrat_tpu.transport.transport_rounds_fused``'s selection,
     without the TPU's index-bit size limits): ultra on uniform 2-D
@@ -438,20 +442,28 @@ def select_variant(cfg: Config, frame: HydroFrame, index: RectilinearIndex,
     rows, so ``cheb_base`` is 4 (ultra 2-D), 5 (ultra 3-D), 8 (slim) or
     16/24 (packed); nonthermal electrons add the global subgroup-1 fit and
     the sampler constants (``fused_round.nonthermal_constants``).
+
+    A :class:`~mcrat_tpu_torch.grid.BinnedIndex` (the carried AMR path)
+    takes the packed variant of the geometry, and in TABLE mode no
+    Chebyshev rows: per-lane aux planes (:func:`aux_planes`, ``KernelFlags.
+    aux``), as the JAX glue's carried path (mcrat_tpu/transport.py:713-720).
     Returns (variant name, (W, Ncell) float32 table, KernelFlags)."""
     check_xsec_table(cfg, xsec_table)
     geom, dims = cfg.geometry, cfg.dims
     nonthermal = cfg.nonthermal_e_dist is not NonthermalDist.OFF
-    uniform2 = index.uniform[0] and index.uniform[1]
     cyl = geom in (Geometry.CARTESIAN, Geometry.CYLINDRICAL)
+    carried = isinstance(index, BinnedIndex)
+    uniform = (False,) * 3 if carried else index.uniform
+    three_d = dims is Dims.THREE
     name = table = None
-    if frame.packed_slim is not None and not index.three_d and not nonthermal:
+    if frame.packed_slim is not None and not three_d and not nonthermal and not carried:
+        uniform2 = uniform[0] and uniform[1]
         if uniform2 and (cyl or (geom is Geometry.SPHERICAL and dims is Dims.TWO)):
             name, table = ("ultra_cyl2" if cyl else "ultra_sph2"), frame.phys
         elif cyl:
             name, table = "slim_cyl2", frame.packed_slim
     if name is None and dims is Dims.THREE:
-        if geom is Geometry.CARTESIAN and all(index.uniform) and not nonthermal:
+        if geom is Geometry.CARTESIAN and all(uniform) and not nonthermal and not carried:
             name, table = "ultra_cart3", frame.phys
         else:
             name = {Geometry.CARTESIAN: "packed_cart3", Geometry.SPHERICAL: "packed_sph3",
@@ -462,6 +474,9 @@ def select_variant(cfg: Config, frame: HydroFrame, index: RectilinearIndex,
         table = frame.packed
     if cfg.tau_calculation is not TauCalculation.TABLE:
         return name, table, KernelFlags()
+    if carried:
+        nt = fr.nonthermal_constants(cfg) if nonthermal else None
+        return name, table, KernelFlags(nt=nt, aux=xsec_table)
     cheb = hot_xsec.thermal_cheb_cells(xsec_table, frame.temp)
     table = torch.cat([table, cheb.to(table.device)], dim=0).contiguous()
     nt = None
@@ -471,9 +486,14 @@ def select_variant(cfg: Config, frame: HydroFrame, index: RectilinearIndex,
     return name, table, KernelFlags(fr.VARIANTS[name].width, nt)
 
 
-def grid_scalars(frame: HydroFrame, index: RectilinearIndex) -> fr.GridScalars:
-    """The kernel's grid scalars as exact float32 values (one host fetch)."""
+def grid_scalars(frame: HydroFrame, index) -> fr.GridScalars:
+    """The kernel's grid scalars as exact float32 values (one host fetch).
+    The packed variants read the domain only: on a BinnedIndex the uniform
+    cell geometry is left at lo = 0, d = 1, n = 1."""
     dom = frame.domain.to(torch.float32).reshape(-1)
+    if isinstance(index, BinnedIndex):
+        v = dom.tolist()
+        return fr.GridScalars(*v[:4], 0.0, 1.0, 0.0, 1.0, 1, dom4=v[4], dom5=v[5])
     lo = index.lo.float()
     d = [(e[1] - e[0]).float() for e in (index.edges0, index.edges1, index.edges2)]
     v = torch.stack([*dom, lo[0], d[0], lo[1], d[1], lo[2], d[2]]).tolist()
@@ -512,6 +532,34 @@ def lane_planes(photons: Photons, t_rem: torch.Tensor, s_rows: int = 128):
     return state, alive, pool
 
 
+def aux_planes(cfg: Config, xsec_table, frame: HydroFrame, cell: torch.Tensor,
+               e_comv: torch.Tensor) -> torch.Tensor:
+    """The kernel's per-lane aux planes (2, N) float32 of the carried AMR
+    path in TABLE mode (``aux_planes`` of mcrat_tpu/transport.py:811-849):
+    row 0 the biased total tau coefficient before the fluid factor
+    (1 - beta cos), row 1 the probability that the scattering electron is
+    thermal.  ``_tau_rate`` at the comoving energy ``e_comv`` (the state's
+    c0) in the lane's cell (clipped to a valid index); the kernel stalls a
+    lane after it scatters or leaves its cell, so the planes stay valid for
+    the whole call.  tau0 = n_e sigma_T sigma_hat; with nonthermal
+    electrons the total is tau0 + N_GAMMA tau_norm (each subgroup's biased
+    tau equals tau_norm: tau0 in thermal cells, else subgroup 1's;
+    Src/optical_depth.c:60-112)."""
+    rows = gather_rows(frame, cell)
+    tiny = torch.finfo(torch.float32).tiny  # as JAX's glue, in any dtype
+    sig = hot_xsec.interp_thermal(xsec_table, e_comv, rows[PCOL["temp"]])
+    tau0 = rows[PCOL["dens_lab"]] * (1.0 / M_P) * THOM_X_SECT * sig
+    if cfg.nonthermal_e_dist is NonthermalDist.OFF:
+        return torch.stack([tau0, torch.ones_like(tau0)])
+    sig_sub = hot_xsec.interp_nonthermal(xsec_table, e_comv)
+    frac = torch.as_tensor(xsec_table.subgroup_frac, dtype=e_comv.dtype, device=e_comv.device)
+    n_nt_lab = rows[PCOL["nonthermal_dens"]] * rows[PCOL["gamma"]]
+    tau_1 = n_nt_lab * frac[0] * THOM_X_SECT * sig_sub[:, 0]
+    tau_norm = torch.where(tau0 > 0, tau0, tau_1)
+    total = tau0 + cfg.n_gamma * tau_norm
+    return torch.stack([total, tau0 / torch.clamp(total, min=tiny)])
+
+
 def lane_flags(alive, pool, in_grid) -> torch.Tensor:
     """The kernel's per-lane FLAG_* bits."""
     return (alive.to(torch.int32) * fr.FLAG_ALIVE + pool.to(torch.int32) * fr.FLAG_POOL
@@ -522,7 +570,7 @@ def transport_rounds_fused(
     cfg: Config,
     photons: Photons,
     frame: HydroFrame,
-    index: RectilinearIndex,
+    index,
     t_rem: torch.Tensor,
     base_seed: int,
     setup: tuple,
@@ -533,14 +581,26 @@ def transport_rounds_fused(
     rounds_fn=fr.fused_rounds,
 ) -> ChunkResult:
     """Advance the population by up to ``max_rounds`` rounds through the
-    fused-round kernel (direct branch of ``mcrat_tpu.transport.
-    transport_rounds_fused``).
+    fused-round kernel (``mcrat_tpu.transport.transport_rounds_fused``).
 
-    Between kernel calls the containing cells are re-resolved
-    (``find_cell_direct``) for all lanes; the kernel stalls a lane that
-    leaves its cell.  A scatter uses the pre-move cell's properties, photons
-    outside the grid advance on the default mean free path, pool photons
-    scatter in place and are promoted to COMPTONIZED.
+    Between kernel calls the containing cells are re-resolved; the kernel
+    stalls a lane that leaves its cell.  A scatter uses the pre-move cell's
+    properties, photons outside the grid advance on the default mean free
+    path, pool photons scatter in place and are promoted to COMPTONIZED.
+
+    Two branches, as JAX's glue:
+
+    * direct (:class:`~mcrat_tpu_torch.grid.RectilinearIndex`): every call
+      looks every lane up (``find_cell_direct``); the active-first row
+      partition is redone only when the active-row count dropped by >= 1/8;
+    * carried (:class:`~mcrat_tpu_torch.grid.BinnedIndex`, AMR): each lane
+      carries its cell, ``find_cell_rows`` re-resolves only the lanes that
+      left it, before every call and once at the end; the partition runs
+      before every call (the leading blocks active, ``block_act``), as
+      JAX's carried loop, so the counter stream meets the same lane
+      positions.  In TABLE mode the kernel reads per-lane aux planes
+      (:func:`aux_planes`, from the tables in ``KernelFlags.aux``) and
+      stalls a lane after it scatters as well.
 
     The lanes live in (16, Npad) float32 planes (``fused_round.SP_*``), Npad
     a multiple of ``s_rows * 128``, in the JAX (R, 128) C order; the kernel
@@ -556,6 +616,8 @@ def transport_rounds_fused(
         raise NotImplementedError(reason)
     if photons.p.dtype != torch.float32:
         raise NotImplementedError("float64 transport: " + ROADMAP_ITEMS["xla"])
+    variant, table, kflags = setup
+    carried = isinstance(index, BinnedIndex)
     dev = photons.device
     cap = photons.capacity
     round_cap = max_rounds if max_rounds > 0 else cfg.max_rounds_per_frame
@@ -567,42 +629,54 @@ def transport_rounds_fused(
     n_blocks = r_pad // s_rows
     promoted_any = torch.zeros(n_pad, dtype=torch.bool, device=dev)
     row_iota = torch.arange(r_pad, device=dev)
+    block_iota = torch.arange(n_blocks, device=dev)
     orig = row_iota.clone()  # row -> original row, across partitions
     ns0 = state[fr.SP_NS].to(torch.int64).sum()
     grid = grid_scalars(frame, index)
-    variant, table, kflags = setup
     n_cell = frame.num_elements
+    cell = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+    cell[:cap] = photons.cell
 
     def rows(x):
         return x.view(-1, r_pad, lanes)
+
+    def pos(state):
+        return state[fr.SP_X: fr.SP_Z + 1].T
 
     rounds, n_last = 0, r_pad
     while rounds < round_cap:
         act_row = (alive & (state[fr.SP_TREM] > 0)).view(r_pad, lanes).any(dim=1)
         # the loop test is one host sync per kernel call (eager PyTorch has
-        # no device-side while loop); it also feeds the repartition rule
+        # no device-side while loop); it also feeds the partition
         n_act = int(act_row.sum())
         if n_act == 0:
             break
-        if n_act * 8 < n_last * 7:
-            # stable active-first permutation of 128-lane rows, redone only
-            # when the active-row count dropped by >= 1/8: idle blocks are
-            # skipped in place through block_act in between
+        if carried or n_act * 8 < n_last * 7:
+            # stable active-first permutation of 128-lane rows; the direct
+            # branch redoes it only when the active-row count dropped by
+            # >= 1/8 and skips idle blocks in place through block_act between
             perm = torch.argsort((~act_row).to(torch.int8), stable=True)
             state = rows(state)[:, perm].reshape(fr.N_STATE, n_pad)
             alive, pool, promoted_any = (
                 rows(x)[0, perm].reshape(-1) for x in (alive, pool, promoted_any))
+            cell = rows(cell)[0, perm].reshape(-1)
             orig = orig[perm]
             act_row = row_iota < n_act
             n_last = n_act
-        block_act = act_row.view(n_blocks, s_rows).any(dim=1).to(torch.int32)
-        cell, in_grid = find_cell_direct(cfg, index, frame, state[fr.SP_X: fr.SP_Z + 1].T)
+        if carried:
+            block_act = (block_iota < -(-n_act // s_rows)).to(torch.int32)
+            cell, in_grid = find_cell_rows(cfg, index, frame, pos(state), cell)
+        else:
+            block_act = act_row.view(n_blocks, s_rows).any(dim=1).to(torch.int32)
+            cell, in_grid = find_cell_direct(cfg, index, frame, pos(state))
         safe = torch.clamp(cell, 0, n_cell - 1).to(torch.int32)
+        aux = (None if kflags.aux is None else
+               aux_planes(cfg, kflags.aux, frame, safe, state[fr.SP_C0]).contiguous())
         out = rounds_fn(
             state, safe, lane_flags(alive, pool, in_grid), table, block_act,
             fr.rng_seed_i32(base_seed + rounds * 7919), grid,
             stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=block_lanes,
-            variant=variant, cheb_base=kflags.cheb_base, nt=kflags.nt,
+            variant=variant, cheb_base=kflags.cheb_base, nt=kflags.nt, aux=aux,
         )
         promoted = (out & fr.OUT_PROMOTED) != 0
         pool = pool & ~promoted
@@ -615,7 +689,10 @@ def transport_rounds_fused(
     state = rows(state)[:, inv].reshape(fr.N_STATE, n_pad)
     promoted_any = rows(promoted_any)[0, inv].reshape(-1)
     # final cell sync for the photons that moved in the last kernel call
-    cell, _ = find_cell_direct(cfg, index, frame, state[fr.SP_X: fr.SP_Z + 1].T)
+    if carried:
+        cell, _ = find_cell_rows(cfg, index, frame, pos(state), rows(cell)[0, inv].reshape(-1))
+    else:
+        cell, _ = find_cell_direct(cfg, index, frame, pos(state))
 
     def unplane(lo, hi):
         return state[lo:hi, :cap].T.contiguous()

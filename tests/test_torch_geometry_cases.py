@@ -13,7 +13,9 @@ and returns both the JAX kernel's arguments (its own flags, cell rows and
 domain vector, as ``mcrat_tpu.transport.transport_rounds_fused`` builds
 them) and the port's (cell index, table, grid scalars).  In TABLE mode
 (``xsec``) both kernels get the port's float32 Chebyshev rows and, with
-nonthermal electrons, the same global subgroup-1 fit.
+nonthermal electrons, the same global subgroup-1 fit; with ``aux`` (the
+carried AMR path's K5) they get the packed rows and the port's aux planes
+(``transport.aux_planes``) instead.
 """
 import dataclasses
 
@@ -245,12 +247,14 @@ def to_port(cfg, host, edges, photons=None):
     return tframe, tidx, tph
 
 
-def lane_inputs(name, seed=7, gamma=2.0, temp=1e5, xsec=None, dist=None):
+def lane_inputs(name, seed=7, gamma=2.0, temp=1e5, xsec=None, dist=None, aux=False):
     """Kernel inputs of a variant's thinned frame: three logical blocks
     (block 1 an idle copy of block 0), every 7th live lane a CS pool photon.
     ``xsec`` (the port's table) runs TABLE mode, ``dist`` adds that
     nonthermal population (nonthermal density from the equipartition B
-    field, as bench.py:292).  Returns a dict with the numpy lane planes and
+    field, as bench.py:292); ``aux`` runs TABLE mode through aux planes, as
+    the carried AMR path does (the variant then comes from a BinnedIndex
+    over the frame's cells).  Returns a dict with the numpy lane planes and
     both packages' arguments."""
     cfg, host, edges, inj = frame_case(name, gamma, temp, thin=True)
     if xsec is not None:
@@ -314,11 +318,21 @@ def lane_inputs(name, seed=7, gamma=2.0, temp=1e5, xsec=None, dist=None):
         geom = dom
         kw["slim"] = var.source == "slim"
     tframe, tidx, _ = to_port(cfg, host, edges)
+    if aux:
+        tidx = tgrid.build_binned_index(convert.frame_from_numpy_fields(cfg, vars(host)),
+                                        device="cpu")
     tname, ttable, kflags = tt.select_variant(tcfg, tframe, tidx, xsec)
     assert tname == name, (tname, name)
     width = var.width
     np.testing.assert_array_equal(ttable.numpy()[:width], np.asarray(table, np.float32))
-    if xsec is not None:
+    aux_planes = None
+    if aux:
+        assert kflags.cheb_base == 0 and kflags.aux is xsec and ttable.shape[0] == width
+        assert (kflags.nt is not None) == bool(dist)
+        kw["nonthermal"] = bool(dist)
+        aux_planes = tt.aux_planes(tcfg, xsec, tframe, torch.from_numpy(safe),
+                                   torch.from_numpy(state[fr.SP_C0])).numpy()
+    elif xsec is not None:
         # the port's float32 Chebyshev rows (and subgroup-1 fit) go to both
         assert kflags.cheb_base == width and ttable.shape[0] == width + thx.CHEB_ROWS
         table = ttable.numpy()
@@ -329,18 +343,20 @@ def lane_inputs(name, seed=7, gamma=2.0, temp=1e5, xsec=None, dist=None):
     rows = np.ascontiguousarray(table[:, safe])
     return dict(cfg=cfg, state=state, alive=alive, pool=pool, safe=safe, flags=flags,
                 jflags=jflags, rows=rows, geom=geom, jax_kw=kw, table=ttable,
-                kflags=kflags, grid=tt.grid_scalars(tframe, tidx), variant=name)
+                kflags=kflags, grid=tt.grid_scalars(tframe, tidx), variant=name,
+                aux=aux_planes)
 
 
 def jax_kernel(d, block_act, seed, stokes_on, inner_rounds=2):
     """``pallas_round.fused_rounds`` in interpret mode on ``lane_inputs``."""
     nrow = d["rows"].shape[0]
+    aux = None if d["aux"] is None else jnp.asarray(d["aux"].reshape(2, -1, pr.LANES))
     res = pr.fused_rounds(
         d["cfg"], jnp.int32(seed), jnp.asarray(d["geom"]),
         jnp.asarray(d["state"].reshape(16, -1, pr.LANES)),
         jnp.asarray(d["rows"].reshape(nrow, -1, pr.LANES)),
         jnp.asarray(d["jflags"].reshape(1, -1, pr.LANES)),
-        block_act=jnp.asarray(block_act), stokes_on=stokes_on,
+        aux=aux, block_act=jnp.asarray(block_act), stokes_on=stokes_on,
         inner_rounds=inner_rounds, s_rows=S_ROWS, interpret=True, **d["jax_kw"])
     return np.asarray(res.state).reshape(16, -1), np.asarray(res.out_flags).reshape(-1)
 
@@ -352,7 +368,8 @@ def port_kernel(d, block_act, seed, stokes_on, inner_rounds=2):
                           d["table"], torch.from_numpy(block_act), seed, d["grid"],
                           stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=BLOCK,
                           variant=d["variant"], cheb_base=d["kflags"].cheb_base,
-                          nt=d["kflags"].nt)
+                          nt=d["kflags"].nt,
+                          aux=None if d["aux"] is None else torch.from_numpy(d["aux"]))
     return ts.numpy(), out.numpy()
 
 
@@ -362,14 +379,15 @@ STOKES = [fr.SP_Q, fr.SP_U, fr.SP_V]
 
 def check_twin_against_jax_kernel(variant, temp=1e5, stokes_on=True, seed=123456789,
                                   inner_rounds=2, min_stalled=100, xsec=None, dist=None,
-                                  min_scatt=500, frac_close=1.0, rtol_all=None):
+                                  min_scatt=500, frac_close=1.0, rtol_all=None, aux=False):
     """Hold the port's twin against JAX's interpret-mode kernel, lane for
     lane, on ``variant``'s frame (see the test modules' docstrings for the
     tolerances), in TABLE mode with ``xsec`` and with the nonthermal
-    population ``dist``.  With ``frac_close`` < 1 the non-Stokes planes need
-    rtol 1e-4 / atol 1e-6 on that fraction of the lanes that agree and
-    ``rtol_all`` on all of them.  Returns the port's out-flags."""
-    d = lane_inputs(variant, temp=temp, xsec=xsec, dist=dist)
+    population ``dist``, through aux planes with ``aux``.  With
+    ``frac_close`` < 1 the non-Stokes planes need rtol 1e-4 / atol 1e-6 on
+    that fraction of the lanes that agree and ``rtol_all`` on all of them.
+    Returns the port's out-flags."""
+    d = lane_inputs(variant, temp=temp, xsec=xsec, dist=dist, aux=aux)
     block_act = np.array([1, 0, 1], np.int32)
     js, jf = jax_kernel(d, block_act, seed, stokes_on, inner_rounds)
     calls = (fr.fused_rounds.launches, fr.fused_rounds_reference.launches)

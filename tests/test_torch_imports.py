@@ -46,8 +46,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
     import torch
 
     from mcrat_tpu_torch import DEFAULT_DEVICE, Config, Dims, Geometry, convert, transport
-    from mcrat_tpu_torch.grid import build_rectilinear_index
+    from mcrat_tpu_torch.grid import build_binned_index, build_rectilinear_index
     from mcrat_tpu_torch.grid import frame_from_numpy
+    from mcrat_tpu_torch.io.hydro import build_index
     from mcrat_tpu_torch.models.analytic import make_grid_2d
     from mcrat_tpu_torch.ops import hot_xsec
 
@@ -61,11 +62,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
     calls = [
         lambda: host.to_device(),
         lambda: build_rectilinear_index(*edges),
+        lambda: build_binned_index(host),
+        lambda: build_index(cfg, host),
         lambda: transport.empty_photons(4),
         lambda: transport.photons_from_arrays(arrays),
         lambda: hot_xsec.load_or_build(cfg),
         lambda: convert.photons_from_numpy(arrays),
         lambda: convert.index_from_edges(*edges),
+        lambda: convert.binned_index_from_numpy(np.zeros(4), np.zeros(1), np.full(1, 4),
+                                                np.zeros(3), np.ones(3), (1, 1, 1), 4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's main frames on one NVIDIA GPU.
 
-Profiles five frames of ``chip_smoke.py`` through ``transport_frame`` and the
-CUDA fused-round kernel (mcrat_tpu_torch), each as chip_smoke.py sets it up:
-the DIRECT flagship (160x512 cylindrical outflow, ~1M photons), the 2-D
+Profiles eight frames of ``chip_smoke.py`` through ``transport_frame`` and
+the CUDA fused-round kernel (mcrat_tpu_torch), each as chip_smoke.py sets it
+up: the DIRECT flagship (160x512 cylindrical outflow, ~1M photons), the 2-D
 spherical default frame (384x64 log-r grid), the 3-D cartesian frame (64^3),
-the TABLE frame (the flagship grid at T' = 5e8 K, bench.py:265-276) and the
-nonthermal frame (bench.py:278-294).  For each, after one warm-up frame:
+the TABLE frame (the flagship grid at T' = 5e8 K, bench.py:265-276), the
+nonthermal frame (bench.py:278-294) and the three AMR frames (the flagship
+outflow on 167,936 FLASH-block cells, BinnedIndex: DIRECT, TABLE and
+nonthermal, the carried path with aux planes).  For each, after one warm-up
+frame:
 
   wall_ms              five frames, host clock around a synchronized
                        transport_frame (seeds 1-5);
@@ -50,7 +53,10 @@ FRAMES = {"flagship": ("flagship", "direct", 0, False),
           "spherical": ("spherical", "direct", 0, False),
           "cartesian_3d": ("cartesian_3d", "direct", 0, False),
           "table": ("flagship", "table", 2, True),
-          "nonthermal": ("flagship", "nt", 3, True)}
+          "nonthermal": ("flagship", "nt", 3, True),
+          "amr": ("amr_cyl2", "direct", 0, False),
+          "amr_table": ("amr_cyl2", "aux", 2, True),
+          "amr_nonthermal": ("amr_cyl2", "aux_nt", 3, True)}
 
 
 def smi() -> str:
