@@ -10,8 +10,12 @@ off) -- and checks them:
 
   0. device: nvidia-smi name/power limit, torch, CUDA and nvcc versions;
      exits non-zero without a CUDA device;
-  1. build: compiles csrc/fused_round.cu with one nvcc (wall time, ptxas
-     report); the hot cross-section tables built (or loaded) into
+  1. build: compiles csrc/fused_round.cu as six translation units by
+     concurrent nvcc processes (wall time); each instantiation's block,
+     registers, local memory and shared memory as the loaded library
+     reports them, its block and layout held to fused_round.cuda_block and
+     layout_floats; the hot cross-section tables
+     built (or loaded) into
      build/xsec/, timed;
      the kernel's Klein-Nishina cross section against float64 (fault F6);
   2. kernel vs its plain twin on the card, for every instantiation, on real
@@ -34,11 +38,22 @@ off) -- and checks them:
      aux planes (K5: TABLE and the power law through a BinnedIndex over the
      cells, TABLE spread temperatures) on the seven frames of packed
      variants; then the three AMR main paths' own frames (6b.).
+     Then the kernel's block-local scatter queue at its edges (edge_call),
+     on the lead instantiations' main frames (packed_cyl2+cheb+nt,
+     packed_cyl2+aux+nt) and the flagship's (ultra_cyl2), Stokes on and
+     off: CUDA blocks with 0, 1, 31, 32, 33, all and 100 of their lanes
+     accepted in round 0 (pool lanes among the last), a block whose lanes
+     all stall in round 0, an idle logical block between active ones.
      NS, out-flags and every state plane must be identical.  Each timed
-     instantiation gets its bound: the larger of the bytes one call must
-     move over 3.35 TB/s and its float operations (counted from the
-     kernel source, at the twin's tally of this call's rounds, scatter
-     attempts and rejection trials) over 67 TFLOP/s;
+     instantiation (device time of each launch alone, CUDA events, kernel_ms)
+     gets its bound (bound()): the largest of the bytes one call must move
+     over 3.35 TB/s and its work on each pipe (counted from the kernel
+     source, at the twin's tally of this call's rounds, attempts, draws and
+     rejection trials; the math functions at their instructions,
+     tools/sass_counts.py): float32 over 67 TFLOP/s, the counter hash over
+     the INT32 rate, MUFU instructions over the SFU rate, the double KN form
+     over the FP64 rate; and the twin's warp tally (warps a branch runs with
+     one thread a lane, and packed);
   3. the flagship path -- the 2-D cylindrical Gamma=100 outflow, 160x512
      uniform grid, ~1M photons, 64-round chunks with compaction: one warm-up
      + median of 3 transport_frame runs, with the kernel's launch count (the
@@ -70,7 +85,9 @@ off) -- and checks them:
      with Stokes off, with the frame checks (the aux cases through
      transport_frame on their BinnedIndex: the carried path on every
      geometry);
-  8. prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
+  8. prints the kernels' JSON line (with each instantiation's block,
+     registers, local memory a thread -- spills and stack, as the CUDA
+     runtime reports them -- and shared memory), then {"ok": true, "device": {...}} last.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  An instantiation's ``launches`` in the kernels' line are those of
@@ -118,6 +135,34 @@ def timed(fn, device):
     if device.type == "cuda":
         torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0)
+
+
+# cycles of the spin kernel that holds the stream while the host queues the
+# timed launches: ~10 ms at the H100's 1.98 GHz
+SPIN_CYCLES = 20_000_000
+
+
+def kernel_ms(call, launch, k=20):
+    """Device ms of each of ``k`` launches ``launch(state)`` (one kernel
+    launch on the current stream) on ``call``'s lanes: a CUDA event pair
+    around each launch alone, the state restored from ``call.state``
+    between launches outside the pairs.  A spin kernel holds the stream
+    while the host queues all of them, so no host launch latency falls
+    inside a pair.  On the CPU, the host clock of each call."""
+    s = call.state.clone()
+    if s.device.type != "cuda":
+        return [timed(lambda: (s.copy_(call.state), launch(s)), s.device) for _ in range(k)]
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(k)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    for a, b in ev:
+        s.copy_(call.state)
+        a.record()
+        launch(s)
+        b.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in ev]
 
 
 def make_grid_3d(e0, e1, e2) -> dict:
@@ -333,16 +378,16 @@ def problem(name, device, n_min, n_max, seed=0, hot=False, mode="direct", tables
     return Problem(cfg, photons, frame, index, xsec, PATHS[name][0])
 
 
-# Float operations of the kernel (csrc/fused_round.cu), counted from its
-# source: each +, -, *, /, sqrt, rsqrt, min, max and each transcendental
-# (logf, expf, sinf, cosf) one operation, the double Klein-Nishina form two
-# per double operation; selects, compares and the integer counter hash not
-# counted.  Per unit of the twin's tally (fused_round.WORK_KEYS):
+# Work of the kernel (csrc/fused_round.cu) per unit of the twin's tally
+# (fused_round.WORK_KEYS), counted by hand from its source, on each pipe.
+# FP32: each +, -, *, /, sqrt, rsqrt, min, max and each call of a math
+# function one operation; selects, compares and the counter hash not
+# counted.
 OPS = dict(
     lane_round=41,  # cos(beta, p) 20, rate 3, free path + move 18, per round
     in_grid_round=37,  # the comoving boost
-    attempt=147,  # electron direction 57, rest-frame boost + axes 50, sigma_KN 40
-    attempt_stokes=207,  # + three Stokes rotations (69 each) in the attempt
+    attempt=107,  # electron direction 57, rest-frame boost + axes 50
+    attempt_stokes=167,  # + three Stokes rotations (20 each) in the attempt
     mb=22,  # Maxwell-Boltzmann speed draw (+ theta)
     mj_trial=27,  # one Maxwell-Juttner trial
     nt_draw=30,  # population draw and inverse-CDF gamma (power law)
@@ -356,32 +401,167 @@ OPS = dict(
 )
 # per round: fluid velocity at the photon and the post-move membership test
 OPS_GEO = dict(cyl2=(8, 12), sph2=(14, 20), cart3=(0, 12), sph3=(0, 32), pol3=(0, 24))
+# The math functions' instructions on their common path, as nvcc 12.9
+# compiles them for sm_90a with the kernel's flags (tools/sass_counts.py, its
+# listing from the H100 machine): (SFU instructions, FP32 operations: FFMA
+# two, FADD and FMUL one, FP64 instructions) of one call; sincos is sinf and
+# cosf of one argument, which share their range reduction.
+MATH = dict(sqrt=(1, 6, 0), rsqrt=(1, 2, 0), div=(1, 10, 0), exp=(1, 10, 0), log=(0, 27, 0),
+            cos=(0, 20, 0), sincos=(0, 33, 0), log1p64=(1, 2, 22), div64=(1, 2, 8))
+# the calls of each function per unit of the tally, counted from the source
+# (the CHEB families' log of an energy above the knee is not counted: its
+# lanes are not tallied)
+CALLS = dict(
+    lane_round=dict(sqrt=2, div=3, log=1),
+    in_grid_round=dict(rsqrt=1, sqrt=1, div=2),
+    attempt=dict(div=8, sqrt=5, rsqrt=1, sincos=1),
+    attempt_stokes=dict(div=8, sqrt=8, rsqrt=4, sincos=1),
+    mb=dict(cos=1, log=2, rsqrt=1, sqrt=1),
+    mj_trial=dict(log=1, sqrt=1),
+    nt_draw=dict(exp=3, log=1, sqrt=1, div=1),
+    scatter=dict(sqrt=5, div=9, rsqrt=3),
+    scatter_stokes=dict(sqrt=10, div=15, rsqrt=7),
+    theta_trial=dict(div=2),
+    phi_trial={},
+    phi_trial_stokes=dict(div=3),
+    cheb=dict(exp=1),
+    cheb_nt=dict(exp=2, div=1),
+)
+CALLS_GEO = dict(cyl2=(dict(sqrt=1, div=2), dict(sqrt=1)),
+                 sph2=(dict(sqrt=1, div=2), dict(sqrt=2, div=1)), cart3=({}, {}),
+                 sph3=({}, dict(sqrt=3, div=3)), pol3=({}, dict(sqrt=2, div=2)))
+# INT32: the counter hash, 12 integer operations a uniform (ops/rng.py,
+# fused_round.cu uniform: multiply-add of the draw number, three
+# shift-xors, two multiplies, shift-or), times the uniforms each unit draws
+INT_OPS_PER_UNIFORM = 12
+UNIFORMS = dict(lane_round=1, attempt=3, attempt_nt=4, mb=3, mj_trial=5, nt_draw=1,
+                theta_trial=2, phi_trial=2)
+# FP64: the Klein-Nishina closed form (F6) on attempts at e >= 1e-3
+# (kn_double): 12 operations (fmax, the common 2 se and 1 + se, four
+# products, three sums, the 0.75 scale), four divisions and a log1p
+KN_F64_OPS, KN_F64_CALLS = 12, dict(div64=4, log1p64=1)
+# per-SM results a clock for compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instructions) x 132 SMs x 1.98 GHz (H100 SXM boost)
+SM_RATE = 132 * 1.98e9
+PEAK_INT32_S = 64 * SM_RATE  # 32-bit integer add, multiply, shift, logic
+PEAK_SFU_S = 16 * SM_RATE  # reciprocal, rsqrt, log2, exp2, sine, cosine
+PEAK_F64_S = 64 * SM_RATE  # 64-bit floating-point add, multiply
 
 
-def bound(inst, var, n_lanes, run_lanes, n_cells, table_rows, work, stokes_on):
-    """(bound_ms, bound_by) of one call: the larger of the bytes it must move
-    (flags and out-flags of every lane; state read and written, cell index
-    and, for aux families, the two aux planes of each lane that runs; the
-    rows of each distinct cell those lanes reference, once) over the HBM
-    rate, and of its float operations (OPS at the twin's tally of this
-    call) over the float32 rate."""
-    aux = "+aux" in inst
-    nbytes = (n_lanes * (4 + 4) + run_lanes * (2 * 64 + 4 + (8 if aux else 0))
-              + n_cells * table_rows * 4)
-    w = work
+def table_rows_read(variant, tau):
+    """Rows of the cell table the kernel reads for each cell a running lane
+    holds (fused_round.cu Cell::load): the ultra and slim tables whole; of
+    the packed rows, the fluid (gamma, temperature, v0, v1, v2 where it has
+    a phi-hat or 3-D velocity), the density (not in the AUX families, which
+    take it from their plane), the nonthermal density (CHEB_NT), the cell's
+    centre and size and its angular sines and cosines; in CHEB families 16
+    Chebyshev rows (the knee and the coefficients)."""
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    var = fr.VARIANTS[variant]
+    cheb = (3 + fr.CHEB_DLO + fr.CHEB_DHI) if tau in (fr.TAU_CHEB, fr.TAU_CHEB_NT) else 0
+    if var.source != "packed":
+        return var.width + cheb
+    d3 = var.geom in ("cart3", "sph3", "pol3")
+    return (4 + (tau not in (fr.TAU_AUX, fr.TAU_AUX_NT)) + (var.v2 or d3)
+            + (tau == fr.TAU_CHEB_NT) + 4 + 2 * d3 + 2 * (var.geom in ("sph2", "sph3", "pol3"))
+            + 2 * (var.geom == "sph3") + cheb)
+
+
+def bound(inst, variant, n_lanes, run_lanes, n_cells, work, stokes_on):
+    """(bound_ms, bound_by, pipe) of one call: the largest of the times the
+    card needs for the bytes it must move (flags and out-flags of every
+    lane; state read and written, cell index and the aux planes an AUX
+    family reads of each lane that runs; the rows the kernel reads of each
+    distinct cell those lanes hold, once) over the HBM rate, and for its
+    work on each pipe at the twin's tally of this call: float32 operations
+    (OPS, each math function at its instructions) over the float32 rate,
+    the counter hash's integer operations over the INT32 rate, the math
+    functions' MUFU instructions over the SFU rate and the double KN form
+    over the FP64 rate.  ``bound_by`` is "bytes" or "operations", ``pipe``
+    the one that binds (bytes, fp32, int32, sfu, fp64)."""
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    var = fr.VARIANTS[variant]
+    nt = "+nt" in inst
+    tau = (fr.TAU_AUX_NT if nt else fr.TAU_AUX) if "+aux" in inst else (
+        (fr.TAU_CHEB_NT if nt else fr.TAU_CHEB) if "+cheb" in inst else fr.TAU_DIRECT)
+    aux_bytes = {fr.TAU_AUX: 4, fr.TAU_AUX_NT: 8}.get(tau, 0)
+    nbytes = (n_lanes * (4 + 4) + run_lanes * (2 * 64 + 4 + aux_bytes)
+              + n_cells * table_rows_read(variant, tau) * 4)
+    w = {k: work.get(k, 0.0) for k in (
+        "lane_rounds", "in_grid_rounds", "attempts", "mb", "mj_trials", "nt_draws", "scatters",
+        "theta_trials", "phi_trials", "kn_double")}
+    st = "_stokes" if stokes_on else ""
+    cheb = ("cheb_nt" if nt else "cheb") if "+cheb" in inst else None
+    # (tally key, unit) pairs; a lane round also runs the geometry's fluid
+    # and membership code and, in CHEB families, the Chebyshev sigma
+    units = [("in_grid_rounds", "in_grid_round"), ("attempts", "attempt" + st), ("mb", "mb"),
+             ("mj_trials", "mj_trial"), ("nt_draws", "nt_draw"), ("scatters", "scatter" + st),
+             ("theta_trials", "theta_trial"), ("phi_trials", "phi_trial" + st)]
+    per_round = ["lane_round"] + ([cheb] if cheb else [])
+
     fluid, member = OPS_GEO[var.geom]
-    ops = (w.get("lane_rounds", 0.0) * (OPS["lane_round"] + fluid + member + (2 if var.v2 else 0))
-           + w.get("in_grid_rounds", 0.0) * OPS["in_grid_round"]
-           + w.get("attempts", 0.0) * OPS["attempt_stokes" if stokes_on else "attempt"]
-           + w.get("mb", 0.0) * OPS["mb"] + w.get("mj_trials", 0.0) * OPS["mj_trial"]
-           + w.get("nt_draws", 0.0) * OPS["nt_draw"]
-           + w.get("scatters", 0.0) * OPS["scatter_stokes" if stokes_on else "scatter"]
-           + w.get("theta_trials", 0.0) * OPS["theta_trial"]
-           + w.get("phi_trials", 0.0) * OPS["phi_trial_stokes" if stokes_on else "phi_trial"])
-    if "+cheb" in inst:
-        ops += w.get("lane_rounds", 0.0) * OPS["cheb_nt" if "+nt" in inst else "cheb"]
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    fp32 = (w["lane_rounds"] * (sum(OPS[u] for u in per_round) + fluid + member
+                                + (2 if var.v2 else 0))
+            + sum(w[k] * OPS[u] for k, u in units))
+    calls = collections.Counter()
+    for k, parts in (("lane_rounds", [CALLS[u] for u in per_round] + list(CALLS_GEO[var.geom])),
+                     *((k, [CALLS[u]]) for k, u in units), ("kn_double", [KN_F64_CALLS])):
+        for part in parts:
+            for f, n in part.items():
+                calls[f] += w[k] * n
+    # each call at its instructions, in place of the operations OPS counts
+    # for it (one; sinf and cosf two; the KN form's double calls none)
+    fp32 += sum(n * (MATH[f][1] - {"sincos": 2, "log1p64": 0, "div64": 0}.get(f, 1))
+                for f, n in calls.items())
+    sfu = sum(n * MATH[f][0] for f, n in calls.items())
+    fp64 = w["kn_double"] * KN_F64_OPS + sum(n * MATH[f][2] for f, n in calls.items())
+    uniforms = (w["lane_rounds"] * UNIFORMS["lane_round"]
+                + w["attempts"] * UNIFORMS["attempt_nt" if nt else "attempt"]
+                + w["mb"] * UNIFORMS["mb"] + w["mj_trials"] * UNIFORMS["mj_trial"]
+                + w["nt_draws"] * UNIFORMS["nt_draw"]
+                + w["theta_trials"] * UNIFORMS["theta_trial"]
+                + w["phi_trials"] * UNIFORMS["phi_trial"])
+    times = dict(bytes=nbytes / PEAK_BYTES_S, fp32=fp32 / PEAK_F32_S,
+                 int32=uniforms * INT_OPS_PER_UNIFORM / PEAK_INT32_S, sfu=sfu / PEAK_SFU_S,
+                 fp64=fp64 / PEAK_F64_S)
+    pipe = max(times, key=times.get)
+    return 1e3 * times[pipe], ("bytes" if pipe == "bytes" else "operations"), pipe
+
+
+def library_resources(lib):
+    """Each instantiation's launch shape and resources as the loaded library
+    reports them (fused_round.kernel_attributes), printed; fails unless its
+    block is fused_round.cuda_block's and its dynamic shared memory that
+    block's fused_round.layout_floats columns."""
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    out = {}
+    for name, variant, tau, stokes_on in fr.instantiation_specs():
+        r = out[name] = fr.kernel_attributes(lib, variant, tau, stokes_on)
+        threads = fr.cuda_block(variant, tau, stokes_on)
+        print(f"[build] {name}: {r['threads']} threads a block, {r['registers']} registers, "
+              f"{r['local_bytes']} B local memory a thread, shared memory {r['dyn_smem']} B + "
+              f"{r['static_smem']} B static a block", flush=True)
+        if (r["threads"], r["dyn_smem"]) != (threads, 4 * threads * fr.layout_floats(variant, tau)):
+            raise RuntimeError(f"{name}: the library's block or shared memory differs from "
+                               f"fused_round.cuda_block / layout_floats")
+    return out
+
+
+def warp_line(work):
+    """The twin's warp tally of one call, branch by branch: warps that run
+    it with one thread a lane (any lane), warps once each CUDA block packs
+    its lanes (dense), and the lanes that take it."""
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    parts = []
+    for b in fr.WARP_BRANCHES:
+        a, d = work.get(f"warps_any_{b}", 0.0), work.get(f"warps_dense_{b}", 0.0)
+        parts.append(f"{b} any {a:.0f} dense {d:.0f} ({a / max(d, 1.0):.2f}x, "
+                     f"{work.get(b, 0.0):.0f} lanes)")
+    return "; ".join(parts)
 
 
 def lane_cells(prob, state):
@@ -399,28 +579,48 @@ def lane_cells(prob, state):
     return find_cell_direct(prob.cfg, prob.index, prob.frame, pos)
 
 
-def kernel_vs_twin(name, prob, stokes_on, idle_block=None, pool_lanes=False, time_it=False,
-                   s_rows=128, seed=20240917):
-    """One fused_rounds call (inner_rounds=4) over every lane, kernel and
-    twin on the same inputs (aux planes from transport.aux_planes where the
-    frame's path takes them); ``pool_lanes`` marks every 7th live lane as a
-    CS pool photon.  Fails unless NS, out-flags and every state plane are
-    identical.  Returns (instantiation, max_abs_err, kernel ms, twin ms,
-    (bound ms, bound by))."""
+@dataclasses.dataclass
+class Call:
+    """The inputs of one fused_rounds call over every lane of a frame."""
+    inst: str  # its instantiation
+    state: torch.Tensor  # (16, Npad), left untouched: each call runs on a clone
+    alive: torch.Tensor
+    args: tuple  # (cell, flags, table, block_act, seed, grid)
+    kw: dict  # stokes_on, inner_rounds, block_lanes, variant, cheb_base, nt, aux
+
+    def run(self, fn, state=None):
+        """``fn`` (fused_rounds, fused_rounds_reference, or a launch through
+        another build) on a clone of the state: (state after, out-flags)."""
+        s = self.state.clone() if state is None else state
+        return s, fn(s, *self.args, **self.kw)
+
+
+def call_inputs(prob, stokes_on, idle_block=None, pool_lanes=False, s_rows=128,
+                seed=20240917, state=None, cell=None, flags=None, block_act=None):
+    """The :class:`Call` of one fused_rounds call (inner_rounds=4) over every
+    lane of ``prob``, as the frame's glue sets it up (aux planes from
+    transport.aux_planes where the frame's path takes them);
+    ``pool_lanes`` marks every 7th live lane as a CS pool photon.  ``state``,
+    ``cell``, ``flags`` and ``block_act`` replace the frame's own (lane
+    masks made on the host)."""
     from mcrat_tpu_torch import transport
     from mcrat_tpu_torch.ops import fused_round as fr
 
     cfg, photons, frame, index = prob.cfg, prob.photons, prob.frame, prob.index
     device = photons.device
     t_rem = transport.frame_time(photons, 0.2)
-    state, alive, pool = transport.lane_planes(photons, t_rem, s_rows)
+    st, alive, pool = transport.lane_planes(photons, t_rem, s_rows)
     if pool_lanes:
         pool = alive & (torch.arange(alive.numel(), device=device) % 7 == 3)
-    cell, in_grid = lane_cells(prob, state)
-    safe = torch.clamp(cell, 0, frame.num_elements - 1).to(torch.int32)
-    flags = transport.lane_flags(alive, pool, in_grid)
+    state = st if state is None else state
+    if cell is None:
+        cell, in_grid = lane_cells(prob, state)
+        cell = torch.clamp(cell, 0, frame.num_elements - 1).to(torch.int32)
+        flags = transport.lane_flags(alive, pool, in_grid)
+    alive = (flags & fr.FLAG_ALIVE) != 0
     block_lanes = s_rows * fr.LANES
-    block_act = torch.ones(state.shape[1] // block_lanes, dtype=torch.int32, device=device)
+    if block_act is None:
+        block_act = torch.ones(state.shape[1] // block_lanes, dtype=torch.int32, device=device)
     if idle_block is not None:
         block_act[idle_block] = 0
     grid = transport.grid_scalars(frame, index)
@@ -428,14 +628,103 @@ def kernel_vs_twin(name, prob, stokes_on, idle_block=None, pool_lanes=False, tim
     inst = fr.instantiation(variant, kflags.cheb_base, kflags.nt, stokes_on,
                             kflags.aux is not None)
     aux = (None if kflags.aux is None else
-           transport.aux_planes(cfg, kflags.aux, frame, safe, state[fr.SP_C0]).contiguous())
-    args = (safe, flags, table, block_act, seed, grid)
+           transport.aux_planes(cfg, kflags.aux, frame, cell, state[fr.SP_C0]).contiguous())
     kw = dict(stokes_on=stokes_on, inner_rounds=4, block_lanes=block_lanes, variant=variant,
               cheb_base=kflags.cheb_base, nt=kflags.nt, aux=aux)
-    sk, st = state.clone(), state.clone()
-    ok_ = fr.fused_rounds(sk, *args, **kw)
+    return Call(inst, state, alive, (cell, flags, table, block_act, seed, grid), kw)
+
+
+# the compaction edge cases (edge_call): in CUDA blocks 0-6 of logical block
+# 0, the lanes the Klein-Nishina draw accepts in round 0 (None: every lane;
+# block 6 also marks every third of its accepted lanes as a pool photon);
+# block 7's lanes all stall in round 0; logical block 1 is idle
+EDGE_ACCEPTS = (0, 1, 31, 32, 33, None, 100)
+
+
+def edge_call(prob, stokes_on, seed=11):
+    """A :class:`Call` of four logical blocks of ``prob``'s lanes, the first
+    rebuilt on the host (seeded) for the edge cases of the kernel's
+    block-local scatter queue (EDGE_ACCEPTS).  A lane meant to scatter takes
+    an alive in-grid lane's state with its momenta scaled by 1e-10 (its
+    electron-frame energy is then far below 2^-26, so sigma_KN rounds to 1
+    and every acceptance draw passes) and 1e3 s of frame time; the others
+    of those blocks attempt nothing in round 0 (dead, outside the grid, or
+    without time).  Block 7's lanes carry 1e3 s and a cell that does not
+    hold them.  The twin's round 0 is held to the plan before the call is
+    returned."""
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    base = call_inputs(prob, stokes_on)
+    kw = base.kw
+    L = kw["block_lanes"]
+    tau = fr.tau_family(kw["cheb_base"], kw["nt"], kw["aux"] is not None)
+    B = fr.cuda_block(kw["variant"], tau, stokes_on)
+    dev = base.state.device
+    n, ncell = 4 * L, base.args[2].shape[1]
+    state, cell, flags = base.state[:, :n].clone(), base.args[0][:n].clone(), base.args[1][:n].clone()
+    rs = np.random.default_rng(seed)
+    ok = ((base.args[1] & fr.FLAG_ALIVE) != 0) & ((base.args[1] & fr.FLAG_INGRID) != 0)
+    donors = torch.nonzero(ok).flatten().cpu().numpy()
+
+    def put(lanes, scale, pool=(), far=False):
+        dst = torch.as_tensor(lanes, device=dev)
+        src = torch.as_tensor(rs.choice(donors, len(lanes)), device=dev)
+        state[:, dst] = base.state[:, src]
+        for p in (*range(fr.SP_P0, fr.SP_P3 + 1), *range(fr.SP_C0, fr.SP_C3 + 1)):
+            state[p, dst] *= scale
+        state[fr.SP_TREM, dst] = 1e3
+        cell[dst] = (base.args[0][src] + (ncell // 2 if far else 0)) % ncell
+        fl = torch.full((len(lanes),), fr.FLAG_ALIVE | fr.FLAG_INGRID, dtype=torch.int32,
+                        device=dev)
+        fl[list(pool)] |= fr.FLAG_POOL
+        flags[dst] = fl
+
+    want = []
+    for b, k in enumerate(EDGE_ACCEPTS):
+        lanes = np.arange(b * B, (b + 1) * B)
+        k = B if k is None else k
+        acc = np.sort(rs.choice(lanes, k, replace=False))
+        rest = torch.as_tensor(np.setdiff1d(lanes, acc), device=dev)
+        if k:
+            put(acc, 1e-10, pool=range(0, k, 3) if b == 6 else ())
+        # the rest: dead, alive outside the grid, alive in the grid with no time
+        kind = torch.arange(rest.numel(), device=dev) % 3
+        flags[rest] = torch.where(kind == 0, 0, torch.where(
+            kind == 1, fr.FLAG_ALIVE, fr.FLAG_ALIVE | fr.FLAG_INGRID)).to(torch.int32)
+        state[fr.SP_TREM, rest[kind == 2]] = 1e-30
+        want.append(k)
+    put(np.arange(7 * B, 8 * B), 1.0, far=True)
+    block_act = torch.tensor([1, 0, 1, 1], dtype=torch.int32, device=dev)
+    call = call_inputs(prob, stokes_on, state=state, cell=cell, flags=flags, block_act=block_act)
+
+    one = dataclasses.replace(call, kw={**call.kw, "inner_rounds": 1})
+    st, out = one.run(fr.fused_rounds_reference)
+    got = ((st[fr.SP_NS] - state[fr.SP_NS])[:7 * B].view(7, B) > 0).sum(1).tolist()
+    stalled = int(((out[7 * B:8 * B] & fr.OUT_STALLED) != 0).sum())
+    promoted = int(((out[6 * B:7 * B] & fr.OUT_PROMOTED) != 0).sum())
+    if got != want or stalled != B or promoted != len(range(0, 100, 3)):
+        raise RuntimeError(f"edge cases off plan: accepted {got} (want {want}), stalled "
+                           f"{stalled} of {B}, promoted {promoted}")
+    return call
+
+
+def kernel_vs_twin(name, prob, stokes_on, idle_block=None, pool_lanes=False, time_it=False,
+                   call=None):
+    """One fused_rounds call (inner_rounds=4) over every lane, kernel and
+    twin on the same inputs (``call``, else :func:`call_inputs` of
+    ``prob``).  Fails unless NS, out-flags and every state plane are
+    identical.  Returns (instantiation, max_abs_err, kernel ms, twin ms,
+    (bound ms, bound by), the twin's work tally)."""
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    c = call or call_inputs(prob, stokes_on, idle_block, pool_lanes)
+    inst, state, alive = c.inst, c.state, c.alive
+    safe, _, _, block_act, _, _ = c.args
+    block_lanes, variant = c.kw["block_lanes"], c.kw["variant"]
+    device = state.device
+    sk, ok_ = c.run(fr.fused_rounds)
     fr.fused_rounds_reference.work = collections.Counter()
-    ot_ = fr.fused_rounds_reference(st, *args, **kw)
+    st, ot_ = c.run(fr.fused_rounds_reference)
     work = {k: float(v) for k, v in fr.fused_rounds_reference.work.items()}
     fr.fused_rounds_reference.work = None
     lane_on = torch.repeat_interleave(block_act != 0, block_lanes)
@@ -456,21 +745,27 @@ def kernel_vs_twin(name, prob, stokes_on, idle_block=None, pool_lanes=False, tim
         raise RuntimeError(f"kernel disagrees with its twin ({name}, {inst})")
     k_ms = t_ms = bnd = None
     if time_it:
-        def run(fn):
+        def twin():  # host ms of one twin call on a fresh clone of the state
             s = state.clone()
-            return lambda: fn(s, *args, **kw)
-        for fn in (fr.fused_rounds, fr.fused_rounds_reference):
-            run(fn)()  # warm-up
-        k_ms = float(np.median([timed(run(fr.fused_rounds), device) for _ in range(5)]))
-        t_ms = float(np.median([timed(run(fr.fused_rounds_reference), device) for _ in range(5)]))
+            return timed(lambda: c.run(fr.fused_rounds_reference, s), device)
+
+        def kernel(s):
+            fr.fused_rounds(s, *c.args, **c.kw)
+
+        kernel_ms(c, kernel, 3)  # warm-up
+        twin()
+        k_ms = float(np.median(kernel_ms(c, kernel)))
+        t_ms = float(np.median([twin() for _ in range(5)]))
         runs = live & (state[fr.SP_TREM] > 0)
         n_cells = int(torch.unique(safe[runs]).numel())
-        bnd = bound(inst, fr.VARIANTS[variant], state.shape[1], int(runs.sum()), n_cells,
-                    table.shape[0], work, stokes_on)
+        bnd = bound(inst, variant, state.shape[1], int(runs.sum()), n_cells, work,
+                    c.kw["stokes_on"])
         print(f"[kernel-vs-twin] {name} ({inst}): one fused_rounds call ({state.shape[1]} lanes, "
-              f"4 rounds): kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms (median of 5); bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]}; work {work})", flush=True)
-    return inst, max_abs, k_ms, t_ms, bnd
+              f"4 rounds): kernel {k_ms:.4f} ms (device, median of 20 launches), twin {t_ms:.3f} "
+              f"ms (host clock, median of 5); bound {bnd[0]:.4f} ms ({bnd[2]}; work {work})",
+              flush=True)
+        print(f"[warps] {name} ({inst}): {warp_line(work)}", flush=True)
+    return inst, max_abs, k_ms, t_ms, bnd, work
 
 
 def run_frame(prob, seed, rounds_fn, dt_max=0.2, stokes_on=True):
@@ -722,26 +1017,13 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
     from mcrat_tpu_torch.ops import fused_round as fr
 
     # 1. build, tables, F6
+    resources = {}  # instantiation -> threads, registers, local memory, shared memory
     if device.type == "cuda":
         print(f"[build] {sh([_build.find_nvcc(), '--version']).splitlines()[-1]}", flush=True)
         info = _build.build()
-        print(f"[build] {info['path'].name}: built={info['built']}, one nvcc over "
+        print(f"[build] {info['path'].name}: built={info['built']}, six concurrent nvcc over "
               f"{len(fr.instantiations())} instantiations: {info['seconds']:.2f} s", flush=True)
-        # one line per instantiation: <STOKES, GEO, SRC, V2, TAU>, registers, spills
-        entry = spill = None
-        for line in info["log"].splitlines():
-            if "entry function" in line:
-                m = re.search(r"fused_rounds_kernelILb(\d)ELi(\d+)ELi(\d)ELb(\d)ELi(\d)E", line)
-                entry = ("<stokes %s, geo %s, src %s, v2 %s, tau %s>" % m.groups()
-                         if m else line.strip())
-            elif "spill" in line:
-                spill = line.strip()
-            elif "registers" in line and entry:
-                regs = re.search(r"Used (\d+) registers", line)
-                print(f"[build] ptxas {entry}: {regs.group(1) if regs else '?'} registers, "
-                      f"{spill}", flush=True)
-                entry = None
-        _build.load_fused_round()
+        resources = library_resources(_build.load_fused_round())
     tables = xsec_tables(Config(), device)
     f6_check(device)
 
@@ -755,7 +1037,7 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
         print(f"[setup] {name} ({mode}) frame + injection of {prob.photons.capacity} photons: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         for stokes_on in (True, False):
-            inst, err, k_ms, t_ms, bnd = kernel_vs_twin(
+            inst, err, k_ms, t_ms, bnd, _ = kernel_vs_twin(
                 f"{name} ({mode}), Stokes {'on' if stokes_on else 'off'}", prob, stokes_on,
                 time_it=True)
             errs[inst] = max(errs.get(inst, 0.0), err)
@@ -785,6 +1067,16 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
             inst, err, *_ = kernel_vs_twin(
                 f"{name} ({mode}) main path, Stokes {'on' if stokes_on else 'off'}", prob,
                 stokes_on)
+            errs[inst] = max(errs[inst], err)
+    # the scatter queue's edge cases, on the lead instantiations' main
+    # frames and on the flagship's
+    for key in (("flagship", "nt"), ("amr_cyl2", "aux_nt"), ("flagship", "direct")):
+        for stokes_on in (True, False):
+            call = edge_call(mains[key], stokes_on)
+            inst, err, *_ = kernel_vs_twin(
+                f"{key[0]} ({key[1]}) compaction edge cases {EDGE_ACCEPTS}, all-stall block, "
+                f"idle block between active ones, Stokes {'on' if stokes_on else 'off'}",
+                None, stokes_on, call=call)
             errs[inst] = max(errs[inst], err)
     amr_lookup_check(mains["amr_cyl2", "direct"])
 
@@ -842,7 +1134,12 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
         "source": "mcrat_tpu_torch/csrc/fused_round.cu", "replaces": replaces(n),
         "launches": launches.get(n, 0), "max_abs_err": errs[n],
         "ms": times[n][0], "plain_ms": times[n][1],
-        "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": None,
+        "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "bound_pipe": bounds[n][2],
+        "library_ms": None,
+        **({"threads": resources[n]["threads"], "registers": resources[n]["registers"],
+            "local_bytes": resources[n]["local_bytes"],
+            "smem_bytes": resources[n]["dyn_smem"] + resources[n]["static_smem"]}
+           if n in resources else {}),
     } for n in names]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu" if device.type == "cuda" else device.type,

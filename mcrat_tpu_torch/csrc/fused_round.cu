@@ -10,10 +10,13 @@
 // the two are held against each other lane for lane, so every formula below
 // keeps the twin's operation order (and the build turns off FMA contraction).
 //
-// One thread owns one photon lane and runs `inner_rounds` complete rounds:
+// Each photon lane runs `inner_rounds` complete rounds:
 //   comoving boost -> tau-rate -> free path -> move -> electron draw
 //   -> polarized Klein-Nishina scatter attempt -> Stokes -> cell membership.
 // A lane that leaves its cell stalls until the caller re-resolves its cell.
+// A CUDA block of THREADS lanes (256 or 512 by instantiation) runs its rounds
+// together (fused_rounds_kernel below): each lane's own work on its thread,
+// the accepted scatters packed onto the block's threads.
 //
 // Optical-depth families (template parameter TAU; the C entry point
 // dispatches on a family code and a variant code):
@@ -60,44 +63,68 @@
 // fluid velocity and of the membership test; the round body is shared.
 //
 // What bounds it on this card.  A running lane reads 64 B of state (16 f32
-// planes), 8 B of flags and cell index and its cell's row, 16-96 B (+64 B of
-// Chebyshev rows in TABLE mode, or 8 B of aux planes in the AUX families),
-// and writes 64 B + 4 B of out-flags per call.  Against that it does ~115
-// uniforms (a murmur3 finalizer each, integer work) and ~40 transcendentals
-// (log, sin/cos, sqrt, rsqrt, divisions) per round.  The least time of a
-// call (PERF.md section 6: its bytes over the HBM rate against its float
-// operations over the float32 rate) is mostly set by the bytes, but the
-// calls take many times that bound: what the float count leaves out, the
-// integer hashing, the SFU, divergent rejection loops and 80-116 registers
-// a thread, sets the time -- the kernel is ALU/SFU and register bound, not
-// memory bound.  K5 (AUX, AUX_NT) adds 8 B a lane and no float work (its
-// per-round work is DIRECT's, plus the sampler in AUX_NT), so it stays so.
-// The design follows from that:
-//   * no shared memory, TMA or wgmma: state is streamed once, coalesced
-//     (planes are structure-of-arrays, neighbouring lanes at neighbouring
-//     addresses), and kept in registers across all rounds;
-//   * the lane reads its own cell's rows from the (W, Ncell) table by its
-//     int32 cell index, once per call (no host-side row gather, no index bit
-//     packing).  The reads are not coalesced (neighbouring lanes hold
-//     neighbouring photons, not cells), but they are a few words per lane
-//     per call and the largest table, 262,144 cells x 16 rows x 4 B = 17 MB
-//     on the 3-D grid, stays in the 50 MB L2;
-//   * per-lane cell quantities (velocity, |beta|, n_e, cell box, the
-//     cosines of half widths and of the domain bounds) are computed once per
-//     call, not per round;
-//   * only the electron-sampler branch a lane needs (Maxwell-Boltzmann below
-//     1e7 K, Maxwell-Juttner above, decided per lane) and only lanes that will
-//     attempt a scatter run the sampler; rejection loops exit at acceptance.
-//     Draw numbers are static (k = round * per_round + offset), so skipping
-//     work never shifts a random number;
-//   * lanes of idle logical blocks (block_act == 0) and finished lanes return
-//     at once; the state is updated in place, so their state is untouched.
+// planes), 8 B of flags and cell index, the rows of its cell that Cell::load
+// reads (4-16 words, + 16 Chebyshev rows in CHEB families), 4-8 B of aux
+// planes in the AUX families, and writes 64 B + 4 B of out-flags per call.
+// Against that it does ~115 uniforms (a murmur3 finalizer each, 12 integer
+// operations) and ~40 math calls per round: sqrt, rsqrt, division and exp
+// take one MUFU (SFU) instruction each and 2-10 FP32 operations; log, sin
+// and cos are FP32 polynomials (27, 20, 33 for sin and cos of one argument,
+// tools/sass_counts.py); and a double Klein-Nishina form per attempt.  The
+// least time of a call on any one pipe (chip_smoke.bound: bytes over HBM,
+// FP32, INT32, SFU, FP64) is ~0.01 ms at 245k lanes, set by the bytes or
+// the FP32 operations; the calls take many times that.  What the pipes do
+// not see sets the time: divergence (a warp runs a branch when any of its 32
+// lanes takes it; in the nonthermal frames 3 of 4 attempts are null
+// collisions, so the long accepted-scatter branch ran at ~1/3 of a warp's
+// lanes), rejection loops that run to the warp's longest trial, and the
+// latency of dependent SFU, integer and FP64 chains at the occupancy 77-116
+// registers a thread left (one thread a lane, all state in registers,
+// 128-thread blocks).  The design follows from that (PERF.md section 6):
+//   * block-synchronous rounds: a block of THREADS lanes runs each round in
+//     two phases between barriers.  Phase A is the lane's own work up to the
+//     KN acceptance draw; an accepted lane leaves the scatter's inputs in its
+//     shared-memory column and appends its slot to a block queue (a ballot
+//     and one shared atomic a warp).  Phase B packs the queue onto the
+//     block's threads: angles, outgoing photon, Fano matrix, rotations and
+//     de-boosts run at full warps.  Draw numbers are static and keyed by the
+//     owner lane (k = round * per_round + offset, base from pid and the lane
+//     in its logical block), so the thread that runs an entry does not change
+//     a random number, and every lane stays bit-identical to the twin;
+//   * lane state and the cell's per-lane quantities live in shared memory
+//     for the call (structure of arrays, field f of thread t at
+//     f * THREADS + t: a warp's accesses hit 32 banks), 28-56 floats a lane
+//     by variant and family (Layout), so registers hold one phase's
+//     temporaries: __launch_bounds__ holds them to 64 (1,024 resident
+//     threads an SM; a few bytes spill in some Stokes instantiations, and 72
+//     registers without spills measured slower).  The block follows the
+//     instantiation (block_threads): 512 threads with Stokes, where the
+//     scatter is long and a larger queue packs more of it (the lead
+//     instantiations ran 7-9 % faster than at 256 on an H100), as long as
+//     two blocks fit an SM's shared memory; 256 without Stokes, where a short scatter
+//     packs little and a smaller block waits less at its barriers, and for
+//     the one layout too large for two 512-thread blocks (packed_sph3
+//     CHEB_NT, 56 floats a lane) (PERF.md section 6).  The scatter's
+//     inputs reuse the owner's momentum and Stokes planes (phase B
+//     overwrites them), so the exchange adds 3 floats a lane.  State is read
+//     from and written to device memory once a call, coalesced; the lane
+//     reads its own cell's rows by index once a call (not coalesced, a few
+//     words a lane; the largest table, 17 MB, stays in the 50 MB L2);
+//   * idle lanes (past n, idle logical block, dead, out of time, stalled)
+//     take part in the barriers and nothing else; a block with no running
+//     lane returns at once, and a block whose lanes all stop leaves the round
+//     loop together.  A logical block (block_lanes, 16,384 on the main path)
+//     need not be a multiple of THREADS: each lane finds its own;
+//   * the electron samplers stay in phase A: the attempt branch runs at
+//     1.25-2x its packed warp count on the lead frames (the twin's warp
+//     tally), and only the Maxwell-Juttner trials are sparser, which a queue
+//     packed once at the attempt would not repack trial by trial.
+//   * no TMA or wgmma: there is no matrix product and no tile stream.
 // Transcendentals (logf, expf, sinf/cosf, log1p) are the functions PyTorch's
 // CUDA torch.log/exp/sin/cos/log1p call, so kernel and twin agree to the bit.
 // The Klein-Nishina closed form runs in double (fault F6: in float32 its
 // ~2/e^2 terms cancel to ~1 and lose up to 0.25 just above e = 1e-3), one
 // evaluation per scatter attempt.
-// Register pressure and occupancy are not tuned yet (later work).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -246,7 +273,9 @@ __device__ __forceinline__ float kn_cross_section(float e) {
 }
 
 // branch-select Clenshaw of a two-interval Chebyshev fit of log10 sigma:
-// linear x below the KN knee (x < 1), log space above it
+// linear x below the KN knee (x < 1), log space above it; coefficient k at
+// c_lo[k * STRIDE] (a lane's column in shared memory, or a plain array)
+template <int STRIDE>
 __device__ __forceinline__ float cheb_eval(float x, float span_inv, const float* c_lo,
                                            const float* c_hi) {
   const bool lo = x < 1.0f;
@@ -260,7 +289,7 @@ __device__ __forceinline__ float cheb_eval(float x, float span_inv, const float*
   float bk1 = 0.0f, bk2 = 0.0f;
 #pragma unroll
   for (int k = CHEB_DHI; k > 0; --k) {
-    const float ck = lo ? (k <= CHEB_DLO ? c_lo[k] : 0.0f) : c_hi[k];
+    const float ck = lo ? (k <= CHEB_DLO ? c_lo[k * STRIDE] : 0.0f) : c_hi[k * STRIDE];
     const float bk0 = ck + 2.0f * t * bk1 - bk2;
     bk2 = bk1;
     bk1 = bk0;
@@ -500,61 +529,114 @@ __device__ __forceinline__ bool in_axis(float h, float c, float d) {
 }
 
 // ---------------------------------------------------------------------------
-// per-lane cell quantities of a variant (pallas_round._kernel_body before
-// round_body), its fluid velocity (fluid_beta) and membership test
-// (in_cell_and_domain); fixed for the call
+// the block's shared memory: one column of floats per thread (structure of
+// arrays, field f of thread t at f * THREADS + t, so a warp's accesses fall
+// in 32 different banks); the 16 state planes first, then the variant's
+// per-lane cell quantities, then the fluid velocity a scatter entry needs
+
+constexpr int N_STATE = 16;
+constexpr int SM_SMEM = 228 * 1024;  // shared memory of an SM
+constexpr int BLOCK_SMEM_EXTRA = 4096;  // a block's static arrays and the runtime's 1 KB, with room
+
+// threads of an instantiation's CUDA block (fused_round.cuda_block): 512
+// with Stokes, where the scatter is long and a larger queue packs more of
+// it, as long as two such blocks fit an SM's shared memory; else 256 (a
+// short scatter packs little and a smaller block waits less at its
+// barriers).  Resident threads are held to 1,024 an SM, so <= 64 registers.
+template <bool STOKES, int COUNT>
+constexpr int block_threads() {
+  return STOKES && 2 * (COUNT * 512 * (int)sizeof(float) + BLOCK_SMEM_EXTRA) <= SM_SMEM ? 512
+                                                                                        : 256;
+}
+constexpr int RESIDENT_THREADS = 1024;
 
 template <int GEO, int SRC, bool V2, int TAU>
-struct Cell {
-  float v0, v1, v2;            // hydro basis in 2-D, MCRaT Cartesian in 3-D
-  float beta_mag, n_e, temp;
-  float gam, nt_dens;          // nonthermal: packed gamma and nonthermal density
-  // TABLE: inverse knee, 1 / (LOG_PH_E_MAX - s), Chebyshev coefficients
-  float inv_knee, span_inv, c_lo[CHEB_DLO + 1], c_hi[CHEB_DHI + 1];
-  float ctr0, ctr1, ctr2, size0, size1, size2;  // cell box in hydro coordinates
-  float s1, c1, cos_half1;     // sin/cos of the theta (polar: phi) centre, cos of half width
-  float cos_dom2, cos_dom3;    // spherical theta domain
-  float s2, c2, cos_half2;     // 3-D spherical phi centre and half width
-  float cos_mid, sin_mid, cos_half_dom;  // azimuth domain, about its midpoint
+struct Layout {
+  static constexpr bool D3 = GEO == CART3 || GEO == SPH3 || GEO == POL3;
+  static constexpr bool ANG1 = GEO == SPH2 || GEO == SPH3 || GEO == POL3;
+  static constexpr bool ANG2 = GEO == SPH3;
+  static constexpr bool CHEBF = TAU == CHEB || TAU == CHEB_NT;
+  static constexpr int V0 = N_STATE, V1 = V0 + 1, BETA = V0 + 2, NSIG = V0 + 3, TEMP = V0 + 4;
+  static constexpr int CTR0 = V0 + 5, CTR1 = V0 + 6, SIZE0 = V0 + 7, SIZE1 = V0 + 8;
+  static constexpr int BX = V0 + 9, BY = V0 + 10, BZ = V0 + 11;  // phase A -> phase B
+  static constexpr int VV2 = V0 + 12;                             // if V2 or 3-D
+  static constexpr int CTR2 = VV2 + ((V2 || D3) ? 1 : 0);         // 3-D: + CTR2, SIZE2
+  static constexpr int SIZE2 = CTR2 + 1;
+  static constexpr int S1 = CTR2 + (D3 ? 2 : 0);                  // + S1, C1, COSH1
+  static constexpr int C1 = S1 + 1, COSH1 = S1 + 2;
+  static constexpr int S2 = S1 + (ANG1 ? 3 : 0);                  // SPH3: + S2, C2, COSH2
+  static constexpr int C2 = S2 + 1, COSH2 = S2 + 2;
+  static constexpr int NE = S2 + (ANG2 ? 3 : 0);                  // CHEB_NT: + NE, NT1
+  static constexpr int NT1 = NE + 1;
+  static constexpr int PTH = NE + (TAU == CHEB_NT ? 2 : 0);       // AUX_NT: + PTH
+  static constexpr int KNEE = PTH + (TAU == AUX_NT ? 1 : 0);      // CHEB: + 17 rows
+  static constexpr int SPAN = KNEE + 1, CLO = KNEE + 2, CHI = CLO + CHEB_DLO + 1;
+  static constexpr int COUNT = KNEE + (CHEBF ? 4 + CHEB_DLO + CHEB_DHI : 0);
+};
 
+// block-uniform grid cosines (spherical theta domain, azimuth domain)
+enum { G_COS_DOM2 = 0, G_COS_DOM3, G_COS_MID, G_SIN_MID, G_COS_HALF_DOM, N_GCOS };
+
+// ---------------------------------------------------------------------------
+// per-lane cell quantities of a variant (pallas_round._kernel_body before
+// round_body), its fluid velocity (fluid_beta) and membership test
+// (in_cell_and_domain); fixed for the call, kept in the lane's column
+
+template <int GEO, int SRC, bool V2, int TAU, int THREADS>
+struct Cell {
+  using L = Layout<GEO, SRC, V2, TAU>;
+  float* s;          // the lane's column: field f at s[f * THREADS]
+  const float* gc;   // block-uniform grid cosines
+
+  __device__ __forceinline__ float& at(int f) const { return s[f * THREADS]; }
+
+  // reads the rows chip_smoke.table_rows_read counts for the bound
   __device__ __forceinline__ void load(const float* __restrict__ t, int64_t ncell, int cl,
-                                       const Grid& g, const Consts& cst, int cheb_base) {
+                                       const Grid& g, const Consts& cst, int cheb_base,
+                                       const NtConsts& ntc) const {
+    // the AUX families take n_sigma from their plane, not from the density
+    constexpr bool AUXF = TAU == AUX || TAU == AUX_NT;
     const float* row = t + cl;
 #define AT(r) row[(int64_t)(r) * ncell]
-    if (TAU == CHEB || TAU == CHEB_NT) {
-      inv_knee = AT(cheb_base);
+    if (L::CHEBF) {
+      const float inv_knee = AT(cheb_base);
+      at(L::KNEE) = inv_knee;
 #pragma unroll
-      for (int k = 0; k <= CHEB_DLO; ++k) c_lo[k] = AT(cheb_base + 1 + k);
+      for (int k = 0; k <= CHEB_DLO; ++k) at(L::CLO + k) = AT(cheb_base + 1 + k);
 #pragma unroll
-      for (int k = 0; k <= CHEB_DHI; ++k) c_hi[k] = AT(cheb_base + 2 + CHEB_DLO + k);
+      for (int k = 0; k <= CHEB_DHI; ++k) at(L::CHI + k) = AT(cheb_base + 2 + CHEB_DLO + k);
       const float lg_invk = logf(fmaxf(inv_knee, F32(1e-37))) * F32(0.4342944819032518);
-      span_inv = 1.0f / (F32(6.0) + lg_invk);
+      at(L::SPAN) = 1.0f / (F32(6.0) + lg_invk);
     }
-    if (TAU == CHEB_NT) nt_dens = AT(P_NTDENS);
+    float n_e;
     if (SRC == PACKED) {
-      gam = AT(P_GAMMA);
-      beta_mag = sqrtf(fmaxf(1.0f - 1.0f / (gam * gam), 0.0f));
-      n_e = AT(P_DENS) * cst.inv_mp;
-      temp = AT(P_TEMP);
-      v0 = AT(P_V0);
-      v1 = AT(P_V1);
-      v2 = (V2 || GEO == CART3 || GEO == SPH3 || GEO == POL3) ? AT(P_V2) : 0.0f;
+      const float gam = AT(P_GAMMA);
+      at(L::BETA) = sqrtf(fmaxf(1.0f - 1.0f / (gam * gam), 0.0f));
+      n_e = AUXF ? 0.0f : AT(P_DENS) * cst.inv_mp;
+      at(L::TEMP) = AT(P_TEMP);
+      at(L::V0) = AT(P_V0);
+      at(L::V1) = AT(P_V1);
+      if (V2 || L::D3) at(L::VV2) = AT(P_V2);
+      if (TAU == CHEB_NT) at(L::NT1) = AT(P_NTDENS) * gam * ntc.thom_f1;
     } else {
       // slim rows 4:8, ultra 2-D [v0, v1, ne_lab, temp], ultra 3-D [v0, v1, v2, ne_lab, temp]
       const int rv = SRC == SLIM ? S_V0 : 0;
       const int rne = SRC == SLIM ? S_NE : (GEO == CART3 ? 3 : 2);
-      v0 = AT(rv);
-      v1 = AT(rv + 1);
+      const float v0 = AT(rv), v1 = AT(rv + 1);
+      at(L::V0) = v0;
+      at(L::V1) = v1;
       float beta2 = v0 * v0 + v1 * v1;
-      v2 = 0.0f;
       if (GEO == CART3) {
-        v2 = AT(2);
+        const float v2 = AT(2);
+        at(L::VV2) = v2;
         beta2 = beta2 + v2 * v2;
       }
-      beta_mag = sqrtf(beta2);
+      at(L::BETA) = sqrtf(beta2);
       n_e = AT(rne);
-      temp = AT(rne + 1);
+      at(L::TEMP) = AT(rne + 1);
     }
+    if (!AUXF) at(L::NSIG) = n_e * cst.thom;  // the AUX families load it from their plane
+    if (TAU == CHEB_NT) at(L::NE) = n_e;
     if (SRC == ULTRA) {
       if (GEO == CART3) {
         const int n12 = g.n1 * g.n2;
@@ -562,58 +644,47 @@ struct Cell {
         const int rem = cl - i * n12;
         const int j = rem / g.n2;
         const int k = rem - j * g.n2;
-        ctr0 = g.lo0 + ((float)i + 0.5f) * g.d0;
-        ctr1 = g.lo1 + ((float)j + 0.5f) * g.d1;
-        ctr2 = g.lo2 + ((float)k + 0.5f) * g.d2;
+        at(L::CTR0) = g.lo0 + ((float)i + 0.5f) * g.d0;
+        at(L::CTR1) = g.lo1 + ((float)j + 0.5f) * g.d1;
+        at(L::CTR2) = g.lo2 + ((float)k + 0.5f) * g.d2;
+        at(L::SIZE2) = g.d2;
       } else {
         const int i = cl / g.n1;
         const int j = cl - i * g.n1;
-        ctr0 = g.lo0 + ((float)i + 0.5f) * g.d0;
-        ctr1 = g.lo1 + ((float)j + 0.5f) * g.d1;
+        at(L::CTR0) = g.lo0 + ((float)i + 0.5f) * g.d0;
+        at(L::CTR1) = g.lo1 + ((float)j + 0.5f) * g.d1;
       }
-      size0 = g.d0;
-      size1 = g.d1;
-      size2 = g.d2;
+      at(L::SIZE0) = g.d0;
+      at(L::SIZE1) = g.d1;
     } else if (SRC == SLIM) {
-      ctr0 = AT(S_R0);
-      ctr1 = AT(S_R1);
-      size0 = AT(S_DR0);
-      size1 = AT(S_DR1);
+      at(L::CTR0) = AT(S_R0);
+      at(L::CTR1) = AT(S_R1);
+      at(L::SIZE0) = AT(S_DR0);
+      at(L::SIZE1) = AT(S_DR1);
     } else {
-      ctr0 = AT(P_R0);
-      ctr1 = AT(P_R1);
-      size0 = AT(P_DR0);
-      size1 = AT(P_DR1);
-      if (GEO == CART3 || GEO == SPH3 || GEO == POL3) {
-        ctr2 = AT(P_R2);
-        size2 = AT(P_DR2);
+      at(L::CTR0) = AT(P_R0);
+      at(L::CTR1) = AT(P_R1);
+      at(L::SIZE0) = AT(P_DR0);
+      at(L::SIZE1) = AT(P_DR1);
+      if (L::D3) {
+        at(L::CTR2) = AT(P_R2);
+        at(L::SIZE2) = AT(P_DR2);
       }
     }
     if (GEO == SPH2 && SRC == ULTRA) {
-      s1 = sinf(ctr1);
-      c1 = cosf(ctr1);
-      cos_half1 = cosf(0.5f * g.d1);
-    } else if (GEO == SPH2 || GEO == SPH3 || GEO == POL3) {
-      s1 = AT(P_SIN1);
-      c1 = AT(P_COS1);
-      cos_half1 = cosf(0.5f * AT(P_DR1));
+      const float ctr1 = at(L::CTR1);
+      at(L::S1) = sinf(ctr1);
+      at(L::C1) = cosf(ctr1);
+      at(L::COSH1) = cosf(0.5f * g.d1);
+    } else if (L::ANG1) {
+      at(L::S1) = AT(P_SIN1);
+      at(L::C1) = AT(P_COS1);
+      at(L::COSH1) = cosf(0.5f * AT(P_DR1));
     }
-    if (GEO == SPH2 || GEO == SPH3) {
-      cos_dom2 = cosf(g.dom2);
-      cos_dom3 = cosf(g.dom3);
-    }
-    if (GEO == SPH3) {
-      s2 = AT(P_SIN2);
-      c2 = AT(P_COS2);
-      cos_half2 = cosf(0.5f * AT(P_DR2));
-    }
-    if (GEO == SPH3 || GEO == POL3) {
-      const float lo = GEO == SPH3 ? g.dom4 : g.dom2;
-      const float hi = GEO == SPH3 ? g.dom5 : g.dom3;
-      const float mid = 0.5f * (lo + hi);
-      cos_mid = cosf(mid);
-      sin_mid = sinf(mid);
-      cos_half_dom = cosf(0.5f * (hi - lo));
+    if (L::ANG2) {
+      at(L::S2) = AT(P_SIN2);
+      at(L::C2) = AT(P_COS2);
+      at(L::COSH2) = cosf(0.5f * AT(P_DR2));
     }
 #undef AT
   }
@@ -621,20 +692,23 @@ struct Cell {
   // fluid 3-velocity in MCRaT Cartesian at the photon position
   __device__ __forceinline__ void fluid_beta(float px, float py, float& bx, float& by,
                                              float& bz) const {
-    if (GEO == CART3 || GEO == SPH3 || GEO == POL3) {
-      bx = v0;
-      by = v1;
-      bz = v2;
+    if (L::D3) {
+      bx = at(L::V0);
+      by = at(L::V1);
+      bz = at(L::VV2);
       return;
     }
     float cphi, sphi;
     phi_components(px, py, cphi, sphi);
+    const float v0 = at(L::V0), v1 = at(L::V1);
     float vr = v0, vz = v1;
     if (GEO == SPH2) {
+      const float s1 = at(L::S1), c1 = at(L::C1);
       vr = v0 * s1 + v1 * c1;
       vz = v0 * c1 - v1 * s1;
     }
     if (V2) {
+      const float v2 = at(L::VV2);
       bx = vr * cphi - v2 * sphi;
       by = vr * sphi + v2 * cphi;
     } else {
@@ -649,22 +723,24 @@ struct Cell {
   __device__ __forceinline__ bool contains(float px, float py, float pz, const Grid& g) const {
     if (GEO == CYL2) {
       const float h0 = sqrtf(px * px + py * py);
-      return in_axis(h0, ctr0, size0) && in_axis(pz, ctr1, size1) && (h0 > g.dom0) &&
-             (h0 < g.dom1) && (pz > g.dom2) && (pz < g.dom3);
+      return in_axis(h0, at(L::CTR0), at(L::SIZE0)) && in_axis(pz, at(L::CTR1), at(L::SIZE1)) &&
+             (h0 > g.dom0) && (h0 < g.dom1) && (pz > g.dom2) && (pz < g.dom3);
     }
     if (GEO == CART3) {
-      return in_axis(px, ctr0, size0) && in_axis(py, ctr1, size1) && in_axis(pz, ctr2, size2) &&
-             (px > g.dom0) && (px < g.dom1) && (py > g.dom2) && (py < g.dom3) &&
-             (pz > g.dom4) && (pz < g.dom5);
+      return in_axis(px, at(L::CTR0), at(L::SIZE0)) && in_axis(py, at(L::CTR1), at(L::SIZE1)) &&
+             in_axis(pz, at(L::CTR2), at(L::SIZE2)) && (px > g.dom0) && (px < g.dom1) &&
+             (py > g.dom2) && (py < g.dom3) && (pz > g.dom4) && (pz < g.dom5);
     }
     if (GEO == POL3) {
       const float rho = sqrtf(px * px + py * py);
       float cphi, sphi;
       phi_components(px, py, cphi, sphi);
-      const bool in_phi = cphi * c1 + sphi * s1 >= cos_half1;
-      const bool in_phi_dom = cphi * cos_mid + sphi * sin_mid >= cos_half_dom;
-      return in_axis(rho, ctr0, size0) && in_phi && in_phi_dom && in_axis(pz, ctr2, size2) &&
-             (rho > g.dom0) && (rho < g.dom1) && (pz > g.dom4) && (pz < g.dom5);
+      const bool in_phi = cphi * at(L::C1) + sphi * at(L::S1) >= at(L::COSH1);
+      const bool in_phi_dom =
+          cphi * gc[G_COS_MID] + sphi * gc[G_SIN_MID] >= gc[G_COS_HALF_DOM];
+      return in_axis(rho, at(L::CTR0), at(L::SIZE0)) && in_phi && in_phi_dom &&
+             in_axis(pz, at(L::CTR2), at(L::SIZE2)) && (rho > g.dom0) && (rho < g.dom1) &&
+             (pz > g.dom4) && (pz < g.dom5);
     }
     // spherical (2-D, 2.5-D, 3-D)
     const float rho = sqrtf(px * px + py * py);
@@ -672,260 +748,371 @@ struct Cell {
     const float inv_r = 1.0f / fmaxf(r, F32(1e-37));
     const float cos_th = clampf(pz * inv_r, -1.0f, 1.0f);
     const float sin_th = rho * inv_r;
-    const bool in_theta = cos_th * c1 + sin_th * s1 >= cos_half1;
-    const bool in_theta_dom = (cos_th < cos_dom2) && (cos_th > cos_dom3);
-    bool ok = in_axis(r, ctr0, size0) && in_theta && in_theta_dom && (r > g.dom0) &&
-              (r < g.dom1);
+    const bool in_theta = cos_th * at(L::C1) + sin_th * at(L::S1) >= at(L::COSH1);
+    const bool in_theta_dom = (cos_th < gc[G_COS_DOM2]) && (cos_th > gc[G_COS_DOM3]);
+    bool ok = in_axis(r, at(L::CTR0), at(L::SIZE0)) && in_theta && in_theta_dom &&
+              (r > g.dom0) && (r < g.dom1);
     if (GEO == SPH3) {
       float cphi, sphi;
       phi_components(px, py, cphi, sphi);
-      const bool in_phi = cphi * c2 + sphi * s2 >= cos_half2;
-      const bool in_phi_dom = cphi * cos_mid + sphi * sin_mid >= cos_half_dom;
+      const bool in_phi = cphi * at(L::C2) + sphi * at(L::S2) >= at(L::COSH2);
+      const bool in_phi_dom =
+          cphi * gc[G_COS_MID] + sphi * gc[G_SIN_MID] >= gc[G_COS_HALF_DOM];
       ok = ok && in_phi && in_phi_dom;
     }
     return ok;
   }
 };
 
-// ---------------------------------------------------------------------------
+// the counter stream's per-lane base (ops/rng.lane_base)
+__device__ __forceinline__ uint32_t lane_base(int64_t lane, int block_lanes, int seed) {
+  const int64_t pid = lane / block_lanes;
+  const uint32_t lane_in = (uint32_t)(lane - pid * block_lanes);
+  return (uint32_t)seed + (uint32_t)pid * 1442695041u + lane_in * 0x9E3779B9u;
+}
 
-template <bool STOKES, int GEO, int SRC, bool V2, int TAU>
-__global__ void __launch_bounds__(128)
+// ---------------------------------------------------------------------------
+// phase B: one accepted Klein-Nishina scatter, for the lane in column `slot`.
+// Phase A left the scatter's inputs in that column: the rest-frame photon
+// r0..r3 in the comoving planes, the electron's gamma and four-velocity
+// g0, ex, ey, ez in the lab planes, the fluid-frame Stokes qc, uc in q, u and
+// the round's fluid velocity in BX..BZ; the entry overwrites the lab and
+// comoving planes (and q, u, v) with the outgoing photon.  Its random numbers
+// are the owner lane's, so it does not matter which thread runs it.
+
+template <bool STOKES, typename L, int THREADS>
+__device__ __forceinline__ void scatter_entry(float* __restrict__ sm, int slot, int64_t lane,
+                                              int block_lanes, int seed, uint32_t k0,
+                                              const Offsets& off, int kn_iters) {
+  float* t = sm + slot;
+#define T(f) t[(f) * THREADS]
+  const float g0 = T(SP_P0), ex = T(SP_P1), ey = T(SP_P2), ez = T(SP_P3);
+  const float r0 = T(SP_C0), r1 = T(SP_C1), r2 = T(SP_C2), r3 = T(SP_C3);
+  const float bx = T(L::BX), by = T(L::BY), bz = T(L::BZ);
+  const float qc = T(SP_Q), uc = T(SP_U), v = T(SP_V);
+  const uint32_t base = lane_base(lane, block_lanes, seed);
+  // F1 repair: z-hat replaces the degenerate -beta_f reference vector
+  const bool flow = sqrtf(bx * bx + by * by + bz * bz) > 0.0f;
+  const float mfx = flow ? -bx : 0.0f, mfy = flow ? -by : 0.0f, mfz = flow ? -bz : 1.0f;
+  const float inv_g = 1.0f / g0;
+  const float ebx = ex * inv_g, eby = ey * inv_g, ebz = ez * inv_g;
+  const float e0 = r0;
+  const float rho0 = sqrtf(r1 * r1 + r2 * r2);
+  const bool has_xy = rho0 > 0.0f;
+  const float safe_rho0 = fmaxf(rho0, F32(1e-37));
+  const float a_c0 = has_xy ? r1 / safe_rho0 : 1.0f;
+  const float a_s0 = has_xy ? r2 / safe_rho0 : 0.0f;
+  const bool e_pos = e0 > 0.0f;
+  const float inv_e0 = e_pos ? 1.0f / fmaxf(e0, F32(1e-37)) : 0.0f;
+  const float a_c1 = e_pos ? rho0 * inv_e0 : 1.0f;
+  const float a_s1 = r3 * inv_e0;
+  float ct, st, c_phi, s_phi;
+  sample_kn_angles<STOKES>(base, k0, off, e0, qc, uc, kn_iters, ct, st, c_phi, s_phi);
+  const float e1 = e0 / (1.0f + e0 * (1.0f - ct));
+  const float sx = e1 * ct;
+  const float sy = e1 * st * s_phi;
+  const float sz = e1 * st * c_phi;
+  const float tx = a_c1 * sx - a_s1 * sz;
+  const float tz = a_s1 * sx + a_c1 * sz;
+  const float nx = a_c0 * tx - a_s0 * sy;
+  const float ny = a_s0 * tx + a_c0 * sy;
+  const float nz = tz;
+  float q2 = qc, u2 = uc, v2 = v;
+  if (STOKES) {
+    rotate_basis(r1, r2, r3, 0.0f, 0.0f, 1.0f, nx, ny, nz, r1, r2, r3, q2, u2);
+    float cos_sc = (r1 * nx + r2 * ny + r3 * nz) / fmaxf(e0 * e1, F32(1e-37));
+    cos_sc = clampf(cos_sc, -1.0f, 1.0f);
+    // Fano matrix (ops.stokes.fano_scatter_stokes)
+    const float st2 = fmaxf(1.0f - cos_sc * cos_sc, 0.0f);
+    const float de = e0 - e1;
+    const float m00 = 1.0f + cos_sc * cos_sc + (1.0f - cos_sc) * de;
+    const float m11 = 1.0f + cos_sc * cos_sc;
+    const float m22 = 2.0f * cos_sc;
+    const float m33 = 2.0f * cos_sc + cos_sc * (1.0f - cos_sc) * de;
+    const float fi = m00 + st2 * q2;
+    const float fq = st2 + m11 * q2;
+    const float fu = m22 * u2;
+    const float fv = m33 * v;
+    const float inv_i = 1.0f / fi;
+    q2 = fq * inv_i;
+    u2 = fu * inv_i;
+    v2 = fv * inv_i;
+    rotate_basis(nx, ny, nz, r1, r2, r3, nx, ny, nz, -ebx, -eby, -ebz, q2, u2);
+  }
+  // de-boost to the comoving frame, then to the lab
+  float o0, o1, o2, o3, l0, l1, l2, l3;
+  boost(-ebx, -eby, -ebz, e1, nx, ny, nz, o0, o1, o2, o3);
+  boost(-bx, -by, -bz, o0, o1, o2, o3, l0, l1, l2, l3);
+  if (STOKES) {
+    const float inv_ge = 1.0f / g0;
+    rotate_basis(o1, o2, o3, -ex * inv_ge, -ey * inv_ge, -ez * inv_ge, o1, o2, o3, mfx, mfy,
+                 mfz, q2, u2);
+    rotate_basis(l1, l2, l3, mfx, mfy, mfz, l1, l2, l3, 0.0f, 0.0f, 1.0f, q2, u2);
+    T(SP_Q) = q2;
+    T(SP_U) = u2;
+    T(SP_V) = v2;
+  }
+  T(SP_P0) = l0;
+  T(SP_P1) = l1;
+  T(SP_P2) = l2;
+  T(SP_P3) = l3;
+  T(SP_C0) = o0;
+  T(SP_C1) = o1;
+  T(SP_C2) = o2;
+  T(SP_C3) = o3;
+#undef T
+}
+
+// ---------------------------------------------------------------------------
+// One CUDA block of THREADS lanes (block_threads) runs its rounds together.
+// Each round:
+//   phase A  every running lane on its own thread: fluid beta, comoving
+//            boost, tau rate, free path, move and, on lanes that will
+//            scatter, the electron draw, the rest-frame boost and the KN
+//            acceptance draw; the membership and stall tests.  An accepted
+//            lane leaves the scatter's inputs in its column and appends its
+//            slot to the block's queue (one ballot and one shared atomic a
+//            warp);
+//   barrier  (it also tells every thread whether any lane runs next round)
+//   phase B  the block's threads take the queue in strides of THREADS:
+//            angles, outgoing photon, Stokes chain, de-boosts, written back
+//            to the owner's column;
+//   barrier.
+// Idle lanes (past n, idle logical block, dead, out of time, stalled) take
+// part in the barriers and in nothing else.
+
+template <bool STOKES, int GEO, int SRC, bool V2, int TAU, int THREADS>
+__global__ void __launch_bounds__(THREADS, RESIDENT_THREADS / THREADS)
 fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict__ cell,
                     const int* __restrict__ flags, const float* __restrict__ table,
                     int64_t ncell, const int* __restrict__ block_act,
                     int* __restrict__ out_flags, int seed, Grid g, Consts cst,
                     int inner_rounds, int el_iters, int kn_iters, int block_lanes,
                     int cheb_base, NtConsts ntc, const float* __restrict__ aux) {
+  using L = Layout<GEO, SRC, V2, TAU>;
   constexpr bool IS_AUX = TAU == AUX || TAU == AUX_NT;
   constexpr bool NT = TAU == CHEB_NT || TAU == AUX_NT;
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const int64_t pid = lane / block_lanes;
-  if (block_act[pid] == 0) {
-    out_flags[lane] = 0;
+  extern __shared__ float sm[];
+  __shared__ unsigned short queue[THREADS];
+  __shared__ int qcount[2];
+  __shared__ float gcos[N_GCOS];
+  const int tid = threadIdx.x;
+  const int64_t lane = (int64_t)blockIdx.x * THREADS + tid;
+
+  // the lanes a round can touch: alive with time left, in an active block
+  int fl = 0;
+  bool live = false;
+  if (lane < n && block_act[lane / block_lanes] != 0) {
+    fl = flags[lane];
+    live = (fl & FLAG_ALIVE) != 0 && state[SP_TREM * n + lane] > 0.0f;
+  }
+  if (tid == 0) {
+    qcount[0] = 0;
+    qcount[1] = 0;
+    if (GEO == SPH2 || GEO == SPH3) {
+      gcos[G_COS_DOM2] = cosf(g.dom2);
+      gcos[G_COS_DOM3] = cosf(g.dom3);
+    }
+    if (GEO == SPH3 || GEO == POL3) {
+      const float lo = GEO == SPH3 ? g.dom4 : g.dom2;
+      const float hi = GEO == SPH3 ? g.dom5 : g.dom3;
+      const float mid = 0.5f * (lo + hi);
+      gcos[G_COS_MID] = cosf(mid);
+      gcos[G_SIN_MID] = sinf(mid);
+      gcos[G_COS_HALF_DOM] = cosf(0.5f * (hi - lo));
+    }
+  }
+  if (!__syncthreads_or(live)) {  // no lane of this block runs
+    if (lane < n) out_flags[lane] = 0;
     return;
   }
-  const int fl = flags[lane];
-  const bool alive = (fl & FLAG_ALIVE) != 0;
+
+  float* s = sm + tid;
+#define S(f) s[(f) * THREADS]
+  const bool ran = live;  // the lanes whose state is loaded and written back
   const bool is_pool = (fl & FLAG_POOL) != 0;
   const bool in_grid = (fl & FLAG_INGRID) != 0;
-  float t_rem = state[SP_TREM * n + lane];
-  if (!(alive && t_rem > 0.0f)) {  // no round can touch this lane
-    out_flags[lane] = 0;
-    return;
+  const Cell<GEO, SRC, V2, TAU, THREADS> cc{s, gcos};
+  if (ran) {
+#pragma unroll
+    for (int p = 0; p < N_STATE; ++p) S(p) = state[p * n + lane];
+    int cl = cell[lane];
+    cl = cl < 0 ? 0 : (cl >= ncell ? (int)(ncell - 1) : cl);
+    cc.load(table, ncell, cl, g, cst, cheb_base, ntc);
+    // AUX: the biased total tau coefficient and the thermal probability,
+    // fixed for the call (the lane stalls once they go stale)
+    if (IS_AUX) S(L::NSIG) = aux[lane];
+    if (TAU == AUX_NT) S(L::PTH) = aux[n + lane];
   }
-  float p0 = state[SP_P0 * n + lane], p1 = state[SP_P1 * n + lane];
-  float p2 = state[SP_P2 * n + lane], p3 = state[SP_P3 * n + lane];
-  float px = state[SP_X * n + lane], py = state[SP_Y * n + lane];
-  float pz = state[SP_Z * n + lane];
-  float q = state[SP_Q * n + lane], u = state[SP_U * n + lane];
-  float v = state[SP_V * n + lane];
-  float ns = state[SP_NS * n + lane];
-  float c0 = state[SP_C0 * n + lane], c1 = state[SP_C1 * n + lane];
-  float c2 = state[SP_C2 * n + lane], c3 = state[SP_C3 * n + lane];
-
-  int cl = cell[lane];
-  cl = cl < 0 ? 0 : (cl >= ncell ? (int)(ncell - 1) : cl);
-  Cell<GEO, SRC, V2, TAU> cc;
-  cc.load(table, ncell, cl, g, cst, cheb_base);
-
-  const uint32_t lane_in = (uint32_t)(lane - pid * block_lanes);
-  const uint32_t base =
-      (uint32_t)seed + (uint32_t)pid * 1442695041u + lane_in * 0x9E3779B9u;
+  const uint32_t base = lane_base(lane, block_lanes, seed);
   const Offsets off = draw_offsets(el_iters, kn_iters, NT);
-  // AUX: the biased total tau coefficient and the thermal probability, fixed
-  // for the call (the lane stalls once they go stale)
-  const float n_sigma = IS_AUX ? aux[lane] : cc.n_e * cst.thom;
-  const float p_th_aux = TAU == AUX_NT ? aux[n + lane] : 1.0f;
   bool stalled = false, promoted = false;
 
   for (int r = 0; r < inner_rounds; ++r) {
-    // a lane that stalls or runs out of frame time stays idle
-    if (stalled || !(t_rem > 0.0f)) break;
     const uint32_t k0 = (uint32_t)r * off.per_round;
+    bool accepted = false;
+    if (live) {
+      // ---- phase A
+      const float p0 = S(SP_P0), p1 = S(SP_P1), p2 = S(SP_P2), p3 = S(SP_P3);
+      float px = S(SP_X), py = S(SP_Y), pz = S(SP_Z);
+      float t_rem = S(SP_TREM);
 
-    // 1. fluid beta at the photon position
-    float bx, by, bz;
-    cc.fluid_beta(px, py, bx, by, bz);
-    const float fl_norm = sqrtf(bx * bx + by * by + bz * bz);
-    const float ph_norm = sqrtf(p1 * p1 + p2 * p2 + p3 * p3);
-    const float denom = fmaxf(fl_norm * ph_norm, F32(1e-37));
-    const float cos_ang = (bx * p1 + by * p2 + bz * p3) / denom;
+      // 1. fluid beta at the photon position
+      float bx, by, bz;
+      cc.fluid_beta(px, py, bx, by, bz);
+      const float fl_norm = sqrtf(bx * bx + by * by + bz * bz);
+      const float ph_norm = sqrtf(p1 * p1 + p2 * p2 + p3 * p3);
+      const float denom = fmaxf(fl_norm * ph_norm, F32(1e-37));
+      const float cos_ang = (bx * p1 + by * p2 + bz * p3) / denom;
 
-    // 2. comoving four-momentum
-    if (in_grid) boost(bx, by, bz, p0, p1, p2, p3, c0, c1, c2, c3);
-
-    // tau rate.  TABLE: sigma_hat at the CURRENT comoving energy, after the
-    // boost (a lane outside the grid keeps its c0; its rate is unused).
-    // Nonthermal: the biased total tau0 + N_GAMMA tau_norm, tau_norm = tau0
-    // in thermal cells, else subgroup 1's (Src/optical_depth.c:60-112)
-    float rate, p_th = p_th_aux;
-    if (TAU == DIRECT || IS_AUX) {
-      rate = n_sigma * (1.0f - cc.beta_mag * cos_ang);
-    } else {
-      const float nsig_th = n_sigma * cheb_eval(c0 * cc.inv_knee, cc.span_inv, cc.c_lo, cc.c_hi);
-      if (TAU == CHEB_NT) {
-        const float nsig_nt1 = (cc.nt_dens * cc.gam * ntc.thom_f1) *
-                               cheb_eval(c0 * ntc.invk1, ntc.span1, ntc.c1_lo, ntc.c1_hi);
-        const float taunorm = cc.n_e > 0.0f ? nsig_th : nsig_nt1;
-        const float total = nsig_th + ntc.n_gamma * taunorm;
-        rate = total * (1.0f - cc.beta_mag * cos_ang);
-        p_th = nsig_th / fmaxf(total, F32(1e-37));
-      } else {
-        rate = nsig_th * (1.0f - cc.beta_mag * cos_ang);
+      // 2. comoving four-momentum
+      float c0 = S(SP_C0), c1 = S(SP_C1), c2 = S(SP_C2), c3 = S(SP_C3);
+      if (in_grid) {
+        boost(bx, by, bz, p0, p1, p2, p3, c0, c1, c2, c3);
+        S(SP_C0) = c0;
+        S(SP_C1) = c1;
+        S(SP_C2) = c2;
+        S(SP_C3) = c3;
       }
-    }
 
-    // 3. free path -> candidate step
-    const float u1 = uniform_pos(base, k0 + off.free_);
-    const float mfp =
-        (in_grid && rate > 0.0f) ? -logf(u1) / fmaxf(rate, F32(1e-37)) : F32(1e12);
-    const float dt_scatt = mfp * cst.inv_c;
-    const bool will = in_grid && (dt_scatt < t_rem);
-    const float dt = will ? dt_scatt : t_rem;
-
-    // 4. advance along the lab direction at c (pool photons stay)
-    const float inv_p0 = 1.0f / fmaxf(p0, F32(1e-37));
-    const float step = is_pool ? 0.0f : cst.c_light * dt * inv_p0;
-    px = px + step * p1;
-    py = py + step * p2;
-    pz = pz + step * p3;
-    t_rem = t_rem - dt;
-
-    // 5. scatter attempt (null collision on KN reject)
-    bool scattered = false;
-    if (will) {
-      // F1 repair: z-hat replaces the degenerate +-beta_f reference vector
-      const bool flow = fl_norm > 0.0f;
-      const float frx = flow ? bx : 0.0f, fry = flow ? by : 0.0f, frz = flow ? bz : 1.0f;
-      const float mfx = flow ? -bx : 0.0f, mfy = flow ? -by : 0.0f, mfz = flow ? -bz : 1.0f;
-      float qc = q, uc = u;
-      if (STOKES) rotate_basis(p1, p2, p3, 0.0f, 0.0f, 1.0f, p1, p2, p3, frx, fry, frz, qc, uc);
-      float g_e, gb_e;
-      if (NT) {
-        // scattering population: thermal w.p. p_th, else the subgroups in
-        // equal slices of the rest, inverse-CDF gamma within the subgroup
-        const float u_pop = uniform(base, k0 + off.pop);
-        if (u_pop <= p_th) {
-          thermal_gamma_beta(base, k0, off, cc.temp, el_iters, cst, g_e, gb_e);
+      // tau rate.  TABLE: sigma_hat at the CURRENT comoving energy, after the
+      // boost (a lane outside the grid keeps its c0; its rate is unused).
+      // Nonthermal: the biased total tau0 + N_GAMMA tau_norm, tau_norm = tau0
+      // in thermal cells, else subgroup 1's (Src/optical_depth.c:60-112)
+      const float n_sigma = S(L::NSIG);
+      const float fluid = 1.0f - S(L::BETA) * cos_ang;
+      float rate, p_th = TAU == AUX_NT ? S(L::PTH) : 1.0f;
+      if (TAU == DIRECT || IS_AUX) {
+        rate = n_sigma * fluid;
+      } else {
+        const float nsig_th =
+            n_sigma * cheb_eval<THREADS>(c0 * S(L::KNEE), S(L::SPAN), &S(L::CLO), &S(L::CHI));
+        if (TAU == CHEB_NT) {
+          const float nsig_nt1 = S(L::NT1) * cheb_eval<1>(c0 * ntc.invk1, ntc.span1, ntc.c1_lo,
+                                                          ntc.c1_hi);
+          const float taunorm = S(L::NE) > 0.0f ? nsig_th : nsig_nt1;
+          const float total = nsig_th + ntc.n_gamma * taunorm;
+          rate = total * fluid;
+          p_th = nsig_th / fmaxf(total, F32(1e-37));
         } else {
-          const float slice_w = fmaxf((1.0f - p_th) * ntc.inv_n_gamma, F32(1e-37));
-          const float sub_f = clampf(floorf((u_pop - p_th) / slice_w), 0.0f, ntc.n_gamma_m1);
-          g_e = nonthermal_gamma(uniform(base, k0 + off.pop + 1u), sub_f, ntc);
-          gb_e = sqrtf(fmaxf(g_e * g_e - 1.0f, 0.0f));
+          rate = nsig_th * fluid;
         }
-      } else {
-        thermal_gamma_beta(base, k0, off, cc.temp, el_iters, cst, g_e, gb_e);
       }
-      float ex, ey, ez;
-      electron_from_gamma(base, k0, off, g_e, gb_e, c1, c2, c3, ex, ey, ez);
-      const float g0 = g_e;
 
-      // single scatter in the electron rest frame
-      const float inv_g = 1.0f / g0;
-      const float ebx = ex * inv_g, eby = ey * inv_g, ebz = ez * inv_g;
-      float r0, r1, r2, r3;
-      boost(ebx, eby, ebz, c0, c1, c2, c3, r0, r1, r2, r3);
-      if (STOKES) {
-        rotate_basis(c1, c2, c3, frx, fry, frz, c1, c2, c3, ebx, eby, ebz, qc, uc);
-        rotate_basis(r1, r2, r3, ebx, eby, ebz, r1, r2, r3, 0.0f, 0.0f, 1.0f, qc, uc);
-      }
-      const float e0 = r0;
-      const float rho0 = sqrtf(r1 * r1 + r2 * r2);
-      const bool has_xy = rho0 > 0.0f;
-      const float safe_rho0 = fmaxf(rho0, F32(1e-37));
-      const float a_c0 = has_xy ? r1 / safe_rho0 : 1.0f;
-      const float a_s0 = has_xy ? r2 / safe_rho0 : 0.0f;
-      const bool e_pos = e0 > 0.0f;
-      const float inv_e0 = e_pos ? 1.0f / fmaxf(e0, F32(1e-37)) : 0.0f;
-      const float a_c1 = e_pos ? rho0 * inv_e0 : 1.0f;
-      const float a_s1 = r3 * inv_e0;
-      const bool sc = uniform(base, k0 + off.acc) <= kn_cross_section(e0);
-      if (sc) {
-        float ct, st, c_phi, s_phi;
-        sample_kn_angles<STOKES>(base, k0, off, e0, qc, uc, kn_iters, ct, st, c_phi, s_phi);
-        const float e1 = e0 / (1.0f + e0 * (1.0f - ct));
-        const float sx = e1 * ct;
-        const float sy = e1 * st * s_phi;
-        const float sz = e1 * st * c_phi;
-        const float tx = a_c1 * sx - a_s1 * sz;
-        const float tz = a_s1 * sx + a_c1 * sz;
-        const float nx = a_c0 * tx - a_s0 * sy;
-        const float ny = a_s0 * tx + a_c0 * sy;
-        const float nz = tz;
-        float q2 = qc, u2 = uc, v2 = v;
-        if (STOKES) {
-          rotate_basis(r1, r2, r3, 0.0f, 0.0f, 1.0f, nx, ny, nz, r1, r2, r3, q2, u2);
-          float cos_sc = (r1 * nx + r2 * ny + r3 * nz) / fmaxf(e0 * e1, F32(1e-37));
-          cos_sc = clampf(cos_sc, -1.0f, 1.0f);
-          // Fano matrix (ops.stokes.fano_scatter_stokes)
-          const float st2 = fmaxf(1.0f - cos_sc * cos_sc, 0.0f);
-          const float de = e0 - e1;
-          const float m00 = 1.0f + cos_sc * cos_sc + (1.0f - cos_sc) * de;
-          const float m11 = 1.0f + cos_sc * cos_sc;
-          const float m22 = 2.0f * cos_sc;
-          const float m33 = 2.0f * cos_sc + cos_sc * (1.0f - cos_sc) * de;
-          const float fi = m00 + st2 * q2;
-          const float fq = st2 + m11 * q2;
-          const float fu = m22 * u2;
-          const float fv = m33 * v;
-          const float inv_i = 1.0f / fi;
-          q2 = fq * inv_i;
-          u2 = fu * inv_i;
-          v2 = fv * inv_i;
-          rotate_basis(nx, ny, nz, r1, r2, r3, nx, ny, nz, -ebx, -eby, -ebz, q2, u2);
+      // 3. free path -> candidate step
+      const float u1 = uniform_pos(base, k0 + off.free_);
+      const float mfp =
+          (in_grid && rate > 0.0f) ? -logf(u1) / fmaxf(rate, F32(1e-37)) : F32(1e12);
+      const float dt_scatt = mfp * cst.inv_c;
+      const bool will = in_grid && (dt_scatt < t_rem);
+      const float dt = will ? dt_scatt : t_rem;
+
+      // 4. advance along the lab direction at c (pool photons stay)
+      const float inv_p0 = 1.0f / fmaxf(p0, F32(1e-37));
+      const float step = is_pool ? 0.0f : cst.c_light * dt * inv_p0;
+      px = px + step * p1;
+      py = py + step * p2;
+      pz = pz + step * p3;
+      t_rem = t_rem - dt;
+      S(SP_X) = px;
+      S(SP_Y) = py;
+      S(SP_Z) = pz;
+      S(SP_TREM) = t_rem;
+
+      // 5. scatter attempt up to the KN acceptance (null collision on reject)
+      if (will) {
+        // F1 repair: z-hat replaces the degenerate +-beta_f reference vector
+        const bool flow = fl_norm > 0.0f;
+        const float frx = flow ? bx : 0.0f, fry = flow ? by : 0.0f, frz = flow ? bz : 1.0f;
+        float qc = S(SP_Q), uc = S(SP_U);
+        if (STOKES) rotate_basis(p1, p2, p3, 0.0f, 0.0f, 1.0f, p1, p2, p3, frx, fry, frz, qc, uc);
+        float g_e, gb_e;
+        if (NT) {
+          // scattering population: thermal w.p. p_th, else the subgroups in
+          // equal slices of the rest, inverse-CDF gamma within the subgroup
+          const float u_pop = uniform(base, k0 + off.pop);
+          if (u_pop <= p_th) {
+            thermal_gamma_beta(base, k0, off, S(L::TEMP), el_iters, cst, g_e, gb_e);
+          } else {
+            const float slice_w = fmaxf((1.0f - p_th) * ntc.inv_n_gamma, F32(1e-37));
+            const float sub_f = clampf(floorf((u_pop - p_th) / slice_w), 0.0f, ntc.n_gamma_m1);
+            g_e = nonthermal_gamma(uniform(base, k0 + off.pop + 1u), sub_f, ntc);
+            gb_e = sqrtf(fmaxf(g_e * g_e - 1.0f, 0.0f));
+          }
+        } else {
+          thermal_gamma_beta(base, k0, off, S(L::TEMP), el_iters, cst, g_e, gb_e);
         }
-        // de-boost to the comoving frame, then to the lab
-        float o0, o1, o2, o3, l0, l1, l2, l3;
-        boost(-ebx, -eby, -ebz, e1, nx, ny, nz, o0, o1, o2, o3);
-        boost(-bx, -by, -bz, o0, o1, o2, o3, l0, l1, l2, l3);
+        float ex, ey, ez;
+        electron_from_gamma(base, k0, off, g_e, gb_e, c1, c2, c3, ex, ey, ez);
+        const float g0 = g_e;
+
+        // the photon in the electron rest frame, and the acceptance draw
+        const float inv_g = 1.0f / g0;
+        const float ebx = ex * inv_g, eby = ey * inv_g, ebz = ez * inv_g;
+        float r0, r1, r2, r3;
+        boost(ebx, eby, ebz, c0, c1, c2, c3, r0, r1, r2, r3);
         if (STOKES) {
-          const float inv_ge = 1.0f / g0;
-          rotate_basis(o1, o2, o3, -ex * inv_ge, -ey * inv_ge, -ez * inv_ge, o1, o2, o3,
-                       mfx, mfy, mfz, q2, u2);
-          rotate_basis(l1, l2, l3, mfx, mfy, mfz, l1, l2, l3, 0.0f, 0.0f, 1.0f, q2, u2);
-          q = q2;
-          u = u2;
-          v = v2;
+          rotate_basis(c1, c2, c3, frx, fry, frz, c1, c2, c3, ebx, eby, ebz, qc, uc);
+          rotate_basis(r1, r2, r3, ebx, eby, ebz, r1, r2, r3, 0.0f, 0.0f, 1.0f, qc, uc);
         }
-        p0 = l0;
-        p1 = l1;
-        p2 = l2;
-        p3 = l3;
-        c0 = o0;
-        c1 = o1;
-        c2 = o2;
-        c3 = o3;
-        ns = ns + 1.0f;
-        promoted = promoted || is_pool;
-        scattered = true;
+        accepted = uniform(base, k0 + off.acc) <= kn_cross_section(r0);
+        if (accepted) {  // the scatter's inputs, for phase B
+          S(SP_P0) = g0;
+          S(SP_P1) = ex;
+          S(SP_P2) = ey;
+          S(SP_P3) = ez;
+          S(SP_C0) = r0;
+          S(SP_C1) = r1;
+          S(SP_C2) = r2;
+          S(SP_C3) = r3;
+          S(SP_Q) = qc;
+          S(SP_U) = uc;
+          S(L::BX) = bx;
+          S(L::BY) = by;
+          S(L::BZ) = bz;
+          S(SP_NS) = S(SP_NS) + 1.0f;
+          promoted = promoted || is_pool;
+        }
       }
+
+      // 6. post-move cell/domain membership: stall lanes that left; AUX also
+      // stalls lanes that scattered.  A lane that stalls or runs out of
+      // frame time stays idle.
+      if (in_grid && !cc.contains(px, py, pz, g) && t_rem > 0.0f) stalled = true;
+      if (IS_AUX && accepted && t_rem > 0.0f) stalled = true;
+      live = !stalled && t_rem > 0.0f;
     }
 
-    // 6. post-move cell/domain membership: stall lanes that left; AUX also
-    // stalls lanes that scattered
-    if (in_grid && !cc.contains(px, py, pz, g) && t_rem > 0.0f) stalled = true;
-    if (IS_AUX && scattered && t_rem > 0.0f) stalled = true;
+    // the queue of accepted lanes: a warp's lanes take consecutive entries
+    const unsigned acc_mask = __ballot_sync(0xffffffffu, accepted);
+    if (acc_mask != 0u) {
+      const int wl = tid & 31;
+      const int leader = __ffs(acc_mask) - 1;
+      int at = 0;
+      if (wl == leader) at = atomicAdd(&qcount[r & 1], __popc(acc_mask));
+      at = __shfl_sync(0xffffffffu, at, leader);
+      if (accepted) queue[at + __popc(acc_mask & ((1u << wl) - 1u))] = (unsigned short)tid;
+    }
+    const int more = __syncthreads_or(live);
+
+    // ---- phase B
+    const int nq = qcount[r & 1];
+    for (int i = tid; i < nq; i += THREADS) {
+      const int slot = queue[i];
+      scatter_entry<STOKES, L, THREADS>(sm, slot, (int64_t)blockIdx.x * THREADS + slot,
+                                        block_lanes, seed, k0, off, kn_iters);
+    }
+    if (tid == 0) qcount[(r + 1) & 1] = 0;
+    __syncthreads();
+    if (!more) break;
   }
 
-  state[SP_P0 * n + lane] = p0;
-  state[SP_P1 * n + lane] = p1;
-  state[SP_P2 * n + lane] = p2;
-  state[SP_P3 * n + lane] = p3;
-  state[SP_X * n + lane] = px;
-  state[SP_Y * n + lane] = py;
-  state[SP_Z * n + lane] = pz;
-  state[SP_Q * n + lane] = q;
-  state[SP_U * n + lane] = u;
-  state[SP_V * n + lane] = v;
-  state[SP_TREM * n + lane] = t_rem;
-  state[SP_NS * n + lane] = ns;
-  state[SP_C0 * n + lane] = c0;
-  state[SP_C1 * n + lane] = c1;
-  state[SP_C2 * n + lane] = c2;
-  state[SP_C3 * n + lane] = c3;
-  out_flags[lane] = (stalled ? OUT_STALLED : 0) | (promoted ? OUT_PROMOTED : 0);
+  if (ran) {
+#pragma unroll
+    for (int p = 0; p < N_STATE; ++p) state[p * n + lane] = S(p);
+  }
+  if (lane < n) out_flags[lane] = (stalled ? OUT_STALLED : 0) | (promoted ? OUT_PROMOTED : 0);
+#undef S
 }
 
 struct Launch {
@@ -945,21 +1132,69 @@ struct Launch {
   const float* aux;
 };
 
-template <int TAU, int GEO, int SRC, bool V2>
-void launch(const Launch& a, bool stokes, cudaStream_t s) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
-  if (stokes) {
-    fused_rounds_kernel<true, GEO, SRC, V2, TAU><<<blocks, threads, 0, s>>>(
-        a.state, a.n, a.cell, a.flags, a.table, a.ncell, a.block_act, a.out_flags, a.seed,
-        a.g, a.cst, a.inner_rounds, a.el_iters, a.kn_iters, a.block_lanes, a.cheb_base,
-        a.ntc, a.aux);
-  } else {
-    fused_rounds_kernel<false, GEO, SRC, V2, TAU><<<blocks, threads, 0, s>>>(
-        a.state, a.n, a.cell, a.flags, a.table, a.ncell, a.block_act, a.out_flags, a.seed,
-        a.g, a.cst, a.inner_rounds, a.el_iters, a.kn_iters, a.block_lanes, a.cheb_base,
-        a.ntc, a.aux);
+// an instantiation's launch shape and what the CUDA runtime reports of it
+// (mcrat_fused_rounds_attrs)
+struct Attrs {
+  int threads, dyn_smem, registers, local_bytes, static_smem;
+};
+
+// one instantiation: its launch on a Launch, else (a null Launch) its Attrs
+// into q; cudaSuccess or the runtime's error
+template <bool STOKES, int TAU, int GEO, int SRC, bool V2>
+int launch_one(const Launch* a, Attrs* q, cudaStream_t s) {
+  constexpr int COUNT = Layout<GEO, SRC, V2, TAU>::COUNT;
+  constexpr int THREADS = block_threads<STOKES, COUNT>();
+  constexpr int smem = COUNT * THREADS * (int)sizeof(float);
+  auto kern = fused_rounds_kernel<STOKES, GEO, SRC, V2, TAU, THREADS>;
+  if (a == nullptr) {
+    cudaFuncAttributes fa;
+    const cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return (int)e;
+    *q = Attrs{THREADS, smem, fa.numRegs, (int)fa.localSizeBytes, (int)fa.sharedSizeBytes};
+    return 0;
   }
+  // dynamic shared memory above 48 KB needs the opt-in, which holds for the
+  // current device only: made at every launch (a host-side attribute write)
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)((a->n + THREADS - 1) / THREADS);
+  kern<<<blocks, THREADS, smem, s>>>(a->state, a->n, a->cell, a->flags, a->table, a->ncell,
+                                     a->block_act, a->out_flags, a->seed, a->g, a->cst,
+                                     a->inner_rounds, a->el_iters, a->kn_iters, a->block_lanes,
+                                     a->cheb_base, a->ntc, a->aux);
+  return 0;
+}
+
+template <int TAU, int GEO, int SRC, bool V2>
+int launch(const Launch* a, Attrs* q, bool stokes, cudaStream_t s) {
+  return stokes ? launch_one<true, TAU, GEO, SRC, V2>(a, q, s)
+                : launch_one<false, TAU, GEO, SRC, V2>(a, q, s);
+}
+
+// one family's instantiation of a variant code (launch's result), or -1 for
+// an unknown code or an ultra/slim variant in a family of the packed
+// variants only
+template <int TAU>
+int launch_variant(int variant, const Launch* a, Attrs* q, bool st, cudaStream_t s) {
+  if constexpr (TAU == DIRECT || TAU == CHEB) {  // the others: packed variants only
+    switch (variant) {
+      case 0: return launch<TAU, CYL2, ULTRA, false>(a, q, st, s);
+      case 1: return launch<TAU, SPH2, ULTRA, false>(a, q, st, s);
+      case 2: return launch<TAU, CART3, ULTRA, false>(a, q, st, s);
+      case 3: return launch<TAU, CYL2, SLIM, false>(a, q, st, s);
+    }
+  }
+  switch (variant) {
+    case 4: return launch<TAU, CYL2, PACKED, false>(a, q, st, s);
+    case 5: return launch<TAU, CYL2, PACKED, true>(a, q, st, s);
+    case 6: return launch<TAU, SPH2, PACKED, false>(a, q, st, s);
+    case 7: return launch<TAU, SPH2, PACKED, true>(a, q, st, s);
+    case 8: return launch<TAU, CART3, PACKED, false>(a, q, st, s);
+    case 9: return launch<TAU, SPH3, PACKED, false>(a, q, st, s);
+    case 10: return launch<TAU, POL3, PACKED, false>(a, q, st, s);
+  }
+  return -1;
 }
 
 // the kernel's Klein-Nishina cross section on its own, for checks
@@ -967,6 +1202,51 @@ __global__ void kn_cross_section_kernel(const float* __restrict__ e, float* __re
                                         int64_t n) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = kn_cross_section(e[i]);
+}
+
+}  // namespace
+
+// The build (mcrat_tpu_torch/_build.py) compiles this source once for each
+// optical-depth family, with -DMCRAT_FAMILY=<Tau code>: that family's
+// instantiations behind one C launcher, mcrat_launch_family_<code>; and
+// once without it: the C entry points.  The six nvcc processes run side by
+// side, and their objects link into one library.
+#define MCRAT_CAT2(a, b) a##b
+#define MCRAT_CAT(a, b) MCRAT_CAT2(a, b)
+
+#ifdef MCRAT_FAMILY
+
+// a launch of the family's instantiation of a variant code (the Launch and
+// Attrs structs of the entry points' translation unit: the same source); a
+// null launch writes the instantiation's Attrs
+extern "C" int MCRAT_CAT(mcrat_launch_family_, MCRAT_FAMILY)(int variant, const void* a,
+                                                              void* q, int stokes_on,
+                                                              void* stream) {
+  return launch_variant<MCRAT_FAMILY>(variant, (const Launch*)a, (Attrs*)q, stokes_on != 0,
+                                      (cudaStream_t)stream);
+}
+
+#else
+
+extern "C" {
+int mcrat_launch_family_0(int, const void*, void*, int, void*);
+int mcrat_launch_family_1(int, const void*, void*, int, void*);
+int mcrat_launch_family_2(int, const void*, void*, int, void*);
+int mcrat_launch_family_3(int, const void*, void*, int, void*);
+int mcrat_launch_family_4(int, const void*, void*, int, void*);
+}
+
+namespace {
+
+int dispatch(int variant, int tau, const Launch* a, Attrs* q, int stokes_on, void* s) {
+  switch (tau) {
+    case DIRECT: return mcrat_launch_family_0(variant, a, q, stokes_on, s);
+    case CHEB: return mcrat_launch_family_1(variant, a, q, stokes_on, s);
+    case CHEB_NT: return mcrat_launch_family_2(variant, a, q, stokes_on, s);
+    case AUX: return mcrat_launch_family_3(variant, a, q, stokes_on, s);
+    case AUX_NT: return mcrat_launch_family_4(variant, a, q, stokes_on, s);
+  }
+  return -1;
 }
 
 }  // namespace
@@ -981,34 +1261,6 @@ extern "C" int mcrat_kn_cross_section(const float* e, float* out, int64_t n, voi
   kn_cross_section_kernel<<<blocks, threads, 0, s>>>(e, out, n);
   return (int)cudaGetLastError();
 }
-
-namespace {
-
-// one family's instantiations, by variant code; false for an unknown code
-// or an ultra/slim variant in a family of the packed variants only
-template <int TAU>
-bool launch_variant(int variant, const Launch& a, bool st, cudaStream_t s) {
-  if constexpr (TAU == DIRECT || TAU == CHEB) {  // the others: packed variants only
-    switch (variant) {
-      case 0: launch<TAU, CYL2, ULTRA, false>(a, st, s); return true;
-      case 1: launch<TAU, SPH2, ULTRA, false>(a, st, s); return true;
-      case 2: launch<TAU, CART3, ULTRA, false>(a, st, s); return true;
-      case 3: launch<TAU, CYL2, SLIM, false>(a, st, s); return true;
-    }
-  }
-  switch (variant) {
-    case 4: launch<TAU, CYL2, PACKED, false>(a, st, s); return true;
-    case 5: launch<TAU, CYL2, PACKED, true>(a, st, s); return true;
-    case 6: launch<TAU, SPH2, PACKED, false>(a, st, s); return true;
-    case 7: launch<TAU, SPH2, PACKED, true>(a, st, s); return true;
-    case 8: launch<TAU, CART3, PACKED, false>(a, st, s); return true;
-    case 9: launch<TAU, SPH3, PACKED, false>(a, st, s); return true;
-    case 10: launch<TAU, POL3, PACKED, false>(a, st, s); return true;
-  }
-  return false;
-}
-
-}  // namespace
 
 // variant codes as in mcrat_tpu_torch/ops/fused_round.py::VARIANTS, tau the
 // optical-depth family (fused_round.TAU_*), nt the host array of the n_nt
@@ -1036,20 +1288,30 @@ extern "C" int mcrat_fused_rounds(int variant, int tau, float* state, int64_t n,
            Consts{kb_over_mec2, thom, c_light, inv_c, inv_mp},
            inner_rounds, el_iters, kn_iters, block_lanes, cheb_base, NtConsts{}, aux};
   memcpy(&a.ntc, nt, sizeof(NtConsts));
-  const bool st = stokes_on != 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  bool ok = false;
-  switch (tau) {
-    case DIRECT: ok = launch_variant<DIRECT>(variant, a, st, s); break;
-    case CHEB: ok = launch_variant<CHEB>(variant, a, st, s); break;
-    case CHEB_NT: ok = launch_variant<CHEB_NT>(variant, a, st, s); break;
-    case AUX: ok = launch_variant<AUX>(variant, a, st, s); break;
-    case AUX_NT: ok = launch_variant<AUX_NT>(variant, a, st, s); break;
-  }
-  if (!ok) return (int)cudaErrorInvalidValue;
+  const int rc = dispatch(variant, tau, &a, nullptr, stokes_on, stream);
+  if (rc < 0) return (int)cudaErrorInvalidValue;
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
+}
+
+// one instantiation's launch shape and resources into out[5]: threads a
+// block (fused_round.cuda_block), dynamic shared memory (bytes), and as
+// cudaFuncGetAttributes reports them for this library, registers a thread,
+// local memory a thread (bytes: spills and stack) and static shared memory
+// (bytes); cudaSuccess, the runtime's error, or cudaErrorInvalidValue for an
+// unknown code or family
+extern "C" int mcrat_fused_rounds_attrs(int variant, int tau, int stokes_on, int* out) {
+  Attrs q{};
+  const int rc = dispatch(variant, tau, nullptr, &q, stokes_on, nullptr);
+  if (rc < 0) return (int)cudaErrorInvalidValue;
+  if (rc != 0) return rc;
+  const int v[5] = {q.threads, q.dyn_smem, q.registers, q.local_bytes, q.static_smem};
+  memcpy(out, v, sizeof(v));
+  return 0;
 }
 
 extern "C" const char* mcrat_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+#endif  // MCRAT_FAMILY

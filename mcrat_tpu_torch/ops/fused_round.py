@@ -103,6 +103,7 @@ N_PHYS = 4
 PHYS3 = dict(v0=0, v1=1, v2=2, ne_lab=3, temp=4)
 
 LANES = 128
+WARP = 32
 DEFAULT_MFP = 1e12
 TINY = rng.TINY
 # theta = kT/(m_e c^2) at the reference's 1e7 K thermal-sampler switch
@@ -567,6 +568,8 @@ def _single_scatter(base, k0, off: DrawOffsets, g0, e1x, e1y, e1z, c0, c1, c2, c
     a_c1 = torch.where(e_pos, rho0 * inv_e0, 1.0)
     a_s1 = r3 * inv_e0
     scattered = rng.uniform(base, k0 + off.acc) <= _kn_cross_section(e0)
+    if tally is not None:
+        tally["kn_double"] = e0 >= 1e-3
     ct, st, c_phi, s_phi = _sample_kn_angles(base, k0, off, e0, q, u, stokes_on, tally)
     e1 = e0 / (1.0 + e0 * (1.0 - ct))
     sx = e1 * ct
@@ -853,11 +856,30 @@ def _population_gamma(base, k0, off: DrawOffsets, nt: NtConstants, p_th, g_th, g
     return torch.where(is_th, g_th, g_nt), torch.where(is_th, gb_th, gb_nt)
 
 
+def warp_tally(mask, lanes, block: int):
+    """(any-lane warps, dense warps) of a branch taken on ``mask`` of the
+    lanes ``lanes`` (ascending kernel lane numbers): the 32-lane warps in
+    which any lane takes it, and the warps it needs once each CUDA block of
+    ``block`` threads (:func:`cuda_block`) packs its lanes that take it (the
+    sum over blocks of ceil(count / 32)).  Two 0-d tensors; no host sync."""
+    sel = lanes[mask]
+    warp = torch.div(sel, WARP, rounding_mode="floor")
+    blk = torch.div(sel, block, rounding_mode="floor")
+    first = torch.ones_like(sel, dtype=torch.bool)
+    first[1:] = warp[1:] != warp[:-1]
+    starts = torch.ones_like(sel, dtype=torch.bool)
+    starts[1:] = blk[1:] != blk[:-1]
+    idx = torch.arange(sel.numel(), device=sel.device)
+    rank = idx - torch.cummax(torch.where(starts, idx, 0), 0).values
+    return first.sum(), (rank % WARP == 0).sum()
+
+
 def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rounds,
-            nt: NtConstants = None, aux=None, work=None):
+            nt: NtConstants = None, aux=None, work=None, lanes=None, block=None):
     """``inner_rounds`` rounds over a flat set of lanes (pallas_round
     round_body).  ``aux`` is None or the lanes' (2, n) aux planes.  ``work``
-    (a Counter) adds up the work the kernel does on these lanes: the
+    (a Counter) adds up the work the kernel does on these lanes, ``lanes``
+    their kernel lane numbers, ``block`` the kernel's CUDA block: the
     :data:`WORK_KEYS`.  Returns the new 16 planes and the (stalled,
     promoted) masks."""
     (p0, p1, p2, p3, px, py, pz, q, u, v, t_rem, ns, c0, c1, c2, c3) = st
@@ -957,9 +979,18 @@ def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rou
                            ("attempts", will), ("mb", th & tally["cold"]),
                            ("mj_trials", torch.where(th & ~tally["cold"], tally["mj"], 0.0)),
                            ("nt_draws", will & ~th), ("scatters", scattered),
+                           ("kn_double", will & tally["kn_double"]),
                            ("theta_trials", torch.where(scattered, tally["theta"], 0.0)),
                            ("phi_trials", torch.where(scattered, tally["phi"], 0.0))):
                 work[key] = work[key] + n.sum()  # a tensor: no host sync
+            mj = th & ~tally["cold"]
+            branches = (("attempts", [will]), ("nt_draws", [will & ~th]), ("scatters", [scattered]),
+                        ("mj_trials", [mj & (tally["mj"] > t) for t in range(EL_ITERS)]))
+            for key, masks in branches:
+                for m in masks:
+                    n_any, n_dense = warp_tally(m, lanes, block)
+                    work["warps_any_" + key] = work["warps_any_" + key] + n_any
+                    work["warps_dense_" + key] = work["warps_dense_" + key] + n_dense
         l0, l1, l2, l3 = _boost(-bx, -by, -bz, o0, o1, o2, o3)
         if stokes_on:
             inv_ge = 1.0 / g0
@@ -1073,7 +1104,8 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
         (fl & FLAG_ALIVE) != 0, (fl & FLAG_POOL) != 0, (fl & FLAG_INGRID) != 0,
         _Cell(VARIANTS[variant], table, cl, grid, cheb_base, nt is not None), base,
         stokes_on, inner_rounds, nt, None if aux is None else aux[:, lanes],
-        fused_rounds_reference.work,
+        fused_rounds_reference.work, lanes,
+        cuda_block(variant, tau_family(cheb_base, nt, aux is not None), stokes_on),
     )
     state[:, lanes] = torch.stack(planes)
     out[lanes] = stalled.to(torch.int32) * OUT_STALLED + promoted.to(torch.int32) * OUT_PROMOTED
@@ -1083,9 +1115,16 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
 fused_rounds_reference.launches = 0
 # the kernel's work on the twin's inputs (see _rounds): None, or a
 # collections.Counter that the twin's calls add to, for a caller that counts
-# a call's operations (its operation bound)
+# a call's operations (its operation bound): lane rounds, attempts, draws,
+# rejection trials, scatters, attempts that evaluate the double KN form
+# (kn_double) and, for the branches attempts, mj_trials (each
+# Maxwell-Juttner trial), nt_draws and scatters, the warps that run them
+# (warp_tally): warps_any_* with one thread a lane, warps_dense_* once each
+# CUDA block packs the branch's lanes
+WARP_BRANCHES = ("attempts", "mj_trials", "nt_draws", "scatters")
 WORK_KEYS = ("lane_rounds", "in_grid_rounds", "attempts", "mb", "mj_trials", "nt_draws",
-             "scatters", "theta_trials", "phi_trials")
+             "scatters", "theta_trials", "phi_trials", "kn_double",
+             *(f"warps_{k}_{b}" for b in WARP_BRANCHES for k in ("any", "dense")))
 fused_rounds_reference.work = None
 
 # the kernel's optical-depth families (csrc/fused_round.cu enum Tau)
@@ -1111,16 +1150,65 @@ def instantiation(variant: str, cheb_base: int = 0, nt=None, stokes_on: bool = T
             + ("" if stokes_on else "/stokes_off"))
 
 
-def instantiations() -> list:
-    """The names of all 86 kernel instantiations: DIRECT and CHEB on the 11
-    variants, CHEB_NT, AUX and AUX_NT on the 7 packed ones, each with
-    Stokes on and off."""
-    return [instantiation(v, var.width if tau in (TAU_CHEB, TAU_CHEB_NT) else 0,
-                          True if tau in (TAU_CHEB_NT, TAU_AUX_NT) else None, s,
-                          aux=tau in (TAU_AUX, TAU_AUX_NT))
+def instantiation_specs() -> list:
+    """(name, variant, optical-depth family, stokes_on) of all 86 kernel
+    instantiations: DIRECT and CHEB on the 11 variants, CHEB_NT, AUX and
+    AUX_NT on the 7 packed ones, each with Stokes on and off."""
+    return [(instantiation(v, var.width if tau in (TAU_CHEB, TAU_CHEB_NT) else 0,
+                           True if tau in (TAU_CHEB_NT, TAU_AUX_NT) else None, s,
+                           aux=tau in (TAU_AUX, TAU_AUX_NT)), v, tau, s)
             for tau in (TAU_DIRECT, TAU_CHEB, TAU_CHEB_NT, TAU_AUX, TAU_AUX_NT)
             for v, var in VARIANTS.items()
             if tau in (TAU_DIRECT, TAU_CHEB) or var.source == "packed" for s in (True, False)]
+
+
+def instantiations() -> list:
+    """The names of all 86 kernel instantiations (:func:`instantiation_specs`)."""
+    return [spec[0] for spec in instantiation_specs()]
+
+
+def layout_floats(variant: str, tau: int) -> int:
+    """Floats a lane keeps in the kernel's shared memory (csrc/fused_round.cu
+    Layout::COUNT): 16 state planes, 12 cell and exchange fields, the phi-hat
+    or 3-D velocity, 3-D centre and size, the angular cells' sines and
+    cosines, the nonthermal and aux fields, and in CHEB families the knee,
+    the span and the Chebyshev coefficients."""
+    var = VARIANTS[variant]
+    d3 = var.geom in ("cart3", "sph3", "pol3")
+    return (N_STATE + 12 + (var.v2 or d3) + 2 * d3
+            + 3 * (var.geom in ("sph2", "sph3", "pol3")) + 3 * (var.geom == "sph3")
+            + 2 * (tau == TAU_CHEB_NT) + (tau == TAU_AUX_NT)
+            + (4 + CHEB_DLO + CHEB_DHI) * (tau in (TAU_CHEB, TAU_CHEB_NT)))
+
+
+SM_SMEM = 228 * 1024  # shared memory of an H100 SM
+BLOCK_SMEM_EXTRA = 4096  # a block's static arrays and the runtime's 1 KB, with room
+
+
+def cuda_block(variant: str, tau: int, stokes_on: bool) -> int:
+    """Threads of the kernel's CUDA block for an instantiation (the block
+    that runs its rounds together and packs its accepted scatters;
+    csrc/fused_round.cu block_threads): 512 with Stokes where two such
+    blocks fit an SM's shared memory, else 256."""
+    wide = 2 * (layout_floats(variant, tau) * 512 * 4 + BLOCK_SMEM_EXTRA) <= SM_SMEM
+    return 512 if stokes_on and wide else 256
+
+
+def kernel_attributes(lib, variant: str, tau: int, stokes_on: bool) -> dict:
+    """An instantiation's launch shape and resources in a built library
+    (``mcrat_fused_rounds_attrs``): ``threads`` a block, ``dyn_smem`` and
+    ``static_smem`` bytes of shared memory a block, and as the CUDA runtime
+    reports them for the loaded code, ``registers`` and ``local_bytes``
+    (spills and stack) a thread.  Raises on an error."""
+    fn = lib.mcrat_fused_rounds_attrs
+    fn.argtypes = [ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(VARIANTS[variant].code, tau, int(stokes_on), out)
+    if err != 0:
+        raise RuntimeError(f"mcrat_fused_rounds_attrs({variant}, {tau}) failed: "
+                           f"{lib.mcrat_error_string(err).decode()}")
+    return dict(zip(("threads", "dyn_smem", "registers", "local_bytes", "static_smem"), out))
 
 
 def fused_rounds(state, cell, flags, table, block_act, seed: int,
@@ -1147,16 +1235,31 @@ def fused_rounds(state, cell, flags, table, block_act, seed: int,
     _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt, aux)
     from .._build import load_fused_round
 
-    tau = tau_family(cheb_base, nt, aux is not None)
-    name = instantiation(variant, cheb_base, nt, stokes_on, aux is not None)
-    lib = load_fused_round()
+    out = launch(load_fused_round(), torch.cuda.current_stream(state.device).cuda_stream,
+                 state, cell, flags, table, block_act, seed, grid, stokes_on, inner_rounds,
+                 block_lanes, variant, cheb_base, nt, aux)
+    fused_rounds.launches += 1
+    fused_rounds.variant_launches[instantiation(variant, cheb_base, nt, stokes_on,
+                                                aux is not None)] += 1
+    return out
+
+
+def launch(lib, stream, state, cell, flags, table, block_act, seed: int, grid: GridScalars,
+           stokes_on: bool, inner_rounds: int, block_lanes: int, variant: str,
+           cheb_base: int, nt: NtConstants, aux):
+    """One call of ``lib.mcrat_fused_rounds`` (a library bound by
+    ``_build.bind_fused_round``) on ``stream``, on arguments that
+    :func:`_check_args` accepts; raises if the call returns an error.
+    Counts nothing: :func:`fused_rounds` is the port's entry point, and this
+    is the call it makes, shared with tools that load another build of the
+    same source (``tools/kernel_ab.py``)."""
     n = state.shape[1]
     out = torch.empty(n, dtype=torch.int32, device=state.device)
-    stream = torch.cuda.current_stream(state.device).cuda_stream
     f = ctypes.c_float
     consts = (f * N_NT_CONSTS)(*(nt.as_floats() if nt is not None else [0.0] * N_NT_CONSTS))
     err = lib.mcrat_fused_rounds(
-        ctypes.c_int32(VARIANTS[variant].code), ctypes.c_int32(tau),
+        ctypes.c_int32(VARIANTS[variant].code),
+        ctypes.c_int32(tau_family(cheb_base, nt, aux is not None)),
         state.data_ptr(), ctypes.c_int64(n), cell.data_ptr(), flags.data_ptr(),
         table.data_ptr(), ctypes.c_int64(table.shape[1]), block_act.data_ptr(),
         out.data_ptr(), ctypes.c_int32(rng_seed_i32(seed)),
@@ -1170,10 +1273,9 @@ def fused_rounds(state, cell, flags, table, block_act, seed: int,
         None if aux is None else aux.data_ptr(), stream,
     )
     if err != 0:
+        name = instantiation(variant, cheb_base, nt, stokes_on, aux is not None)
         msg = lib.mcrat_error_string(err).decode()
         raise RuntimeError(f"fused_round kernel launch failed ({name}): {msg}")
-    fused_rounds.launches += 1
-    fused_rounds.variant_launches[name] += 1
     return out
 
 

@@ -7,7 +7,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "mcrat_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_frames.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_frames.py",
+    ROOT / "tools" / "kernel_ab.py", ROOT / "tools" / "sass_counts.py"]
 ALLOWED_FROM_JAX_PACKAGE = set()
 
 
@@ -36,7 +37,7 @@ def test_no_jax_and_only_config_constants(path):
 def test_package_sources_found():
     names = {p.name for p in SOURCES}
     assert {"transport.py", "grid.py", "fused_round.py", "config.py", "constants.py",
-            "chip_smoke.py", "profile_torch_frames.py"} <= names
+            "chip_smoke.py", "profile_torch_frames.py", "kernel_ab.py", "sass_counts.py"} <= names
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

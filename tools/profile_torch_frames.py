@@ -18,13 +18,16 @@ frame:
                        Chebyshev rows and nonthermal constants), host clock
                        around it, synchronized before and after;
   kernel_ms            one more frame (seed 7) with a CUDA event pair around
-                       every fused_rounds call: per-call device times and
-                       their sum (kernel_ms_sum);
+                       every fused_rounds call: per-call times, the host's
+                       launch latency included, and their sum
+                       (kernel_ms_sum);
   profiled_wall_ms,    one more frame (seed 8) under torch.profiler (CPU +
   device_busy_ms,      CUDA activities): its wall, the sum of the self device
   idle_share           time of every device kernel in it, and
                        idle_share = 1 - device_busy_ms / profiled_wall_ms
                        (device ops do not overlap on the one stream);
+  kernel_device_ms,    the self device time of the fused-round kernel's
+  kernel_device_calls  launches in that frame, and their number;
   cpu_total_ms         the sum of the self CPU time of every host op;
   top                  the eight device kernels with most self device time.
 
@@ -104,11 +107,14 @@ def profile_frame(prob) -> dict:
     dev_ops = [e for e in ka if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev_ops) / 1e3
     top = sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:8]
+    kern = [e for e in dev_ops if "fused_rounds_kernel" in e.key]
     return dict(
         n_photons=prob.photons.capacity, n_rounds=res.n_rounds, n_scatt=res.n_scatt,
         wall_ms=walls, select_variant_ms=setup_ms, kernel_calls=len(kms),
         kernel_ms_sum=sum(kms), kernel_ms=kms, profiled_wall_ms=pwall,
         device_busy_ms=busy, idle_share=1.0 - busy / pwall,
+        kernel_device_ms=sum(e.self_device_time_total for e in kern) / 1e3,
+        kernel_device_calls=sum(e.count for e in kern),
         n_device_kernels=sum(e.count for e in dev_ops),
         cpu_total_ms=sum(e.self_cpu_time_total for e in ka
                          if e.device_type != DeviceType.CUDA) / 1e3,
