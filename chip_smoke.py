@@ -85,12 +85,26 @@ off) -- and checks them:
      with Stokes off, with the frame checks (the aux cases through
      transport_frame on their BinnedIndex: the carried path on every
      geometry);
-  8. prints the kernels' JSON line (with each instantiation's block,
+  8. the driver's main path (driver_phase): ``mcrat_tpu_torch.cli run`` of
+     the 2-D spherical outflow on the driver's default synthetic grid (the
+     frame of 4.), ~1M photons injected at frames 0 and 1, frames 0-4, npz
+     dumps, merged; per frame its photons, scatterings, rounds, transport
+     and persistence-wait wall and the writer's fetch, checkpoint and dump
+     seconds (the driver's ``frame_timing`` records), the run's wall and
+     peak device memory, and its launches (packed_sph2 alone); checks:
+     frames 0-4 dumped, each merged frame the photons and weight of the
+     injections that reach it, frame 0 bit for bit a hand-sequenced inject
+     + transport_frame, a run resumed from the .old checkpoint a crash after
+     frame 2 leaves equal to the main run's first injection bit for bit on
+     frames 0-4, ``cli status`` every rank done; ``analysis`` peak energy
+     and polarization of frame 4;
+  9. prints the kernels' JSON line (with each instantiation's block,
      registers, local memory a thread -- spills and stack, as the CUDA
-     runtime reports them -- and shared memory), then {"ok": true, "device": {...}} last.
+     runtime reports them -- and shared memory, and its launches in the
+     driver run), then {"ok": true, "device": {...}} last.
 
-Each path's launch counts are set to 0 just before it runs and read just
-after.  An instantiation's ``launches`` in the kernels' line are those of
+Each path's launch counts (the driver run's too) are set to 0 just before it
+runs and read just after.  An instantiation's ``launches`` in the kernels' line are those of
 the one path that owns it: a main path (its timed runs) where one runs it,
 else the first frame of 7. that runs it; a line per instantiation names
 that path.  Run from the repository root: ``python3 chip_smoke.py``.  Imports no
@@ -99,6 +113,7 @@ JAX.
 import collections
 import dataclasses
 import json
+import logging
 import os
 import re
 import subprocess
@@ -1000,6 +1015,223 @@ def same_outflow_check(prob_a, res_a, prob_b, res_b):
         raise RuntimeError(f"the AMR frame's statistics differ from the flagship's: {bad}")
 
 
+# the driver phase's run directory (git-ignored)
+DRIVER_DIR = os.path.join(ROOT, "build", "driver_run")
+DRIVER_LAST_FRAME = 4
+
+
+class FrameTimings(logging.Handler):
+    """Collects the driver's per-frame ``frame_timing`` log records."""
+
+    def __init__(self):
+        super().__init__()
+        self.rows = []
+
+    def emit(self, record):
+        timing = getattr(record, "frame_timing", None)
+        if timing is not None:
+            self.rows.append(timing)
+
+
+def driver_mcpar(path, n_inject, n_min, n_max, restart="i"):
+    """mc.par of the driver phase: chip_smoke's spherical main frame and
+    injection (r_inj 8e12 cm, theta 0-6 deg, fps 1, a blackbody) through
+    the driver's default synthetic grid, injections at frames 0 ..
+    n_inject, frames to DRIVER_LAST_FRAME."""
+    from mcrat_tpu_torch import McPar, Spectrum, write_mcpar
+
+    par = McPar(fps=1.0, last_frame=DRIVER_LAST_FRAME, r0_domain=(1e12, 9e13),
+                r1_domain=(0.0, 0.31416), r2_domain=(0.0, 0.0), theta_min_deg=0.0,
+                theta_max_deg=6.0, n_theta_bins=1, frm0=(0,), frm2=(n_inject,),
+                inj_radius=(8e12,), spect=Spectrum.BLACKBODY, min_photons=n_min,
+                max_photons=n_max, restart=restart)
+    write_mcpar(par, path)
+    return par
+
+
+def cli_run(run_dir, mcpar, device, *extra):
+    """``mcrat_tpu_torch.cli run`` of the 2-D spherical outflow on the
+    default synthetic grid, npz dumps; returns (stdout lines, wall s)."""
+    import contextlib
+    import io
+
+    from mcrat_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["run", "--mcpar", mcpar, "--filepath", run_dir + "/", "--mc-path", "MC/",
+                       "--sim", "synthetic", "--geometry", "spherical", "--dims", "2",
+                       "--simulation-type", "spherical_outflow", "--device", device.type,
+                       "--output", "npz", *extra])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli run exited {rc}")
+    return out.getvalue().splitlines(), wall
+
+
+def cli_status(base):
+    """``cli status`` of an MC directory, parsed."""
+    import contextlib
+    import io
+
+    from mcrat_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["status", base, "--last-frame", str(DRIVER_LAST_FRAME)])
+    return json.loads(out.getvalue())
+
+
+def merged(mc_dir, frame):
+    from mcrat_tpu_torch.io.photons_h5 import read_frame
+
+    return read_frame(os.path.join(mc_dir, f"mcdata_{frame}.npz"))
+
+
+def driver_phase(device, card, n_min, n_max):
+    """The driver's main path (``cli run`` -> run_rank -> npz dumps -> merge,
+    then ``status`` and ``analysis``) on the 2-D spherical default frame,
+    injections at frames 0 and 1, frames 0-4, with its launch counts zeroed
+    just before and read just after.  Prints each frame's ``frame_timing``
+    record (transport, the wait for the writer, and the writer's fetch,
+    checkpoint and dump).  Checks: frames 0-4 dumped; each merged frame
+    holds the photons of the injections that reach it, its weight sum
+    theirs to float32 rounding; frame 0 equals a hand-sequenced inject +
+    transport_frame bit for bit; a run resumed from the ``.old`` checkpoint
+    of a crash after frame 2 equals the main run's first injection on
+    frames 0-4 bit for bit (the checkpoint carries both random streams);
+    every rank done.  Returns the kernel's launches by instantiation in the
+    main run."""
+    import shutil
+
+    from mcrat_tpu_torch import (ME_C, Config, Dims, Geometry, SimType, analysis, transport)
+    from mcrat_tpu_torch.convert import photons_to_numpy
+    from mcrat_tpu_torch.driver import decompose_work, default_synthetic_factory
+    from mcrat_tpu_torch.io.hydro import HydroPaths, build_index, get_hydro_data
+    from mcrat_tpu_torch.io.photons_h5 import discover_frames, dump_arrays, list_proc_files
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    shutil.rmtree(DRIVER_DIR, ignore_errors=True)
+    main_dir, resume_dir = (os.path.join(DRIVER_DIR, d) for d in ("main", "resume"))
+    for d in (main_dir, resume_dir):
+        os.makedirs(d)
+    mcpar = os.path.join(main_dir, "mc.par")
+    par = driver_mcpar(mcpar, 1, n_min, n_max)
+    cfg = Config(dims=Dims.TWO, geometry=Geometry.SPHERICAL,
+                 simulation_type=SimType.SPHERICAL_OUTFLOW)
+    work = decompose_work(par, 0, 1, os.path.join(main_dir, "MC/"))
+    timings = FrameTimings()
+    logger = logging.getLogger("mcrat_tpu_torch")
+    logger.addHandler(timings)
+
+    # the main run, its launch counts zeroed just before and read just after
+    fr.fused_rounds.launches = 0
+    fr.fused_rounds.variant_launches.clear()
+    fr.fused_rounds_reference.launches = 0
+    before = peak = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    lines, wall = cli_run(main_dir, mcpar, device, "--merge")
+    launches = dict(fr.fused_rounds.variant_launches)
+    twin_launches = fr.fused_rounds_reference.launches
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+    rows = list(timings.rows)
+    inst = fr.instantiation("packed_sph2", 0, None, True)
+    for t in rows:
+        print(f"[driver] {card}: injection {t['frame']} frame {t['scatt_frame']}: photons "
+              f"{t['n_photons']}, scatterings {t['n_scatt']}, rounds {t['n_rounds']}, transport "
+              f"{t['transport_s']:.4f} s, persistence wait {t['persist_wait_s']:.4f} s; the "
+              f"writer: fetch {t['fetch_s']:.4f} s, checkpoint {t['checkpoint_s']:.4f} s, "
+              f"npz dump {t['dump_s']:.4f} s", flush=True)
+    print(f"[driver] {card}: cli run, {len(rows)} frames: {wall:.3f} s; peak device memory "
+          f"{peak / 2**20:.1f} MiB, {(peak - before) / 2**20:.1f} MiB above the "
+          f"{before / 2**20:.1f} MiB held before the run; merge {lines[-1] if lines else None}",
+          flush=True)
+    check_launches("driver", inst, launches, twin_launches, device)
+
+    # what the merged frames must hold: the injections of a hand-sequenced
+    # run of the same code (the same rng, frame 0's transport)
+    paths = HydroPaths(filepath=main_dir + "/", mc_path="MC/")
+    host, edges = default_synthetic_factory(cfg, par)(0)
+    rng = np.random.default_rng(9876)
+    injected = []
+    for frame in (0, 1):
+        host = get_hydro_data(cfg, paths, frame, par.fps, work.r_inj, True, synthetic_frame=host)
+        injected.append(transport.inject_photons(
+            host, work.r_inj, 1e50, par.min_photons, par.max_photons, par.spect,
+            work.theta_min, work.theta_max, par.fps, rng)[0])
+    n0, n1 = (len(a["weight"]) for a in injected)
+    w0, w1 = (float(np.sum(a["weight"])) for a in injected)
+    frames = discover_frames(list_proc_files(work.mc_dir))
+    bad = [] if frames == list(range(DRIVER_LAST_FRAME + 1)) else [f"frames {frames}"]
+    main_data = {f: merged(work.mc_dir, f) for f in frames}
+    for f, data in main_data.items():
+        n_want, w_want = (n0, w0) if f == 0 else (n0 + n1, w0 + w1)
+        w_got = float(data["PW"].sum())
+        print(f"[driver] merged frame {f}: {len(data['PW'])} photons (injected {n_want}), sum PW "
+              f"{w_got:.9e} (injected {w_want:.9e})", flush=True)
+        if len(data["PW"]) != n_want or abs(w_got - w_want) > 1e-6 * w_want:
+            bad.append(f"frame {f} count/weight")
+
+    cap = int(2 ** np.ceil(np.log2(n0 * cfg.capacity_factor)))
+    photons, meta = transport.photons_from_arrays(injected[0], capacity=cap, device=device)
+    res = transport.transport_frame(
+        cfg, photons, host.to_device(device), build_index(cfg, host, edges, device=device), 1.0,
+        torch.Generator().manual_seed(1234), stokes_on=True, chunk_rounds=256,
+        fused=True if device.type == "cpu" else None)
+    hand = dump_arrays(cfg, photons_to_numpy(res.photons), meta)
+    differ = [k for k in hand if not np.array_equal(hand[k], main_data[0][k])]
+    differ += [k for k in main_data[0] if k not in hand]
+    print(f"[driver] frame 0 against a hand-sequenced inject + transport_frame (float64 x ME_C "
+          f"= {ME_C:.6e}): {len(hand['P0'])} photons, datasets differing {differ}", flush=True)
+    if differ:
+        bad.append(f"frame 0 differs from the hand-sequenced frame in {differ}")
+
+    # a crash just after frame 2's checkpoint: only mc_chkpt_0.npz.old
+    # (restart c, scatt_frame 3) is left; the continued run resumes there
+    mcpar_r = os.path.join(resume_dir, "mc.par")
+    driver_mcpar(mcpar_r, 0, n_min, n_max)
+    cli_run(resume_dir, mcpar_r, device, "--last-frame", "2")
+    rdir = decompose_work(par, 0, 1, os.path.join(resume_dir, "MC/")).mc_dir
+    os.remove(os.path.join(rdir, "mc_chkpt_0.npz"))
+    driver_mcpar(mcpar_r, 0, n_min, n_max, restart="c")
+    _, wall_r = cli_run(resume_dir, mcpar_r, device, "--merge")
+    logger.removeHandler(timings)
+    resumed = [t["scatt_frame"] for t in timings.rows[len(rows):]]
+    print(f"[driver] resume: frames run {resumed} ({wall_r:.3f} s after the crash)", flush=True)
+    if resumed != [0, 1, 2, 3, 4]:
+        bad.append(f"resume ran frames {resumed}")
+    for f in range(DRIVER_LAST_FRAME + 1):
+        got, want = merged(rdir, f), {k: v[:n0] for k, v in main_data[f].items()}
+        differ = sorted(set(got) ^ set(want)) + [
+            k for k in want if k in got and not np.array_equal(got[k], want[k])]
+        print(f"[driver] resume frame {f} ({'before' if f <= 2 else 'after'} the crash): "
+              f"{len(got['PW'])} photons (main {n0}), datasets differing from the main run's "
+              f"injection 0: {differ}", flush=True)
+        if differ or len(got["PW"]) != n0:
+            bad.append(f"resumed frame {f}")
+
+    for base in (main_dir, resume_dir):
+        report = cli_status(os.path.join(base, "MC"))
+        ranks = [r for angle in report.values() for r in angle.values()]
+        print(f"[driver] status {os.path.relpath(base, ROOT)}: {report}", flush=True)
+        if not ranks or not all(r["done"] for r in ranks):
+            bad.append(f"status of {base}")
+    data = main_data[DRIVER_LAST_FRAME]
+    band = (0.0, np.radians(6.0))
+    print(f"[driver] analysis, merged frame {DRIVER_LAST_FRAME}, 0-6 deg: peak energy "
+          f"{analysis.peak_energy_kev(data, *band):.6e} keV, polarization (Pi, Q/I, U/I) "
+          f"{analysis.polarization(data, *band)}", flush=True)
+    if bad:
+        raise RuntimeError(f"driver phase failed: {bad}")
+    return launches
+
+
 def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300_000),
          side_n=(150_000, 450_000)):
     # 0. device
@@ -1109,7 +1341,10 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
         count(f"{name} ({mode}), Stokes off", frame_stokes_off(f"{name} ({mode})", prob, card,
                                                                 device))
 
-    # 8. result lines
+    # 8. the driver's main path
+    driver_launches = driver_phase(device, card, n_min, n_max)
+
+    # 9. result lines
     names = fr.instantiations()
     missing = [n for n in names if n not in errs or n not in times or (
         device.type == "cuda" and not launches.get(n))]
@@ -1132,7 +1367,8 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
     print(json.dumps({"kernels": [{
         "name": f"fused_rounds[{n}]", "route": "cuda",
         "source": "mcrat_tpu_torch/csrc/fused_round.cu", "replaces": replaces(n),
-        "launches": launches.get(n, 0), "max_abs_err": errs[n],
+        "launches": launches.get(n, 0), "driver_launches": driver_launches.get(n, 0),
+        "max_abs_err": errs[n],
         "ms": times[n][0], "plain_ms": times[n][1],
         "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "bound_pipe": bounds[n][2],
         "library_ms": None,

@@ -1,6 +1,9 @@
 """mcrat_tpu_torch: the PyTorch/CUDA port of mcrat_tpu.
 
-A second package beside the JAX reference ``mcrat_tpu``.  It runs
+A second package beside the JAX reference ``mcrat_tpu``.  Users run it as
+``python -m mcrat_tpu_torch.cli run --mcpar mc.par ...`` (``driver.run_rank``:
+inject -> ``transport_frame`` per hydro frame -> checkpoint -> per-rank
+photon dump -> merge; ``analysis`` reads the merged frames).  It runs
 ``transport.inject_photons`` -> ``photons_from_arrays`` -> ``transport_frame``
 on any (dims x geometry) frame, on a rectilinear grid or on an AMR cell list
 (``grid.BinnedIndex``, ``io.flash.cells_from_blocks``), with DIRECT (Thomson)
@@ -20,11 +23,14 @@ __version__ = "0.1.0"
 
 from . import constants  # noqa: F401
 from .config import (  # noqa: F401
+    PHOTON_CHAR_TYPES,
+    PHOTON_TYPE_CHARS,
     BFieldCalc,
     Config,
     Dims,
     Geometry,
     HydroSim,
+    McPar,
     NonthermalDist,
     PhotonType,
     SimType,
@@ -45,3 +51,13 @@ from .constants import (  # noqa: F401
     THOM_X_SECT,
 )
 from .device import DEFAULT_DEVICE, resolve_device  # noqa: F401
+from .driver import (  # noqa: F401
+    WorkAssignment,
+    decompose_work,
+    default_synthetic_factory,
+    merge_rank_outputs,
+    run_elastic,
+    run_rank,
+)
+from .io.hydro import HydroPaths  # noqa: F401
+from .io.mcpar import read_mcpar, write_mcpar  # noqa: F401

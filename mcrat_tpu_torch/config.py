@@ -3,17 +3,18 @@
 The reference configures its physics and geometry switches at compile time
 (Src/mcrat_input.h, validated by Src/mcrat.h:262-428) plus the runtime file
 mc.par; both packages replace that with one typed runtime :class:`Config`.
-The enums, ``PhotonType`` and ``Config`` (fields, defaults and
-``__post_init__`` checks) are the JAX package's, value for value, so a
-configuration built by either package converts to the other by field name
-(``convert.config_from_reference``).
+The enums, ``PhotonType`` and its on-disk characters, ``Config`` (fields,
+defaults and ``__post_init__`` checks) and ``McPar`` are the JAX package's,
+value for value, so a configuration built by either package converts to the
+other by field name (``convert.config_from_reference``,
+``convert.mcpar_from_reference``).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 
 class HydroSim(enum.Enum):
@@ -113,6 +114,18 @@ class PhotonType(enum.IntEnum):
     NULL = 5  # 'N'
 
 
+# the single-character codes of the on-disk schema (dataset PT)
+PHOTON_TYPE_CHARS = {
+    PhotonType.INJECTED: "i",
+    PhotonType.COMPTONIZED: "k",
+    PhotonType.CS_POOL: "p",
+    PhotonType.UNABSORBED_CS: "c",
+    PhotonType.REBINNED: "r",
+    PhotonType.NULL: "N",
+}
+PHOTON_CHAR_TYPES = {v: k for k, v in PHOTON_TYPE_CHARS.items()}
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     """Static simulation configuration: the reference's compile-time macro
@@ -192,3 +205,28 @@ class Config:
     @property
     def hydro_b_scale(self) -> float:
         return math.sqrt(4.0 * math.pi * self.hydro_p_scale)
+
+
+@dataclasses.dataclass
+class McPar:
+    """Runtime parameters: the mc.par file (reference: Src/mcrat_io.c:1136-1237).
+
+    Angle-bin tuples have one entry per injection-angle bin, as the per-bin
+    columns of the reference format (sample_mc.par, Doc/mcrat_doc.tex:140-211).
+    """
+
+    fps: float
+    last_frame: int
+    r0_domain: Tuple[float, float]
+    r1_domain: Tuple[float, float]
+    r2_domain: Tuple[float, float]
+    theta_min_deg: float
+    theta_max_deg: float
+    n_theta_bins: int
+    frm0: Tuple[int, ...]  # injection start frame per angle bin
+    frm2: Tuple[int, ...]  # injection end frame per angle bin (frm0 + n_inject)
+    inj_radius: Tuple[float, ...]  # injection radius per angle bin
+    spect: Spectrum
+    min_photons: int
+    max_photons: int
+    restart: str  # 'i' initialize | 'c' continue

@@ -13,7 +13,7 @@ import enum
 import numpy as np
 import torch
 
-from .config import Config
+from .config import Config, McPar, Spectrum
 from .device import resolve_device
 from .grid import (BinnedIndex, HydroFrameHost, RectilinearIndex,
                    build_rectilinear_index)
@@ -39,6 +39,24 @@ def config_from_reference(obj) -> Config:
             val = type(f.default)(val.value)
         kw[f.name] = val
     return Config(**kw)
+
+
+def mcpar_from_reference(obj) -> McPar:
+    """The port's :class:`~mcrat_tpu_torch.config.McPar` from any object
+    with its field names (``mcrat_tpu.config.McPar``): the spectrum by
+    ``.value`` into the port's enum, the per-bin columns as tuples.  A port
+    McPar is returned as it is."""
+    if isinstance(obj, McPar):
+        return obj
+    kw = {}
+    for f in dataclasses.fields(McPar):
+        val = getattr(obj, f.name)
+        if isinstance(val, enum.Enum):
+            val = Spectrum(val.value)
+        elif isinstance(val, (list, tuple)):
+            val = tuple(val)
+        kw[f.name] = val
+    return McPar(**kw)
 
 
 def photons_from_numpy(arrays: dict, device=None, dtype=torch.float32) -> Photons:

@@ -411,7 +411,9 @@ class BinnedIndex:
         ncell = self.cell_ids.shape[0]
         found = torch.full(r0.shape, -1, dtype=torch.int32, device=r0.device)
         slab = torch.arange(self.max_slab, device=r0.device)
-        geo_cols = (frame.r0, frame.r1, frame.r2, frame.dr0, frame.dr1, frame.dr2)
+        # the third axis's centre and size only where the test reads them
+        geo_cols = (frame.r0, frame.r1, frame.dr0, frame.dr1) + (
+            (frame.r2, frame.dr2) if use_r2 else ())
         p0, p1, p2 = r0[:, None], r1[:, None], r2[:, None]
         offs = (-1, 0, 1)
         # neighbour order (dz, dy, dx) and the first hit in a bin, as JAX's
@@ -427,7 +429,8 @@ class BinnedIndex:
                     count = self.bin_count[flat].to(torch.int64)
                     gidx = torch.clamp(start[:, None] + slab, 0, ncell - 1)
                     cand = self.cell_ids[gidx].to(torch.int64)
-                    c0, c1, c2, s0, s1, s2 = (col[cand] for col in geo_cols)
+                    c0, c1, s0, s1, *third = (col[cand] for col in geo_cols)
+                    c2, s2 = third or (None, None)
                     ok = geo.in_block(p0, p1, p2, c0, c1, c2, s0, s1, s2, use_r2=use_r2)
                     ok = ok & (slab < count[:, None])
                     hit = torch.argmax(ok.to(torch.uint8), dim=-1, keepdim=True)
@@ -441,7 +444,7 @@ class BinnedIndex:
         point's +-1 bin neighbourhood (JAX's ``BinnedIndex.find``).  Runs in
         chunks of lanes so that the (lanes, max_slab) slabs hold at most
         :data:`SEARCH_BUDGET_BYTES`."""
-        chunk = max(1024, SEARCH_BUDGET_BYTES // (_SEARCH_BYTES_PER_CANDIDATE * self.max_slab))
+        chunk = max(1, SEARCH_BUDGET_BYTES // (_SEARCH_BYTES_PER_CANDIDATE * self.max_slab))
         n = r0.shape[0]
         if n <= chunk:
             return self._find_chunk(r0, r1, r2, frame)
@@ -450,14 +453,20 @@ class BinnedIndex:
 
 
 def build_binned_index(host: HydroFrameHost, target_bins: int = 1 << 20,
-                       max_slab_cap: int = 512, device=None) -> BinnedIndex:
+                       device=None) -> BinnedIndex:
     """Host-side construction of a :class:`BinnedIndex` (counting sort and
     prefix sums, mcrat_tpu.grid.build_binned_index), on ``device`` (default:
     the card).  Bin sizes are floored at the largest cell size per axis, so
     the +-1 neighbourhood cannot miss a containing cell.  The sort is the
     stable one of the JAX package's host runtime (native/mcrat_native.cpp),
-    in numpy: ``cell_ids``, ``bin_start``, ``bin_count``, ``dims`` and
-    ``max_slab`` equal the JAX package's."""
+    in numpy: ``cell_ids``, ``bin_start``, ``bin_count`` and ``dims`` equal
+    the JAX package's.
+
+    ``max_slab`` is the fullest bin's count, uncapped: the search tests
+    every cell of a bin (its lane chunks shrink as ``max_slab`` grows).  The
+    JAX package caps it at 512 and so never finds the cells past the 512th
+    of a fuller bin, as in a frame refined 32-fold beside a coarse block
+    (ROADMAP fault F8); below the cap the two are equal."""
     device = resolve_device(device)
     cfg = host.cfg
     use_r2 = cfg.dims is Dims.THREE
@@ -498,7 +507,7 @@ def build_binned_index(host: HydroFrameHost, target_bins: int = 1 << 20,
         grid_min=torch.as_tensor(lo, dtype=dt, device=device),
         inv_bin=torch.as_tensor(inv_bin, dtype=dt, device=device),
         dims=(int(dims[0]), int(dims[1]), int(dims[2])),
-        max_slab=int(min(max(counts.max(), 1), max_slab_cap)),
+        max_slab=int(max(counts.max(), 1)),
     )
 
 

@@ -1,3 +1,12 @@
-"""Host I/O of the port (port of ``mcrat_tpu.io``): the FLASH AMR reader
-(:mod:`.flash`), the shared photon-band decimation (:mod:`.decimate`) and
-the spatial-index dispatch (:mod:`.hydro`)."""
+"""Host I/O of the port (port of ``mcrat_tpu.io``).
+
+- :mod:`.mcpar`: mc.par parse/write (Src/mcrat_io.c:1136-1237)
+- :mod:`.flash`: FLASH 2-D AMR frames (Src/mclib_flash.c)
+- :mod:`.decimate`: the shared photon-band frame decimation
+- :mod:`.hydro`: getHydroData dispatch and the spatial index
+  (Src/mcrat_io.c:1898-1990)
+- :mod:`.photons_h5`: per-rank photon dumps (HDF5 or npz) and their merge,
+  ProcessMCRaT schema (Src/mcrat_io.c:114-836, 1239-1772; Src/merge.c)
+- :mod:`.checkpoint`: checkpoint/resume/elastic restart
+  (Src/mcrat_io.c:838-1134, Src/mcrat.c:166-448)
+"""

@@ -25,6 +25,12 @@ NB = 8  # cells per block side
 FIELDS = ("velx", "vely", "dens", "pres")
 
 
+def flash_frame_name(filepath: str, fileroot: str, frame: int) -> str:
+    """FLASH file naming: FILEPATH + FILEROOT + zero-padded 4-digit frame
+    (reference: modifyFlashName, Src/mclib_flash.c:15-58)."""
+    return f"{filepath}{fileroot}{frame:04d}"
+
+
 def cells_from_blocks(cfg: Config, coords, block_size, fields: dict,
                       node_type=None, decimation: Optional[dict] = None) -> HydroFrameHost:
     """The cell list of FLASH blocks (mcrat_tpu/io/flash.py:52-89).

@@ -1,11 +1,88 @@
-"""The spatial index of a loaded frame (port of ``mcrat_tpu.io.hydro.
-build_index``)."""
+"""Hydro frame loading (port of ``mcrat_tpu.io.hydro``).
+
+getHydroData (reference: Src/mcrat_io.c:1898-1990): builds the frame file
+name, dispatches on the hydro format, applies the analytic test-problem
+overwrite and the nonthermal electron densities, and builds the spatial
+index of the loaded frame on the device.  SYNTHETIC and FLASH frames are
+ported; PLUTO, PLUTO-Chombo and RIKEN raise ``NotImplementedError``.
+"""
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
-from ..config import Config
+import numpy as np
+
+from ..config import Config, HydroSim, NonthermalDist, SimType
 from ..grid import HydroFrameHost, build_binned_index, build_rectilinear_index, torch_dtype
+from ..models.analytic import apply_simulation_type
+from ..transport import ROADMAP_ITEMS
+from . import flash
+
+
+@dataclasses.dataclass
+class HydroPaths:
+    """File-system layout of the hydro simulation (reference: FILEPATH /
+    FILEROOT / MC_PATH macros, Src/mcrat_input.h)."""
+
+    filepath: str = "./"
+    fileroot: str = ""
+    mc_path: str = "MC/"
+
+
+def _unported(cfg: Config) -> NotImplementedError:
+    return NotImplementedError(f"{cfg.sim_switch.value} frames: " + ROADMAP_ITEMS["readers"])
+
+
+def frame_filename(cfg: Config, paths: HydroPaths, frame: int) -> str:
+    if cfg.sim_switch is HydroSim.FLASH:
+        return flash.flash_frame_name(paths.filepath, paths.fileroot, frame)
+    if cfg.sim_switch is HydroSim.SYNTHETIC:
+        raise ValueError(f"no files for {cfg.sim_switch}")
+    raise _unported(cfg)
+
+
+def get_hydro_data(
+    cfg: Config,
+    paths: HydroPaths,
+    frame: int,
+    fps: float,
+    r_inj: float,
+    ph_inj_switch: bool,
+    min_r: float = 0.0,
+    max_r: float = np.inf,
+    min_theta: float = 0.0,
+    max_theta: float = np.pi,
+    synthetic_frame: Optional[HydroFrameHost] = None,
+) -> HydroFrameHost:
+    """Load (or take the synthetic) hydro frame, post-process it, and return
+    the host frame (``mcrat_tpu.io.hydro.get_hydro_data``).
+
+    ``synthetic_frame`` supplies the grid of HydroSim.SYNTHETIC runs; the
+    analytic overwrite still runs on it, as on a loaded frame.
+    """
+    if cfg.sim_switch is HydroSim.SYNTHETIC:
+        if synthetic_frame is None:
+            raise ValueError("SYNTHETIC runs need a synthetic_frame")
+        host = synthetic_frame
+    elif cfg.sim_switch is HydroSim.FLASH:
+        host = flash.read_flash(
+            cfg, frame_filename(cfg, paths, frame), fps, r_inj, ph_inj_switch,
+            min_r, max_r, min_theta, max_theta,
+        )
+    else:
+        raise _unported(cfg)
+
+    # analytic test-problem overwrite (reference: Src/mcrat_io.c:1969-1975)
+    if cfg.simulation_type is not SimType.SCIENCE:
+        apply_simulation_type(host)
+
+    # nonthermal electron densities (reference: Src/mcrat_io.c:1977-1983)
+    if cfg.nonthermal_e_dist is not NonthermalDist.OFF:
+        from ..ops import cyclosynch
+
+        host.nonthermal_dens = cyclosynch.nonthermal_electron_dens(cfg, host)
+    return host
 
 
 def build_index(cfg: Config, host: HydroFrameHost, edges: Optional[Tuple] = None,

@@ -55,6 +55,8 @@ ROADMAP_ITEMS = dict(
     xla="ROADMAP.md queue 1 item 5 (the XLA-path physics ops and "
         "transport_rounds: float64 and non-CUDA runs)",
     cyclosynch="ROADMAP.md queue 1 item 11 (cyclo-synchrotron)",
+    readers="ROADMAP.md queue 1 item 15 (the PLUTO, PLUTO-Chombo and RIKEN readers)",
+    mesh="ROADMAP.md queue 1 item 13 (multiple devices)",
 )
 
 
@@ -836,6 +838,44 @@ def transport_frame(
         result_t[slots[keep]] = work_t[keep]
     return FrameResult(photons=result_ph, n_scatt=n_scatt_total,
                        n_rounds=rounds_total, t_rem=result_t)
+
+
+# ---------------------------------------------------------------------------
+# Persistence helpers (mcrat_tpu/transport.py:1375-1391, 1487-1505)
+# ---------------------------------------------------------------------------
+
+
+def _pow2(n: int, floor: int = 1024) -> int:
+    return max(floor, 1 << int(np.ceil(np.log2(max(n, 1)))))
+
+
+def _pad64k(n: int, floor: int = 1024) -> int:
+    """``n`` rounded up to a multiple of 65,536 (a power of two below it):
+    the persistence subset's size, at most ~15 % of dead lanes."""
+    if n <= 65536:
+        return _pow2(n, floor)
+    return ((n + 65535) // 65536) * 65536
+
+
+def compact_live(photons: Photons, n_out: int) -> Photons:
+    """The live lanes, in slot order, gathered into a new ``n_out``-lane
+    population on the same device (pad lanes dead); the persistence path
+    fetches this instead of the whole population.  Every field is a fresh
+    tensor, never a view of ``photons``, whose buffers the next frame
+    writes in place.  No host sync: the first ``n_out`` live slots are
+    found by a prefix sum and a scatter, not by ``nonzero``."""
+    alive = photons.alive
+    cap = photons.capacity
+    rank = torch.cumsum(alive.to(torch.int64), 0) - 1
+    dst = torch.where(alive & (rank < n_out), rank, n_out)
+    idx = torch.full((n_out + 1,), -1, dtype=torch.int64, device=photons.device)
+    idx.scatter_(0, dst, torch.arange(cap, dtype=torch.int64, device=photons.device))
+    idx = idx[:n_out]
+    valid = idx >= 0
+    sub = _gather_photons(photons, torch.clamp(idx, min=0))
+    sub.weight = torch.where(valid, sub.weight, 0.0)
+    sub.ptype = torch.where(valid, sub.ptype, int(PhotonType.NULL)).to(torch.int32)
+    return sub
 
 
 # ---------------------------------------------------------------------------

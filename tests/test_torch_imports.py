@@ -1,7 +1,11 @@
 """The PyTorch port imports torch and numpy, never jax or flax, and nothing of
-the JAX package mcrat_tpu: it keeps its own ``config`` and ``constants``."""
+the JAX package mcrat_tpu: it keeps its own ``config`` and ``constants``.
+h5py is imported only inside the functions that read or write HDF5, so the
+driver, the CLI and the npz dumps run on a machine without it."""
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -37,7 +41,30 @@ def test_no_jax_and_only_config_constants(path):
 def test_package_sources_found():
     names = {p.name for p in SOURCES}
     assert {"transport.py", "grid.py", "fused_round.py", "config.py", "constants.py",
-            "chip_smoke.py", "profile_torch_frames.py", "kernel_ab.py", "sass_counts.py"} <= names
+            "chip_smoke.py", "profile_torch_frames.py", "kernel_ab.py", "sass_counts.py",
+            "driver.py", "cli.py", "checkpoint.py", "photons_h5.py", "mcpar.py",
+            "analysis.py"} <= names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_h5py(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = [a.name for node in tree.body if isinstance(node, ast.Import) for a in node.names]
+    top += [node.module for node in tree.body if isinstance(node, ast.ImportFrom)]
+    assert not any(m and m.split(".")[0] == "h5py" for m in top), path
+
+
+def test_entry_points_import_without_jax_or_h5py():
+    """A fresh interpreter imports the package, its driver, CLI, persistence
+    and analysis and loads neither jax nor h5py nor the JAX package."""
+    code = ("import sys; import mcrat_tpu_torch, mcrat_tpu_torch.cli, mcrat_tpu_torch.driver, "
+            "mcrat_tpu_torch.io.checkpoint, mcrat_tpu_torch.io.photons_h5, "
+            "mcrat_tpu_torch.analysis; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'h5py', 'mcrat_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -8,8 +8,10 @@ spherical default frame (384x64 log-r grid), the 3-D cartesian frame (64^3),
 the TABLE frame (the flagship grid at T' = 5e8 K, bench.py:265-276), the
 nonthermal frame (bench.py:278-294) and the three AMR frames (the flagship
 outflow on 167,936 FLASH-block cells, BinnedIndex: DIRECT, TABLE and
-nonthermal, the carried path with aux planes).  For each, after one warm-up
-frame:
+nonthermal, the carried path with aux planes); and the driver frame
+(``driver``: chip_smoke's driver phase, ``cli run`` of the 2-D spherical
+default frame, two injections, frames 0-4, npz dumps).  For each frame,
+after one warm-up frame:
 
   wall_ms              five frames, host clock around a synchronized
                        transport_frame (seeds 1-5);
@@ -31,13 +33,23 @@ frame:
   cpu_total_ms         the sum of the self CPU time of every host op;
   top                  the eight device kernels with most self device time.
 
+For the driver, after one warm-up run: one more run under torch.profiler,
+its wall (``profiled_wall_ms``, host clock around ``cli run``), the
+driver's per-frame ``transport_s``, ``persist_wait_s`` and the writer's
+``fetch_s``, ``checkpoint_s`` and ``dump_s`` (its ``frame_timing`` log
+records), ``device_busy_ms``, ``idle_share``,
+``kernel_device_ms``/``calls`` and ``top`` as above.
+
 Prints one JSON object per frame, and writes them all to ``--out``
-(default build/profile_frames.json).  Needs a CUDA device; imports no JAX.
-Run from the repository root: ``python3 tools/profile_torch_frames.py``.
+(default build/profile_frames.json); ``--frames`` picks some of them.
+Needs a CUDA device; imports no JAX.  Run from the repository root:
+``python3 tools/profile_torch_frames.py``.
 """
 import argparse
 import json
+import logging
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -76,6 +88,52 @@ def synced_ms(fn) -> float:
     return 1e3 * (time.perf_counter() - t0)
 
 
+def device_summary(prof, wall_ms) -> dict:
+    """Device busy time, idle share, the fused-round kernel's device time
+    and calls, host CPU time and the top device kernels of a profile."""
+    ka = prof.key_averages()
+    dev_ops = [e for e in ka if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_ops) / 1e3
+    top = sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:8]
+    kern = [e for e in dev_ops if "fused_rounds_kernel" in e.key]
+    return dict(
+        profiled_wall_ms=wall_ms, device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+        kernel_device_ms=sum(e.self_device_time_total for e in kern) / 1e3,
+        kernel_device_calls=sum(e.count for e in kern),
+        n_device_kernels=sum(e.count for e in dev_ops),
+        cpu_total_ms=sum(e.self_cpu_time_total for e in ka
+                         if e.device_type != DeviceType.CUDA) / 1e3,
+        top=[(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top],
+    )
+
+
+def profile_driver() -> dict:
+    """One warm-up ``cli run`` of chip_smoke's driver phase, then one under
+    torch.profiler."""
+    dev = torch.device("cuda")
+    timings = cs.FrameTimings()
+    logging.getLogger("mcrat_tpu_torch").addHandler(timings)
+    run_dir = os.path.join(ROOT, "build", "driver_profile")
+    for i in range(2):
+        shutil.rmtree(run_dir, ignore_errors=True)
+        os.makedirs(run_dir)
+        mcpar = os.path.join(run_dir, "mc.par")
+        cs.driver_mcpar(mcpar, 1, 600_000, 1_400_000)
+        timings.rows.clear()
+        if i == 0:
+            cs.cli_run(run_dir, mcpar, dev)
+            continue
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = cs.cli_run(run_dir, mcpar, dev)
+    logging.getLogger("mcrat_tpu_torch").removeHandler(timings)
+    return dict(frames=len(timings.rows), n_photons=[t["n_photons"] for t in timings.rows],
+                transport_s=[t["transport_s"] for t in timings.rows],
+                persist_wait_s=[t["persist_wait_s"] for t in timings.rows],
+                **{k: [t[k] for t in timings.rows] for k in ("fetch_s", "checkpoint_s", "dump_s")},
+                **device_summary(prof, 1e3 * wall))
+
+
 def profile_frame(prob) -> dict:
     from mcrat_tpu_torch import transport
     from mcrat_tpu_torch.ops import fused_round as fr
@@ -103,28 +161,18 @@ def profile_frame(prob) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pwall = synced_ms(lambda: cs.run_frame(prob, 8, fr.fused_rounds, dt_max=prob.dt_max))
-    ka = prof.key_averages()
-    dev_ops = [e for e in ka if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev_ops) / 1e3
-    top = sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:8]
-    kern = [e for e in dev_ops if "fused_rounds_kernel" in e.key]
     return dict(
         n_photons=prob.photons.capacity, n_rounds=res.n_rounds, n_scatt=res.n_scatt,
         wall_ms=walls, select_variant_ms=setup_ms, kernel_calls=len(kms),
-        kernel_ms_sum=sum(kms), kernel_ms=kms, profiled_wall_ms=pwall,
-        device_busy_ms=busy, idle_share=1.0 - busy / pwall,
-        kernel_device_ms=sum(e.self_device_time_total for e in kern) / 1e3,
-        kernel_device_calls=sum(e.count for e in kern),
-        n_device_kernels=sum(e.count for e in dev_ops),
-        cpu_total_ms=sum(e.self_cpu_time_total for e in ka
-                         if e.device_type != DeviceType.CUDA) / 1e3,
-        top=[(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top],
+        kernel_ms_sum=sum(kms), kernel_ms=kms, **device_summary(prof, pwall),
     )
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile_frames.json"))
+    ap.add_argument("--frames", nargs="+", default=[*FRAMES, "driver"],
+                    choices=[*FRAMES, "driver"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -135,12 +183,16 @@ def main() -> int:
     print(f"[smi] {smi()}", flush=True)
     tables = cs.xsec_tables(Config(), dev)
     out = {}
-    for frame, (path, mode, seed, hot) in FRAMES.items():
-        prob = cs.problem(path, dev, 600_000, 1_400_000, seed=seed, hot=hot, mode=mode,
-                          tables=tables)
-        out[frame] = profile_frame(prob)
+    for frame in args.frames:
+        if frame == "driver":
+            out[frame] = profile_driver()
+        else:
+            path, mode, seed, hot = FRAMES[frame]
+            prob = cs.problem(path, dev, 600_000, 1_400_000, seed=seed, hot=hot, mode=mode,
+                              tables=tables)
+            out[frame] = profile_frame(prob)
+            del prob
         print(json.dumps({"frame": frame, **out[frame]}), flush=True)
-        del prob
     print(f"[smi] {smi()}", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
