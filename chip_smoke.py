@@ -98,12 +98,30 @@ off) -- and checks them:
      frame 2 leaves equal to the main run's first injection bit for bit on
      frames 0-4, ``cli status`` every rank done; ``analysis`` peak energy
      and polarization of frame 4;
+  8b. the cyclo-synchrotron driver (cs_phase): ``cli run --cyclosynchrotron``
+     of bench.py:414-438's configuration (the cylindrical outflow on the
+     default synthetic grid at 256 x 48, TOTAL_E field, eps_B 0.5, comv off,
+     fps 1, injection at frame 10, frames 10-12, 150k-400k photons, 256-round
+     chunks, npz, merged), each frame's counts (pool photons emitted,
+     promoted and replaced, merged, absorbed) and seconds (transport,
+     emission, rebin, absorption, persistence wait), the run's wall, peak
+     device memory and launches (packed_sph2 alone, the twin's 0); then two
+     forced-rebin runs, each resumed from frame 10's checkpoint with its
+     photons marked scattered-CS and max_photons lowered, once through the
+     kernel and once through the twin: the main run's configuration
+     (frame 10 equal to the main run's bit for bit; frame 11's end-of-frame
+     rebin of ~150k scattered-CS photons timed through the kernel without
+     the checks) and tests/test_cyclosynch.py:258-270's (the mid-frame rebin
+     too): dumps identical bit for bit between kernel and twin, the rebins
+     fired, weight conserved across each rebin, no photon that a rebin
+     merged absorbed above nu_c (F10), no pool photon in any dump;
   9. prints the kernels' JSON line (with each instantiation's block,
      registers, local memory a thread -- spills and stack, as the CUDA
      runtime reports them -- and shared memory, and its launches in the
-     driver run), then {"ok": true, "device": {...}} last.
+     driver run and in the cyclo-synchrotron run), then {"ok": true,
+     "device": {...}} last.
 
-Each path's launch counts (the driver run's too) are set to 0 just before it
+Each path's launch counts (the driver runs' too) are set to 0 just before it
 runs and read just after.  An instantiation's ``launches`` in the kernels' line are those of
 the one path that owns it: a main path (its timed runs) where one runs it,
 else the first frame of 7. that runs it; a line per instantiation names
@@ -112,6 +130,7 @@ JAX.
 """
 import collections
 import dataclasses
+import glob
 import json
 import logging
 import os
@@ -821,19 +840,30 @@ def frame_summary(photons, res):
     )
 
 
-def frame_once(prob, seed, rounds_fn, device, stokes_on=True):
-    """One transport_frame of a path through ``rounds_fn``, its launch counts
-    zeroed just before and read just after.  Returns (ms, FrameResult,
-    kernel launches by instantiation, twin launches)."""
+def zero_launches():
     from mcrat_tpu_torch.ops import fused_round as fr
 
     fr.fused_rounds.launches = 0
     fr.fused_rounds.variant_launches.clear()
     fr.fused_rounds_reference.launches = 0
+
+
+def read_launches():
+    """(kernel launches by instantiation, twin launches) since zero_launches."""
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    return dict(fr.fused_rounds.variant_launches), fr.fused_rounds_reference.launches
+
+
+def frame_once(prob, seed, rounds_fn, device, stokes_on=True):
+    """One transport_frame of a path through ``rounds_fn``, its launch counts
+    zeroed just before and read just after.  Returns (ms, FrameResult,
+    kernel launches by instantiation, twin launches)."""
+    zero_launches()
     out = []
     ms = timed(lambda: out.append(run_frame(prob, seed, rounds_fn, dt_max=prob.dt_max,
                                             stokes_on=stokes_on)), device)
-    return ms, out[0], dict(fr.fused_rounds.variant_launches), fr.fused_rounds_reference.launches
+    return (ms, out[0], *read_launches())
 
 
 def instantiation_of(prob, stokes_on=True):
@@ -1049,9 +1079,15 @@ def driver_mcpar(path, n_inject, n_min, n_max, restart="i"):
     return par
 
 
-def cli_run(run_dir, mcpar, device, *extra):
-    """``mcrat_tpu_torch.cli run`` of the 2-D spherical outflow on the
-    default synthetic grid, npz dumps; returns (stdout lines, wall s)."""
+# the driver phase's frame: the 2-D spherical outflow on the default synthetic grid
+DRIVER_CLI = ["--sim", "synthetic", "--geometry", "spherical", "--dims", "2",
+              "--simulation-type", "spherical_outflow"]
+
+
+def cli_run(run_dir, mcpar, device, *extra, base=DRIVER_CLI):
+    """``mcrat_tpu_torch.cli run`` of ``base``'s frame (the driver phase's,
+    unless given), npz dumps, ``extra`` options after; returns (stdout
+    lines, wall s)."""
     import contextlib
     import io
 
@@ -1061,9 +1097,7 @@ def cli_run(run_dir, mcpar, device, *extra):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = cli.main(["run", "--mcpar", mcpar, "--filepath", run_dir + "/", "--mc-path", "MC/",
-                       "--sim", "synthetic", "--geometry", "spherical", "--dims", "2",
-                       "--simulation-type", "spherical_outflow", "--device", device.type,
-                       "--output", "npz", *extra])
+                       *base, "--device", device.type, "--output", "npz", *extra])
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1128,16 +1162,13 @@ def driver_phase(device, card, n_min, n_max):
     logger.addHandler(timings)
 
     # the main run, its launch counts zeroed just before and read just after
-    fr.fused_rounds.launches = 0
-    fr.fused_rounds.variant_launches.clear()
-    fr.fused_rounds_reference.launches = 0
     before = peak = 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
+    zero_launches()
     lines, wall = cli_run(main_dir, mcpar, device, "--merge")
-    launches = dict(fr.fused_rounds.variant_launches)
-    twin_launches = fr.fused_rounds_reference.launches
+    launches, twin_launches = read_launches()
     if device.type == "cuda":
         peak = torch.cuda.max_memory_allocated()
     rows = list(timings.rows)
@@ -1232,8 +1263,338 @@ def driver_phase(device, card, n_min, n_max):
     return launches
 
 
+# the cyclo-synchrotron phase's run directory (git-ignored) and its physics:
+# bench.py:414-438's configuration
+CS_DIR = os.path.join(ROOT, "build", "cs_run")
+CS_CLI = ["--sim", "synthetic", "--geometry", "spherical", "--dims", "2", "--simulation-type",
+          "cylindrical_outflow", "--cyclosynchrotron", "--b-field", "total_e", "--epsilon-b",
+          "0.5", "--no-comv", "--chunk-rounds", "256", "--synthetic-grid", "256", "48"]
+
+
+def cs_mcpar(path, n_min, n_max, fps, r_max, restart="i"):
+    """mc.par of a cyclo-synchrotron run: one injection at frame 10 (r_inj
+    8e12 cm, theta 0-6 deg, a blackbody), frames to 12."""
+    from mcrat_tpu_torch import McPar, Spectrum, write_mcpar
+
+    par = McPar(fps=fps, last_frame=12, r0_domain=(1e12, r_max), r1_domain=(0.0, 1.0),
+                r2_domain=(0.0, 0.0), theta_min_deg=0.0, theta_max_deg=6.0, n_theta_bins=1,
+                frm0=(10,), frm2=(10,), inj_radius=(8e12,), spect=Spectrum.BLACKBODY,
+                min_photons=n_min, max_photons=n_max, restart=restart)
+    write_mcpar(par, path)
+    return par
+
+
+def cs_frame_line(card, t, tag="cs"):
+    print(f"[{tag}] {card}: injection {t['frame']} frame {t['scatt_frame']}: photons "
+          f"{t['n_photons']}, scatterings {t['n_scatt']}, rounds {t['n_rounds']}; pool emitted "
+          f"{t['n_pool_emitted']}, promoted {t['n_promoted']}, replaced {t['n_pool_replaced']}; "
+          f"merged mid-frame {t['n_merged_mid']}, end of frame {t['n_merged_end']}; absorbed "
+          f"{t['n_absorbed']}; transport {t['transport_s']:.4f} s, emission "
+          f"{t['emission_s']:.4f} s, rebin {t['rebin_s']:.4f} s, absorption "
+          f"{t['absorption_s']:.4f} s, persistence wait {t['persist_wait_s']:.4f} s", flush=True)
+
+
+def proc_dumps(mc_dir):
+    """Every per-process npz dump of a directory: (frame, batch) -> arrays."""
+    out = {}
+    for proc in sorted(glob.glob(os.path.join(mc_dir, "mc_proc_*"))):
+        for path in sorted(glob.glob(os.path.join(proc, "*", "*.npz"))):
+            frame, batch = path.split(os.sep)[-2], os.path.basename(path)
+            with np.load(path) as z:
+                out[os.path.basename(proc), frame, batch] = {k: z[k] for k in z.files}
+    return out
+
+
+def dumps_differ(a, b):
+    """The dump files and datasets that differ between two proc_dumps."""
+    return sorted(set(a) ^ set(b)) + [
+        (key, k) for key in a if key in b for k in sorted(set(a[key]) | set(b[key]))
+        if k not in a[key] or k not in b[key] or not np.array_equal(a[key][k], b[key][k])]
+
+
+class RebinChecks:
+    """Wraps ``ops.cyclosynch.rebin_population``, ``place_in_cells``,
+    ``cell_nu_c`` and ``apply_absorption`` (the driver calls them through
+    the module) to hold each rebin that fires to its weight (population +
+    merged against the population before, relative 1e-6) and each
+    absorption to F10: no photon that a rebin merged and placed, and that
+    has not moved since, is absorbed while its comoving frequency,
+    recomputed from its lab momentum and its cell's fluid velocity (the
+    frame ``cell_nu_c`` was given, uploaded again here), is above nu_c.
+    Each absorption records (such merged photons, those above nu_c, those
+    absorbed above nu_c, every scattered-CS photon absorbed above nu_c):
+    the last counts the photons whose ``comv_p``, written by their last
+    round before their last move, puts them at or below nu_c, which the
+    JAX package's absorption reads the same way."""
+
+    NAMES = ("rebin_population", "place_in_cells", "cell_nu_c", "apply_absorption")
+
+    def __init__(self, cfg):
+        from mcrat_tpu_torch.ops import cyclosynch
+
+        self.cfg, self.mod = cfg, cyclosynch
+        self.orig = {k: getattr(cyclosynch, k) for k in self.NAMES}
+        self.weight_err, self.rebins, self.f10, self.frame = [], 0, [], None
+        self.placed = set()  # (pos, p) of the photons placed since the last absorption
+
+    def __enter__(self):
+        for k in self.NAMES:
+            setattr(self.mod, k, getattr(self, "_" + k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.mod, k, fn)
+
+    @staticmethod
+    def _keys(photons, lanes):
+        return [bytes(r) for r in torch.cat([photons.pos, photons.p], 1)[lanes].cpu().numpy()]
+
+    def _rebin_population(self, cfg, photons, max_photons, n_cs, t_rem=None):
+        out = self.orig["rebin_population"](cfg, photons, max_photons, n_cs=n_cs, t_rem=t_rem)
+        if out[1] is not None:
+            before = float(photons.weight.double().sum())
+            after = float(out[0].weight.double().sum()) + float(out[1]["weight"].sum())
+            self.weight_err.append(abs(after - before) / before)
+            self.rebins += 1
+        return out
+
+    def _place_in_cells(self, cfg, frame, index, photons):
+        out = self.orig["place_in_cells"](cfg, frame, index, photons)
+        self.placed.update(self._keys(out, out.alive))
+        return out
+
+    def _cell_nu_c(self, cfg, host, device, dtype=torch.float32):
+        self.frame = host.to_device(device, dtype=dtype)
+        return self.orig["cell_nu_c"](cfg, host, device, dtype)
+
+    def _apply_absorption(self, photons, nu_c):
+        from mcrat_tpu_torch import H_OVER_MEC2, PhotonType
+        from mcrat_tpu_torch.grid import fluid_beta_from_rows, gather_rows
+        from mcrat_tpu_torch.ops import fused_round as fr
+
+        out = self.orig["apply_absorption"](photons, nu_c)
+        p, cell = photons.p, photons.cell
+        beta = fluid_beta_from_rows(self.cfg, gather_rows(self.frame, cell), photons.pos[:, 0],
+                                    photons.pos[:, 1])
+        c0 = fr._boost(beta[:, 0], beta[:, 1], beta[:, 2], p[:, 0], p[:, 1], p[:, 2], p[:, 3])[0]
+        nu = c0.double() / H_OVER_MEC2
+        nu_cell = nu_c[torch.clamp(cell, 0, nu_c.shape[0] - 1).long()].double()
+        is_cs = photons.alive & (cell >= 0) & (
+            (photons.ptype == int(PhotonType.COMPTONIZED))
+            | (photons.ptype == int(PhotonType.UNABSORBED_CS)))
+        lanes = torch.nonzero(is_cs).flatten()
+        hit = [k in self.placed for k in self._keys(photons, lanes)]
+        merged = torch.zeros_like(is_cs)
+        merged[lanes[torch.tensor(hit, dtype=torch.bool, device=lanes.device)]] = True
+        self.placed = set()
+        above = is_cs & (nu > 1.001 * nu_cell)
+        absorbed = out[0].weight == 0
+        self.f10.append((int(merged.sum()), int((merged & above).sum()),
+                         int((merged & above & absorbed).sum()), int((above & absorbed).sum())))
+        return out
+
+
+def forced_runs(main_n):
+    """The forced-rebin runs.  "main": the main run's configuration (CS_CLI,
+    ``main_n`` photons), max_photons lowered to 2/3 of the fewest injected,
+    the default 0.5-degree rebin angle; its 256-round chunks outlast a
+    frame, so only the end-of-frame rebin can fire.  "toy":
+    tests/test_cyclosynch.py:258-270's (fps 5, 300-1,200 photons, the
+    128 x 24 grid, 8-round chunks, max_photons 200, a 0.1-degree rebin
+    angle), where both rebins fire.  name -> (Config keywords, cs_mcpar's
+    n_min, n_max, fps and r_max, the synthetic grid, chunk_rounds, the
+    resume's max_photons)."""
+    return {
+        "main": (dict(comv=False), *main_n, 1.0, 9e13, (256, 48), 256, 2 * main_n[0] // 3),
+        "toy": (dict(cs_rebin_ang=0.1), 300, 1200, 5.0, 5e13, (128, 24), 8, 200),
+    }
+
+
+def forced_rebin_run(device, fn, run_dir, spec, checks=True):
+    """A forced-rebin run of ``spec`` (a :func:`forced_runs` entry) through
+    ``fn`` (the kernel wrapper or its twin, as run_rank's rounds_fn), on
+    ``device``: frame 10, then a crash after its checkpoint; the resume
+    from the .old file, its photons marked scattered-CS (UNABSORBED_CS, as
+    a checkpoint stores them) and max_photons lowered, runs frames 11-12.
+    (In these configurations the pool gives 1-3 photons a frame and the
+    scattered-CS population is its promoted photons, so no max_photons
+    fires a rebin by itself.)  ``checks`` wraps the run in RebinChecks.
+    Returns a namespace: dumps, frame_timing rows, (kernel, twin) launches,
+    the RebinChecks or None, the photons marked, the resume's wall."""
+    import contextlib
+    import shutil
+    import types
+
+    from mcrat_tpu_torch import BFieldCalc, Config, Dims, Geometry, PhotonType, SimType
+    from mcrat_tpu_torch.driver import default_synthetic_factory, run_rank
+    from mcrat_tpu_torch.io import checkpoint as ck
+    from mcrat_tpu_torch.io.hydro import HydroPaths
+    from mcrat_tpu_torch.io.mcpar import read_mcpar
+
+    cfg_kw, n_min, n_max, fps, r_max, (nr, ntheta), chunk_rounds, max_photons = spec
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    cfg = Config(dims=Dims.TWO, geometry=Geometry.SPHERICAL,
+                 simulation_type=SimType.CYLINDRICAL_OUTFLOW, cyclosynchrotron=True,
+                 b_field_calc=BFieldCalc.TOTAL_E, epsilon_b=0.5, **cfg_kw)
+    mcpar = os.path.join(run_dir, "mc.par")
+    cs_mcpar(mcpar, n_min, n_max, fps, r_max)
+    par = read_mcpar(mcpar)  # as cli run reads it
+    paths = HydroPaths(filepath=run_dir + "/", mc_path="MC/")
+    kw = dict(chunk_rounds=chunk_rounds, device=device.type, output="npz", rounds_fn=fn,
+              synthetic_frame_factory=default_synthetic_factory(cfg, par, nr=nr, ntheta=ntheta))
+    timings = FrameTimings()
+    logging.getLogger("mcrat_tpu_torch").addHandler(timings)
+    chk = RebinChecks(cfg) if checks else None
+    zero_launches()
+    try:
+        with chk if chk is not None else contextlib.nullcontext():
+            work = run_rank(cfg, par, paths, last_frame_override=10, **kw)
+            os.remove(ck.checkpoint_path(work.mc_dir, 0))
+            state, photons = ck.read_checkpoint(work.mc_dir, 0)
+            injected = photons["ptype"] == int(PhotonType.INJECTED)
+            photons["ptype"][injected] = int(PhotonType.UNABSORBED_CS)
+            ck.save_checkpoint(work.mc_dir, 0, state, photons)
+            t0 = time.perf_counter()
+            run_rank(cfg, dataclasses.replace(par, restart="c", max_photons=max_photons),
+                     paths, **kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        logging.getLogger("mcrat_tpu_torch").removeHandler(timings)
+    return types.SimpleNamespace(dumps=proc_dumps(work.mc_dir), rows=timings.rows,
+                                 launches=read_launches(), checks=chk,
+                                 n_marked=int(injected.sum()), wall=wall)
+
+
+def cs_phase(device, card, n_min=150_000, n_max=400_000):
+    """The cyclo-synchrotron driver (phase 8b).  The main run is bench.py's
+    cyclo-synchrotron configuration through ``cli run --cyclosynchrotron``:
+    the cylindrical outflow on default_synthetic_factory's 2-D spherical grid
+    at 256 x 48 cells, TOTAL_E field with eps_B = 0.5, comv off, fps 1,
+    injection at frame 10, frames 10-12, n_min-n_max photons, 256-round
+    chunks, npz dumps, merged; its launch counts zeroed just before and read
+    just after.  Then the forced-rebin runs (:func:`forced_runs`), each once
+    through the kernel and once through the twin on the card; the main
+    configuration's kernel pass runs without RebinChecks, so that its
+    seconds are the driver's own.  Checks: every frame dumped with no pool
+    photon; the main run through the kernel alone; each forced run's dumps
+    identical bit for bit between kernel and twin, the main configuration's
+    frame 10 identical to the main run's; the end-of-frame rebin fired in
+    both forced runs and the mid-frame rebin in the toy one, the weight
+    conserved across each rebin (relative 1e-6), merged photons reaching
+    absorption and none absorbed above nu_c (F10), the kernel runs launching the kernel alone
+    and the twin runs the twin alone; pool lanes promoted.  Returns the
+    main run's kernel launches by instantiation."""
+    import shutil
+
+    from mcrat_tpu_torch.io.photons_h5 import discover_frames, list_proc_files
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CS_DIR, ignore_errors=True)
+    main_dir = os.path.join(CS_DIR, "main")
+    os.makedirs(main_dir)
+    mcpar = os.path.join(main_dir, "mc.par")
+    cs_mcpar(mcpar, n_min, n_max, 1.0, 9e13)
+    timings = FrameTimings()
+    logger = logging.getLogger("mcrat_tpu_torch")
+    logger.addHandler(timings)
+    before = peak = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    zero_launches()
+    try:
+        lines, wall = cli_run(main_dir, mcpar, device, "--merge", base=CS_CLI)
+    finally:
+        logger.removeHandler(timings)
+    launches, twin_launches = read_launches()
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+    for t in timings.rows:
+        cs_frame_line(card, t)
+    print(f"[cs] {card}: cli run --cyclosynchrotron, {len(timings.rows)} frames: {wall:.3f} s; "
+          f"peak device memory {peak / 2**20:.1f} MiB, {(peak - before) / 2**20:.1f} MiB above "
+          f"the {before / 2**20:.1f} MiB held before the run; merge "
+          f"{lines[-1] if lines else None}", flush=True)
+    inst = fr.instantiation("packed_sph2", 0, None, True)
+    check_launches("cs", inst, launches, twin_launches, device)
+    mc_dir = os.path.join(main_dir, "MC", "0-6")
+    bad = []
+    frames = discover_frames(list_proc_files(mc_dir))
+    main_dumps = proc_dumps(mc_dir)
+    if frames != [10, 11, 12]:
+        bad.append(f"main run frames {frames}")
+    pool = sum(int((d["PT"] == b"p").sum()) for d in main_dumps.values())
+    pool += sum(int((merged(mc_dir, f)["PT"] == b"p").sum()) for f in frames)
+    print(f"[cs] main run: frames {frames}, pool photons in the dumps {pool}", flush=True)
+    if pool:
+        bad.append("pool photons in the main run's dumps")
+
+    # the forced-rebin runs, each through the kernel and through the twin
+    promoted = sum(t["n_promoted"] for t in timings.rows)
+    for size, spec in forced_runs((n_min, n_max)).items():
+        runs = {}
+        for name, fn in (("kernel", fr.fused_rounds), ("twin", fr.fused_rounds_reference)):
+            tag = f"cs {size} forced, {name}"
+            t0 = time.perf_counter()
+            run = runs[name] = forced_rebin_run(
+                device, fn, os.path.join(CS_DIR, f"forced_{size}_{name}"), spec,
+                checks=(size, name) != ("main", "kernel"))
+            for t in run.rows:
+                cs_frame_line(card, t, tag)
+            (lk, lt), chk = run.launches, run.checks
+            mid, end = (sum(t[k] for t in run.rows) for k in ("n_merged_mid", "n_merged_end"))
+            lanes = 1 << max(run.n_marked - 1, 0).bit_length()
+            print(f"[{tag}] {card}: {time.perf_counter() - t0:.3f} s, the resume (frames "
+                  f"11-12) {run.wall:.3f} s; {run.n_marked} photons marked scattered-CS, "
+                  f"max_photons {spec[-1]}, the first rebin's fetch {lanes} lanes x 18 float32 "
+                  f"= {lanes * 72 / 2**20:.1f} MiB; launches kernel {lk}, twin {lt}; merged "
+                  f"mid-frame {mid}, end of frame {end}" + (
+                      f"; rebins {chk.rebins}, weight error per rebin {chk.weight_err}; "
+                      f"absorption (merged photons, above nu_c, absorbed above nu_c; every "
+                      f"scattered-CS photon absorbed above nu_c) {chk.f10}"
+                      if chk else " (no checks on this pass)"), flush=True)
+            if not end or (size == "toy" and not mid):
+                bad.append(f"{tag}: a rebin did not fire (mid {mid}, end {end})")
+            if chk and (not chk.weight_err or max(chk.weight_err) > 1e-6):
+                bad.append(f"{tag}: weight across the rebins {chk.weight_err}")
+            if chk and (any(a[2] for a in chk.f10) or not any(a[0] for a in chk.f10)):
+                bad.append(f"{tag}: merged photons absorbed above nu_c, or none reached "
+                           f"absorption (F10)")
+            if device.type == "cuda" and ((name == "kernel") != bool(sum(lk.values()))
+                                          or (name == "twin") != bool(lt)):
+                bad.append(f"{tag} launches: kernel {lk}, twin {lt}")
+            pool = sum(int((d["PT"] == b"p").sum()) for d in run.dumps.values())
+            got = sorted({k[1] for k in run.dumps})
+            if pool or got != ["10", "11", "12"]:
+                bad.append(f"{tag}: frames {got}, pool photons {pool}")
+        promoted += sum(t["n_promoted"] for t in runs["kernel"].rows)
+        differ = dumps_differ(runs["kernel"].dumps, runs["twin"].dumps)
+        print(f"[cs {size} forced] dumps, kernel against twin: {len(runs['kernel'].dumps)} "
+              f"files, differing {differ}", flush=True)
+        if differ:
+            bad.append(f"{size} forced-rebin dumps differ between kernel and twin")
+        if size == "main":
+            frame10 = {k: v for k, v in runs["kernel"].dumps.items() if k[1] == "10"}
+            differ = dumps_differ(frame10, {k: v for k, v in main_dumps.items() if k[1] == "10"})
+            print(f"[cs main forced] frame 10 against the main run's: {len(frame10)} files, "
+                  f"differing {differ}", flush=True)
+            if differ or not frame10:
+                bad.append("the main configuration's frame 10 differs from the main run's")
+    if not promoted:
+        bad.append("no pool lane was promoted")
+    print(f"[cs] phase 8b: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    if bad:
+        raise RuntimeError(f"cyclo-synchrotron phase failed: {bad}")
+    return launches
+
+
 def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300_000),
-         side_n=(150_000, 450_000)):
+         side_n=(150_000, 450_000), cs_n=(150_000, 400_000)):
     # 0. device
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     print(f"[device] nvidia-smi: {smi}", flush=True)
@@ -1341,8 +1702,9 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
         count(f"{name} ({mode}), Stokes off", frame_stokes_off(f"{name} ({mode})", prob, card,
                                                                 device))
 
-    # 8. the driver's main path
+    # 8. the driver's main path; 8b. the cyclo-synchrotron driver
     driver_launches = driver_phase(device, card, n_min, n_max)
+    cs_launches = cs_phase(device, card, *cs_n)
 
     # 9. result lines
     names = fr.instantiations()
@@ -1368,6 +1730,7 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
         "name": f"fused_rounds[{n}]", "route": "cuda",
         "source": "mcrat_tpu_torch/csrc/fused_round.cu", "replaces": replaces(n),
         "launches": launches.get(n, 0), "driver_launches": driver_launches.get(n, 0),
+        "cs_launches": cs_launches.get(n, 0),
         "max_abs_err": errs[n],
         "ms": times[n][0], "plain_ms": times[n][1],
         "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "bound_pipe": bounds[n][2],

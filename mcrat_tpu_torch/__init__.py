@@ -8,7 +8,7 @@ photon dump -> merge; ``analysis`` reads the merged frames).  It runs
 on any (dims x geometry) frame, on a rectilinear grid or on an AMR cell list
 (``grid.BinnedIndex``, ``io.flash.cells_from_blocks``), with DIRECT (Thomson)
 or TABLE (hot cross-section) optical depth, thermal and nonthermal
-electrons, float32, in PyTorch, with the fused transport round as a
+electrons, cyclo-synchrotron pool photons, float32, in PyTorch, with the fused transport round as a
 hand-written CUDA kernel (``ops/fused_round.py``, ``csrc/fused_round.cu``)
 on an NVIDIA H100.  Entry points put their tensors on ``DEFAULT_DEVICE``
 ("cuda") unless the caller passes ``device=``; without a card they raise.

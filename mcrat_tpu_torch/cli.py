@@ -9,10 +9,11 @@ independent processes or loop iterations (photon batches never
 communicate), so "N ranks" is --rank/--num-ranks.  ``run`` puts its tensors
 on ``--device`` (default: the card; ``cpu`` runs the kernel's plain twin)
 and dumps photons as ``--output`` h5 (HDF5, needs h5py) or npz (the same
-datasets as numpy files).  Options the port does not run yet (``--mesh``,
-``--coordinator`` here; ``--cyclosynchrotron`` and ``--dtype float64`` in
-``driver.run_rank``) raise ``NotImplementedError`` naming their ROADMAP
-item.
+datasets as numpy files).  ``--synthetic-grid NR NTHETA`` sizes the 2-D
+spherical grid of SYNTHETIC runs (``driver.default_synthetic_factory``).
+Options the port does not run yet (``--mesh``, ``--coordinator`` here;
+``--dtype float64`` in ``driver.run_rank``) raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -128,6 +129,9 @@ def main(argv=None):
     run.add_argument("--mc-path", default="MC/", help="output subdirectory (MC_PATH)")
     run.add_argument("--sim", default="synthetic",
                      choices=["flash", "pluto", "pluto_chombo", "riken", "synthetic"])
+    run.add_argument("--synthetic-grid", type=int, nargs=2, default=(384, 64),
+                     metavar=("NR", "NTHETA"),
+                     help="radial and polar cells of the synthetic 2-D spherical grid")
     run.add_argument("--geometry", default="spherical",
                      choices=["cartesian", "spherical", "cylindrical", "polar"])
     run.add_argument("--dims", type=int, default=2, choices=[2, 25, 3])
@@ -204,7 +208,8 @@ def main(argv=None):
     cfg = _build_config(args)
     par = read_mcpar(args.mcpar)
     paths = HydroPaths(filepath=args.filepath, fileroot=args.fileroot, mc_path=args.mc_path)
-    factory = (default_synthetic_factory(cfg, par)
+    nr, ntheta = args.synthetic_grid
+    factory = (default_synthetic_factory(cfg, par, nr=nr, ntheta=ntheta)
                if cfg.sim_switch is HydroSim.SYNTHETIC else None)
     kw = dict(last_frame_override=args.last_frame, chunk_rounds=args.chunk_rounds,
               synthetic_frame_factory=factory, ph_weight=args.ph_weight,

@@ -16,8 +16,10 @@ The reference main() (Src/mcrat.c:48-1036) on one device:
 Every tensor lives on one device, the card unless the caller passes
 ``device="cpu"``; there transport runs the fused-round kernel's plain twin
 (``transport_frame(fused=True)``), by the caller's choice.  Nothing moves to
-the CPU because the card or its kernel failed.  Configurations the port does
-not run yet (cyclo-synchrotron, float64, several devices) raise
+the CPU because the card or its kernel failed.  Cyclo-synchrotron runs add
+the reference's frame-boundary steps (pool emission, the mid-frame and
+end-of-frame rebins, one-for-one pool replenishment, absorption).
+Configurations the port does not run yet (float64, several devices) raise
 ``NotImplementedError`` before anything is injected or written.
 """
 from __future__ import annotations
@@ -43,9 +45,16 @@ from .device import resolve_device
 from .io.checkpoint import CheckpointState, load_checkpoint, save_checkpoint, scan_checkpoints
 from .io.hydro import HydroPaths, build_index, get_hydro_data
 from .io.photons_h5 import FORMATS, merge_all, proc_path, write_frame
+from .ops import cyclosynch
+from .ops import fused_round as fr
 from .transport import ROADMAP_ITEMS
 
 log = logging.getLogger("mcrat_tpu_torch")
+
+# the cyclo-synchrotron keys of a frame's frame_timing record: counts of the
+# frame's pool photons, merged and absorbed photons, and host seconds
+CS_TIMING = ("n_pool_emitted", "n_promoted", "n_pool_replaced", "n_merged_mid", "n_merged_end",
+             "n_absorbed", "emission_s", "rebin_s", "absorption_s")
 
 
 @dataclasses.dataclass
@@ -303,14 +312,19 @@ def _fetch_async(fields: dict):
 
 def _log_frame(timing: dict) -> None:
     """The one log record of a frame, with the record attribute
-    ``frame_timing`` (``timing``: counts, statistics and seconds)."""
-    log.info("rank %d frame %d scatt %d: %d scatterings (%d rounds); num_scatt max/mean "
-             "%.0f/%.2f; <r> %.3e; transport %.4f s, persistence wait %.4f s (fetch %.4f s, "
-             "checkpoint %.4f s, dump %.4f s)", timing["rank"], timing["frame"],
-             timing["scatt_frame"], timing["n_scatt"], timing["n_rounds"],
-             timing["n_scatt_max"], timing["n_scatt_mean"], timing["r_mean"],
-             timing["transport_s"], timing["persist_wait_s"], timing["fetch_s"],
-             timing["checkpoint_s"], timing["dump_s"], extra={"frame_timing": timing})
+    ``frame_timing`` (``timing``: counts, statistics and seconds; the
+    cyclo-synchrotron counts and seconds where it holds them)."""
+    msg = ("rank %d frame %d scatt %d: %d scatterings (%d rounds); num_scatt max/mean "
+           "%.0f/%.2f; <r> %.3e; transport %.4f s, persistence wait %.4f s (fetch %.4f s, "
+           "checkpoint %.4f s, dump %.4f s)")
+    args = [timing[k] for k in ("rank", "frame", "scatt_frame", "n_scatt", "n_rounds",
+                                "n_scatt_max", "n_scatt_mean", "r_mean", "transport_s",
+                                "persist_wait_s", "fetch_s", "checkpoint_s", "dump_s")]
+    if "n_pool_emitted" in timing:
+        msg += ("; pool emitted %d, promoted %d, replaced %d, merged %d + %d, absorbed %d "
+                "(emission %.4f s, rebin %.4f s, absorption %.4f s)")
+        args += [timing[k] for k in CS_TIMING]
+    log.info(msg, *args, extra={"frame_timing": timing})
 
 
 class _PersistWriter:
@@ -392,8 +406,6 @@ def stream_states(generator: torch.Generator, rng: np.random.Generator) -> dict:
 def unsupported_run(cfg: Config) -> Optional[str]:
     """Why the port cannot run this configuration end to end (the ROADMAP
     item that will port it), or None."""
-    if cfg.cyclosynchrotron:
-        return "cyclo-synchrotron runs: " + ROADMAP_ITEMS["cyclosynch"]
     if cfg.dtype != "float32":
         return f"{cfg.dtype} runs: " + ROADMAP_ITEMS["xla"]
     return None
@@ -426,6 +438,7 @@ def run_rank(
     init_clean_wait_s: float = 30.0,
     device=None,
     output: str = "h5",
+    rounds_fn=fr.fused_rounds,
 ) -> WorkAssignment:
     """Run one rank's simulation: inject -> transport -> checkpoint -> dump
     (``mcrat_tpu.driver.run_rank`` on one device).
@@ -440,12 +453,20 @@ def run_rank(
     from the states it saved (``io.checkpoint``, fault F9).
     ``output`` is the dump format, ``"h5"`` or ``"npz"``
     (``io.photons_h5``); "h5" without h5py raises ImportError before
-    anything is injected.  Cyclo-synchrotron and float64 runs raise
-    NotImplementedError, also before.  TABLE runs cache the hot cross
-    sections in ``base_dir/hot_x_section.npz``.  Each frame logs one record
-    with the attribute ``frame_timing``: its counts, the transport seconds,
-    the main thread's wait for the previous frame's writes and this frame's
-    fetch, checkpoint and dump seconds (:meth:`_PersistWriter.submit_frame`).
+    anything is injected.  float64 runs raise NotImplementedError, also
+    before.  TABLE runs cache the hot cross sections in
+    ``base_dir/hot_x_section.npz``.  ``rounds_fn`` is the round
+    implementation ``transport_frame`` passes to the glue: the kernel
+    wrapper, or ``fused_round.fused_rounds_reference`` to run the plain twin
+    on the card for a comparison.  Each frame logs one record with the
+    attribute ``frame_timing``: its counts (photons, scatterings, rounds;
+    cyclo-synchrotron pool photons emitted, promoted and replaced, photons
+    merged by the mid-frame and end-of-frame rebins, photons absorbed), the
+    host seconds of transport (the frame's main-thread wall to its
+    statistics fetch, less emission, rebinning and absorption), emission,
+    rebinning and absorption, the main thread's wait for the previous
+    frame's writes and this frame's fetch, checkpoint and dump seconds
+    (:meth:`_PersistWriter.submit_frame`).
     """
     reason = unsupported_run(cfg)
     if reason is not None:
@@ -481,6 +502,7 @@ def run_rank(
         return _run_rank_inner(
             cfg, par, paths, rank, base_dir, synthetic_frame_factory, generator,
             chunk_rounds, last_frame_override, ph_weight, work, persist, device, output,
+            rounds_fn,
         )
     finally:
         persist.close()
@@ -488,9 +510,39 @@ def run_rank(
         log_handler.close()
 
 
+def _append_arrays(photons, meta, arrays: dict, n_alive: int, t_rem=None, new_t=None,
+                   place=None):
+    """Append host photon arrays to the population on its device
+    (``mcrat_tpu.driver._append_arrays`` on one device): grown to the next
+    power of two when its free slots (capacity - ``n_alive``, the live count
+    the driver tracks from its statistics fetches) cannot take them, the new
+    photons packed with the population's weight norm, ``place`` (or None)
+    applied to them, then written into the first free slots.  ``t_rem`` and
+    ``new_t`` carry the frame time of a mid-frame append alongside.
+    Returns (photons, number appended, t_rem)."""
+    if not arrays:
+        return photons, 0, t_rem
+    n_new = len(arrays["weight"])
+    if photons.capacity - n_alive < n_new:
+        photons, t_rem = transport.grow_photons(
+            photons, int(2 ** math.ceil(math.log2(photons.capacity + n_new))), t_rem)
+    n_pad = transport._pow2(n_new)
+    new, _ = transport.photons_from_arrays(arrays, capacity=n_pad, dtype=photons.p.dtype,
+                                           device=photons.device, weight_norm=meta.weight_norm)
+    if place is not None:
+        new = place(new)
+    nt = None
+    if t_rem is not None:
+        nt = torch.zeros(n_pad, dtype=t_rem.dtype)
+        nt[:n_new] = torch.as_tensor(new_t, dtype=t_rem.dtype)
+        nt = nt.to(t_rem.device)
+    photons, t_rem = transport.append_photons_device(photons, new, t_rem, nt)
+    return photons, n_new, t_rem
+
+
 def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, generator,
                     chunk_rounds, last_frame_override, ph_weight, work, persist, device,
-                    output) -> WorkAssignment:
+                    output, rounds_fn) -> WorkAssignment:
     generator = generator if generator is not None else torch.Generator().manual_seed(1234 + rank)
     rng = np.random.default_rng(9876 + rank)
     dtype = torch.float32
@@ -559,23 +611,121 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
             if dt_frame <= 0:
                 continue
             t0 = time.perf_counter()
-            # one statistics fetch a frame: the decimation bounds come with
-            # the previous frame's scattering statistics
+            cs = dict.fromkeys(CS_TIMING, 0)
+            # one statistics fetch a frame: the decimation bounds, the pool
+            # and live counts come with the previous frame's statistics
             if pending_stats is None:
                 pending_stats = transport.frame_stats(photons).tolist()
             r_min, r_max, t_min, t_max = pending_stats[4:8]
+            n_pool, n_alive = int(pending_stats[8]), int(pending_stats[9])
+            # cyclo-synchrotron after an injection's first frame, the first
+            # frame after a resume included (F11 of the JAX package, which
+            # tests scatt_frame != scatt_start, is not copied): the pool
+            # lives in the injection shell advected to this frame, at the
+            # schedule's fps (F3, par.fps there, is not copied either)
+            cs_active = cfg.cyclosynchrotron and scatt_frame != frame
+            shell_fps = sched.step(scatt_frame)[1]
+            if cs_active:
+                lo, hi = cyclosynch.cs_r_limits(scatt_frame, frame, shell_fps, work.r_inj)
+                r_min, r_max = min(r_min, lo), max(r_max, hi)
             host, edges = load_frame(scatt_frame, False, (r_min, r_max, t_min, t_max))
             frame_dev = host.to_device(device, dtype=dtype)
             index = build_index(cfg, host, edges, device=device)
-            res = transport.transport_frame(
-                cfg, photons, frame_dev, index, dt_frame, generator, stokes_on=cfg.stokes,
-                chunk_rounds=chunk_rounds, fused=fused, xsec_table=xsec_table)
-            photons = res.photons
+
+            def place(new):
+                # fault F10 (not copied): merged photons get their cell and
+                # comoving momentum before transport or absorption reads them
+                return cyclosynch.place_in_cells(cfg, frame_dev, index, new)
+
+            def emit(fn, *args):
+                t = time.perf_counter()
+                arrays = fn(cfg, host, scatt_frame, frame, shell_fps, work.r_inj,
+                            meta.weight_norm, *args, work.theta_min, work.theta_max, rng)
+                cs["emission_s"] += time.perf_counter() - t
+                return arrays
+
+            def rebin(ph, n_cs, t_rem=None):
+                t = time.perf_counter()
+                out = cyclosynch.rebin_population(cfg, ph, par.max_photons, n_cs=n_cs,
+                                                  t_rem=t_rem)
+                cs["rebin_s"] += time.perf_counter() - t
+                return out
+
+            if cs_active:
+                arrays, _ = emit(cyclosynch.emit_pool_photons, par.max_photons)
+                photons, cs["n_pool_emitted"], _ = _append_arrays(photons, meta, arrays,
+                                                                  n_alive)
+                n_alive += cs["n_pool_emitted"]
+                n_pool += cs["n_pool_emitted"]
+
+            # transport, the mid-frame rebin armed when cyclo-synchrotron is
+            # live: the scattered pool photons merge at a chunk boundary once
+            # they pass max_photons, and the frame goes on from each photon's
+            # frame time (reference: Src/mcrat.c:819-830)
+            n_scatt = n_rounds = 0
+            t_rem0 = None
+            while True:
+                res = transport.transport_frame(
+                    cfg, photons, frame_dev, index, dt_frame, generator, stokes_on=cfg.stokes,
+                    chunk_rounds=chunk_rounds, fused=fused, rounds_fn=rounds_fn,
+                    xsec_table=xsec_table, t_rem0=t_rem0,
+                    cs_limit=par.max_photons if cs_active else None)
+                photons = res.photons
+                n_scatt += res.n_scatt
+                n_rounds += res.n_rounds
+                if not res.rebin_pending:
+                    break
+                photons, merged, merged_t = rebin(photons, res.n_cs, res.t_rem)
+                t_rem0 = res.t_rem
+                n_alive -= res.n_cs
+                merged["weight"] = merged["weight"] * meta.weight_norm
+                t = time.perf_counter()
+                photons, n_mrg, t_rem0 = _append_arrays(photons, meta, merged, n_alive, t_rem0,
+                                                        merged_t, place)
+                cs["rebin_s"] += time.perf_counter() - t
+                n_alive += n_mrg
+                cs["n_merged_mid"] += n_mrg
+                log.info("rank %d frame %d scatt %d: mid-frame rebin %d -> %d CS photons", rank,
+                         frame, scatt_frame, res.n_cs, n_mrg)
             time_now += dt_frame
+
+            n_abs = None
+            if cs_active:
+                # one-for-one replenishment of the promoted pool photons
+                # (Src/mcrat.c:791-808), the end-of-frame rebin, absorption
+                # (Src/mcrat.c:819-830, 853-878); one statistics fetch gives
+                # the pool deficit, the live count and the rebin trigger
+                mid = transport.frame_stats(photons).tolist()
+                n_alive, n_cs = int(mid[9]), int(mid[10])
+                cs["n_promoted"] = n_pool - int(mid[8])
+                if cs["n_promoted"] > 0:
+                    arrays = emit(cyclosynch.emit_pool_replacements, cs["n_promoted"])
+                    photons, cs["n_pool_replaced"], _ = _append_arrays(photons, meta, arrays,
+                                                                       n_alive)
+                    n_alive += cs["n_pool_replaced"]
+                photons, merged, _ = rebin(photons, n_cs)
+                if merged is not None:
+                    n_alive -= n_cs
+                    merged["weight"] = merged["weight"] * meta.weight_norm
+                    t = time.perf_counter()
+                    photons, cs["n_merged_end"], _ = _append_arrays(photons, meta, merged,
+                                                                    n_alive, place=place)
+                    cs["rebin_s"] += time.perf_counter() - t
+                t = time.perf_counter()
+                nu_c = cyclosynch.cell_nu_c(cfg, host, device, dtype)
+                photons, n_abs, _ = cyclosynch.apply_absorption(photons, nu_c)
+                cs["absorption_s"] = time.perf_counter() - t
             # end-of-frame fetch: statistics for the log, the next frame's
-            # decimation bounds and the live count that sizes the dump
-            pending_stats = transport.frame_stats(photons).tolist()
-            transport_s = time.perf_counter() - t0
+            # decimation bounds, the live count that sizes the dump (and
+            # the absorbed count)
+            stats = transport.frame_stats(photons)
+            if n_abs is not None:
+                stats = torch.cat([stats, n_abs.to(stats.dtype)[None]])
+            pending_stats = stats.tolist()
+            if n_abs is not None:
+                cs["n_absorbed"] = int(pending_stats.pop())
+            transport_s = (time.perf_counter() - t0 - cs["emission_s"] - cs["rebin_s"]
+                           - cs["absorption_s"])
             mx, _, mean, r_avg = pending_stats[0:4]
             n_live = int(pending_stats[9])
 
@@ -590,8 +740,8 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
             sub_ph = transport.compact_live(
                 photons, min(transport._pad64k(n_live), photons.capacity))
             timing = dict(rank=rank, frame=frame, scatt_frame=scatt_frame, n_photons=n_live,
-                          n_scatt=res.n_scatt, n_rounds=res.n_rounds, n_scatt_max=mx,
-                          n_scatt_mean=mean, r_mean=r_avg, transport_s=transport_s)
+                          n_scatt=n_scatt, n_rounds=n_rounds, n_scatt_max=mx,
+                          n_scatt_mean=mean, r_mean=r_avg, transport_s=transport_s, **cs)
             persist.submit_frame(cfg, work.mc_dir, rank, st, sub_ph, meta, scatt_frame, proc,
                                  timing)
 

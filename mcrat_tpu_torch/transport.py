@@ -18,7 +18,10 @@ cartesian/cylindrical/spherical, 3-D cartesian/spherical/polar -- on a
 AMR cell list (:class:`~mcrat_tpu_torch.grid.BinnedIndex`), with DIRECT
 (Thomson) or TABLE (hot cross-section, ``ops.hot_xsec``) optical depth,
 thermal electrons and, in TABLE mode, nonthermal (broken) power-law
-electrons, float32, Stokes on or off.  Other configurations raise
+electrons, float32, Stokes on or off; cyclo-synchrotron pool photons scatter
+in place and are promoted, and the population surgery of the cyclo-synchrotron
+frame boundary (grow, append, extract the scattered-CS subset) runs on the
+device without a host sync.  Other configurations raise
 ``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
@@ -54,7 +57,6 @@ MIN_COMPACT_CAPACITY = 1024
 ROADMAP_ITEMS = dict(
     xla="ROADMAP.md queue 1 item 5 (the XLA-path physics ops and "
         "transport_rounds: float64 and non-CUDA runs)",
-    cyclosynch="ROADMAP.md queue 1 item 11 (cyclo-synchrotron)",
     readers="ROADMAP.md queue 1 item 15 (the PLUTO, PLUTO-Chombo and RIKEN readers)",
     mesh="ROADMAP.md queue 1 item 13 (multiple devices)",
 )
@@ -337,6 +339,8 @@ class FrameResult(NamedTuple):
     n_scatt: int  # scattering events this frame (weightless count)
     n_rounds: int  # transport rounds taken
     t_rem: torch.Tensor  # (N,) frame time left per photon
+    rebin_pending: bool = False  # True: the scattered-CS count passed cs_limit
+    n_cs: Optional[int] = None  # live scattered-CS count of the last chunk (cs_limit set)
 
 
 class ChunkResult(NamedTuple):
@@ -366,8 +370,6 @@ FRAMES = {
 def unsupported_reason(cfg: Config, frame: HydroFrame, index) -> Optional[str]:
     """Why the slice cannot run this configuration (the ROADMAP item that
     will port it), or None when it can."""
-    if cfg.cyclosynchrotron:
-        return "cyclo-synchrotron: " + ROADMAP_ITEMS["cyclosynch"]
     if not isinstance(index, (RectilinearIndex, BinnedIndex)):
         return f"{type(index).__name__}: not a spatial index (RectilinearIndex, BinnedIndex)"
     if cfg.geometry not in FRAMES[cfg.dims]:
@@ -770,6 +772,8 @@ def transport_frame(
     s_rows: int = 128,
     rounds_fn=fr.fused_rounds,
     xsec_table=None,
+    t_rem0: Optional[torch.Tensor] = None,
+    cs_limit: Optional[int] = None,
 ) -> FrameResult:
     """Advance the whole population through one hydro-frame time window.
 
@@ -788,6 +792,14 @@ def transport_frame(
     ``rounds_fn`` is passed to :func:`transport_rounds_fused`.  TABLE mode
     needs ``xsec_table`` (``ops.hot_xsec.load_or_build``; ValueError
     without); its per-cell Chebyshev rows are built once per frame, here.
+
+    ``t_rem0`` resumes a frame left early (each photon's frame time, as a
+    ``FrameResult.t_rem`` gives it).  ``cs_limit`` arms the mid-frame rebin
+    trigger (the reference's every-1000-scatterings check, Src/mcrat.c:
+    819-830): when the working set's live scattered-CS count, part of the
+    chunk's fetch, passes it at a chunk boundary before the frame is done,
+    the frame exits with ``rebin_pending`` and the whole population's
+    ``t_rem``, so the driver can rebin and re-enter.
     """
     check_xsec_table(cfg, xsec_table)
     reason = unsupported_reason(cfg, frame, index)
@@ -800,12 +812,14 @@ def transport_frame(
             f"non-fused transport ({photons.device.type}, {photons.p.dtype}): "
             + ROADMAP_ITEMS["xla"])
     setup = select_variant(cfg, frame, index, xsec_table)
-    t_rem = frame_time(photons, dt_max)
+    t_rem = frame_time(photons, dt_max) if t_rem0 is None else t_rem0
     n_scatt_total = 0
     rounds_total = 0
     work_ph, work_t = photons, t_rem
     slots = None  # None => the working set is the full population
     result_ph = photons
+    rebin_pending = False
+    n_cs = None
 
     while True:
         res = transport_rounds_fused(
@@ -814,11 +828,17 @@ def transport_frame(
         )
         work_ph, work_t = res.photons, res.t_rem
         # ONE batched host fetch per chunk
-        n_scatt, all_done, n_active = torch.stack([
-            res.n_scatt, res.all_done.to(torch.int64), res.n_active.to(torch.int64),
-        ]).tolist()
+        fetch = [res.n_scatt, res.all_done.to(torch.int64), res.n_active.to(torch.int64)]
+        if cs_limit is not None:
+            fetch.append(_count_cs(work_ph))
+        n_scatt, all_done, n_active, *cs = torch.stack(fetch).tolist()
         n_scatt_total += n_scatt
         rounds_total += res.n_rounds
+        if cs_limit is not None:
+            n_cs = cs[0]
+            if n_cs > cs_limit and not all_done:
+                rebin_pending = True
+                break
         if all_done or chunk_rounds == 0 or rounds_total >= cfg.max_rounds_per_frame:
             break
         if work_ph.capacity > MIN_COMPACT_CAPACITY and n_active < work_ph.capacity // 4:
@@ -836,12 +856,15 @@ def transport_frame(
         result_t = torch.zeros(result_ph.capacity, dtype=work_t.dtype, device=work_t.device)
         keep = slots < result_ph.capacity
         result_t[slots[keep]] = work_t[keep]
-    return FrameResult(photons=result_ph, n_scatt=n_scatt_total,
-                       n_rounds=rounds_total, t_rem=result_t)
+    return FrameResult(photons=result_ph, n_scatt=n_scatt_total, n_rounds=rounds_total,
+                       t_rem=result_t, rebin_pending=rebin_pending, n_cs=n_cs)
 
 
 # ---------------------------------------------------------------------------
-# Persistence helpers (mcrat_tpu/transport.py:1375-1391, 1487-1505)
+# Population surgery on the device: grow, append, extract the CS subset,
+# compact the live lanes (mcrat_tpu/transport.py:1375-1505).  Each returns
+# fresh tensors, never writing the ones it was given, and none syncs with
+# the host: free and CS lanes are ranked by a prefix sum, not ``nonzero``.
 # ---------------------------------------------------------------------------
 
 
@@ -857,6 +880,85 @@ def _pad64k(n: int, floor: int = 1024) -> int:
     return ((n + 65535) // 65536) * 65536
 
 
+def _first_lanes(mask: torch.Tensor, n_out: int) -> torch.Tensor:
+    """The first ``n_out`` lanes where ``mask`` holds, ascending, padded
+    with -1 (``jnp.nonzero(mask, size=n_out, fill_value=-1)``), found by a
+    prefix sum and a scatter, without a host sync."""
+    cap = mask.shape[0]
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    dst = torch.where(mask & (rank < n_out), rank, n_out)
+    idx = torch.full((n_out + 1,), -1, dtype=torch.int64, device=mask.device)
+    idx.scatter_(0, dst, torch.arange(cap, dtype=torch.int64, device=mask.device))
+    return idx[:n_out]
+
+
+def _gather_first(photons: Photons, mask: torch.Tensor, n_out: int):
+    """The first ``n_out`` lanes where ``mask`` holds, gathered into a new
+    ``n_out``-lane population (pad lanes dead): (subset, the lanes gathered
+    (pads at 0), valid)."""
+    idx = _first_lanes(mask, n_out)
+    valid = idx >= 0
+    safe = torch.clamp(idx, min=0)
+    sub = _gather_photons(photons, safe)
+    sub.weight = torch.where(valid, sub.weight, 0.0)
+    sub.ptype = torch.where(valid, sub.ptype, int(PhotonType.NULL)).to(torch.int32)
+    return sub, safe, valid
+
+
+def grow_photons(photons: Photons, new_cap: int, t_rem: Optional[torch.Tensor] = None):
+    """The population copied into ``new_cap`` lanes, the new ones NULL:
+    (photons, t_rem grown alongside with zeros, or None)."""
+    grown = empty_photons(new_cap, photons.p.dtype, photons.device)
+    for k, v in grown.fields().items():
+        v[:photons.capacity] = getattr(photons, k)
+    if t_rem is None:
+        return grown, None
+    t_new = torch.zeros(new_cap, dtype=t_rem.dtype, device=t_rem.device)
+    t_new[:t_rem.shape[0]] = t_rem
+    return grown, t_new
+
+
+def append_photons_device(photons: Photons, new: Photons, t_rem=None, new_t=None):
+    """``new``'s live lanes written into ``photons``' first free slots, in
+    ascending order (``mcrat_tpu.transport.append_photons_device``):
+    (photons, t_rem with ``new_t`` appended the same way, or None).  The
+    caller guarantees the free slots (capacity - live count, known from
+    ``frame_stats``); lanes past the free slots are dropped."""
+    cap = photons.capacity
+    free = _first_lanes(~photons.alive, new.capacity)
+    slots = torch.where(new.alive & (free >= 0), free, cap)
+
+    def put(dst, src):
+        # one spare row takes the dropped lanes
+        out = torch.cat([dst, dst[:1]])
+        out[slots] = src.to(dst.dtype)
+        return out[:cap]
+
+    out = Photons(**{k: put(v, getattr(new, k)) for k, v in photons.fields().items()})
+    return out, None if t_rem is None else put(t_rem, new_t)
+
+
+def extract_cs_subset(photons: Photons, n_out: int, t_rem=None):
+    """The device half of rebinning (``mcrat_tpu.transport.
+    extract_cs_subset``): the first ``n_out`` live scattered-CS lanes
+    gathered into an ``n_out``-lane population (pad lanes dead), and
+    nulled in the population.  Only the gathered lanes are nulled: the
+    caller sizes ``n_out`` from a count that can fall short of the
+    population's CS lanes (the chunk fetch counts the compacted working
+    set), and the lanes past ``n_out`` stay for the next trigger.  Returns
+    (population, subset, subset t_rem: ``t_rem``'s lanes or zeros)."""
+    is_cs = photons.alive & ((photons.ptype == int(PhotonType.COMPTONIZED))
+                             | (photons.ptype == int(PhotonType.UNABSORBED_CS)))
+    sub, safe, valid = _gather_first(photons, is_cs, n_out)
+    sub_t = (torch.where(valid, t_rem[safe], 0.0) if t_rem is not None
+             else torch.zeros(n_out, dtype=photons.weight.dtype, device=photons.device))
+    taken = is_cs & (torch.cumsum(is_cs.to(torch.int64), 0) <= n_out)
+    nulled = photons.replace(
+        weight=torch.where(taken, 0.0, photons.weight),
+        ptype=torch.where(taken, int(PhotonType.NULL), photons.ptype).to(torch.int32))
+    return nulled, sub, sub_t
+
+
 def compact_live(photons: Photons, n_out: int) -> Photons:
     """The live lanes, in slot order, gathered into a new ``n_out``-lane
     population on the same device (pad lanes dead); the persistence path
@@ -864,18 +966,7 @@ def compact_live(photons: Photons, n_out: int) -> Photons:
     tensor, never a view of ``photons``, whose buffers the next frame
     writes in place.  No host sync: the first ``n_out`` live slots are
     found by a prefix sum and a scatter, not by ``nonzero``."""
-    alive = photons.alive
-    cap = photons.capacity
-    rank = torch.cumsum(alive.to(torch.int64), 0) - 1
-    dst = torch.where(alive & (rank < n_out), rank, n_out)
-    idx = torch.full((n_out + 1,), -1, dtype=torch.int64, device=photons.device)
-    idx.scatter_(0, dst, torch.arange(cap, dtype=torch.int64, device=photons.device))
-    idx = idx[:n_out]
-    valid = idx >= 0
-    sub = _gather_photons(photons, torch.clamp(idx, min=0))
-    sub.weight = torch.where(valid, sub.weight, 0.0)
-    sub.ptype = torch.where(valid, sub.ptype, int(PhotonType.NULL)).to(torch.int32)
-    return sub
+    return _gather_first(photons, photons.alive, n_out)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port's command line on the CPU: ``run --device cpu --output npz
 --merge`` of tests/test_driver.py's mc.par (the full 384 x 64 default grid,
 one angle bin, frames 10-12), then ``merge`` of the angle directory and of
-the MC base directory (ALL_DATA), and ``status``; the options the port does
-not run yet raise NotImplementedError naming their ROADMAP item."""
+the MC base directory (ALL_DATA), and ``status``; ``run --cyclosynchrotron``;
+the options the port does not run yet raise NotImplementedError naming their
+ROADMAP item."""
 import contextlib
 import dataclasses
 import io
@@ -56,9 +57,26 @@ def test_run_merge_status(tmp_path):
                                         done=True, n_photons=0)}}
 
 
+def test_run_cyclosynchrotron(tmp_path):
+    """``run --cyclosynchrotron`` on the 128 x 24 synthetic grid writes
+    every frame's dump, without a pool photon in any."""
+    par = dataclasses.replace(convert.mcpar_from_reference(_par()), n_theta_bins=1,
+                              frm0=(10,), frm2=(10,), inj_radius=(8e12,))
+    mcpar = str(tmp_path / "mc.par")
+    tmcpar.write_mcpar(par, mcpar)
+    out = _cli("run", "--mcpar", mcpar, "--filepath", str(tmp_path) + "/", *RUN,
+               "--simulation-type", "cylindrical_outflow", "--cyclosynchrotron",
+               "--synthetic-grid", "128", "24", "--last-frame", "12", "--device", "cpu",
+               "--output", "npz", "--merge")
+    counts = json.loads(out.splitlines()[-1])
+    assert sorted(counts) == ["10", "11", "12"] and min(counts.values()) >= par.min_photons
+    for fr in (10, 11, 12):
+        data = tph.read_frame(str(tmp_path / "MC" / "0-6" / f"mcdata_{fr}.npz"))
+        assert b"p" not in set(data["PT"].tolist()) and (data["PW"] > 0).all()
+
+
 @pytest.mark.parametrize("flags,item", [(["--mesh", "2"], "item 13"),
                                         (["--coordinator", "localhost:1"], "item 13"),
-                                        (["--cyclosynchrotron"], "item 11"),
                                         (["--dtype", "float64"], "item 5")])
 def test_unported_options_raise(tmp_path, flags, item):
     mcpar = str(tmp_path / "mc.par")

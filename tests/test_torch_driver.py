@@ -19,8 +19,8 @@ injection, float32, ``device="cpu"`` (the fused-round kernel's plain twin).
   seeds and the same frames as the run that was not interrupted, and an
   injection after the resume draws the photons the uninterrupted run drew.
 * Elastic re-adoption runs the unfinished old rank under its old id.
-* Cyclo-synchrotron, float64, HDF5 without h5py and a run without a card
-  raise before anything is written.
+* Cyclo-synchrotron runs; float64, HDF5 without h5py and a run without a
+  card raise before anything is written.
 * ``get_hydro_data`` of a FLASH file (the reader, the test-problem overwrite
   and the nonthermal densities) gives JAX's frame field for field.
 """
@@ -396,15 +396,22 @@ def test_initialize_handshake_slow_cleaner_race(tmp_path):
 # up-front errors
 
 
-@pytest.mark.parametrize("case", ["cyclosynchrotron", "float64", "h5_without_h5py", "format",
-                                  "no_card"])
+def test_run_rank_runs_cyclosynchrotron(tmp_path):
+    """Cyclo-synchrotron is ported: rank 0 of 4 (one injection) runs frames
+    10-12 with pool emission and absorption on the default synthetic
+    frame (tests/test_torch_cyclosynch_driver.py holds it against JAX)."""
+    cfg = dataclasses.replace(TCFG, cyclosynchrotron=True)
+    work = _run(tmp_path, _tpar(), cfg=cfg, num_ranks=4, last_frame_override=12,
+                init_clean_wait_s=0.1)
+    assert _proc_frames(work) == [10, 11, 12]
+    assert tdriver.unsupported_run(cfg) is None
+
+
+@pytest.mark.parametrize("case", ["float64", "h5_without_h5py", "format", "no_card"])
 def test_unported_runs_raise_before_writing(tmp_path, monkeypatch, case):
     par = _tpar()
     cfg, kw, err = TCFG, {}, NotImplementedError
-    if case == "cyclosynchrotron":
-        cfg = dataclasses.replace(TCFG, cyclosynchrotron=True)
-        match = "item 11"
-    elif case == "float64":
+    if case == "float64":
         cfg = dataclasses.replace(TCFG, dtype="float64")
         match = "item 5"
     elif case == "h5_without_h5py":

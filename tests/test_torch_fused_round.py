@@ -283,10 +283,11 @@ def test_unported_configurations_raise():
     assert tt.select_variant(cfg, frame, nonuniform)[0] == "slim_cyl2"
     sph = TConfig(dims=TDims.TWO, geometry=TGeometry.SPHERICAL)
     assert tt.unsupported_reason(sph, frame, index) is None
-    # still to port: cyclo-synchrotron, float64; an object that is no index
-    # (the AMR BinnedIndex is ported, test_torch_amr_*) raises too
-    assert "item 11" in tt.unsupported_reason(TConfig(
-        dims=TDims.TWO, geometry=TGeometry.CYLINDRICAL, cyclosynchrotron=True), frame, index)
+    # cyclo-synchrotron is ported (test_torch_cyclosynch*); still to port:
+    # float64; an object that is no index (the AMR BinnedIndex is ported,
+    # test_torch_amr_*) raises too
+    assert tt.unsupported_reason(TConfig(
+        dims=TDims.TWO, geometry=TGeometry.CYLINDRICAL, cyclosynchrotron=True), frame, index) is None
     assert "not a spatial index" in tt.unsupported_reason(cfg, frame, object())
     with pytest.raises(NotImplementedError, match="not a spatial index"):
         tt.transport_rounds_fused(cfg, ph, frame, object(), tt.frame_time(ph, 0.05),
