@@ -115,11 +115,30 @@ off) -- and checks them:
      too): dumps identical bit for bit between kernel and twin, the rebins
      fired, weight conserved across each rebin, no photon that a rebin
      merged absorbed above nu_c (F10), no pool photon in any dump;
+  8c. the XLA engine and the readers: (a) the flagship frame of 3. through
+     the XLA engine on the card (no kernel or twin launch), in float64
+     (``transport_frame(fused=None)`` on a float64 population of the same
+     injection) and in float32 (``fused=False``), each held against the
+     kernel frame of 3. (mean energy, scatterings a photon, scattered
+     fraction, mean Q and U within 5 standard errors), with its wall,
+     rounds, ms a round, device-to-host syncs (torch's sync debug mode) and
+     peak device memory (xla_frames); (b) ``cli run --dtype float64 --output
+     npz --merge`` of the driver phase's configuration at 100k-200k photons,
+     frames 0-2: counts, finite fields, weight conserved, and a resume from
+     the ``.old`` checkpoint a crash after frame 1 leaves bit for bit the
+     uninterrupted run (xla_driver); (c) PLUTO .dbl and RIKEN 2-D frame
+     sets that chip_smoke writes with numpy (the flagship outflow on its
+     160x512 grid, the 2-D spherical main frame) into build/readers/,
+     through ``cli run --sim pluto`` / ``--sim riken`` at ~1M photons, two
+     frames: the kernel instantiation of the readers' cell list alone, the
+     twin 0; the same run once more through the twin on the card, its npz
+     dumps equal to the kernel run's bit for bit; frame 0 held against the
+     synthetic main path of the same outflow within 4 sigma (reader_phase);
   9. prints the kernels' JSON line (with each instantiation's block,
      registers, local memory a thread -- spills and stack, as the CUDA
      runtime reports them -- and shared memory, and its launches in the
-     driver run and in the cyclo-synchrotron run), then {"ok": true,
-     "device": {...}} last.
+     driver run, in the cyclo-synchrotron run and in the PLUTO and RIKEN
+     runs), then {"ok": true, "device": {...}} last.
 
 Each path's launch counts (the driver runs' too) are set to 0 just before it
 runs and read just after.  An instantiation's ``launches`` in the kernels' line are those of
@@ -307,7 +326,7 @@ def xsec_tables(cfg, device):
 
 
 def problem(name, device, n_min, n_max, seed=0, hot=False, mode="direct", tables=None,
-            spread=False):
+            spread=False, dtype=torch.float32):
     """The :class:`Problem` of one path's frame, set up as the repository
     sets it up: the flagship as bench.py:63-92, the spherical main grid as
     mcrat_tpu/driver.py:901-921 for the mc.par of bench.py:424-430, the 3-D
@@ -316,7 +335,9 @@ def problem(name, device, n_min, n_max, seed=0, hot=False, mode="direct", tables
     the AMR frame as the flagship's outflow on AMR_BANDS' FLASH blocks;
     ``hot`` at T' = 5e8 K, ``spread`` with cell temperatures spread over
     1e5-5e9 K; ``mode`` (see CASES) sets the optical depth and electrons,
-    nonthermal densities from the equipartition B field (bench.py:292)."""
+    nonthermal densities from the equipartition B field (bench.py:292);
+    ``dtype`` float64 gives the XLA engine's frame, photons and index (the
+    same injection: the host arithmetic is float64 either way)."""
     from mcrat_tpu_torch import M_P, Config, Dims, Geometry, SimType, Spectrum, transport
     from mcrat_tpu_torch.grid import frame_from_numpy
     from mcrat_tpu_torch.io.flash import cells_from_blocks
@@ -398,17 +419,21 @@ def problem(name, device, n_min, n_max, seed=0, hot=False, mode="direct", tables
         host.nonthermal_dens[empty] = host.dens[empty] / M_P
         host.dens[empty] = 0.0
         host.dens_lab[empty] = 0.0
+    if dtype == torch.float64:
+        cfg = dataclasses.replace(cfg, dtype="float64")
+        host.cfg = cfg
     # the aux modes run the carried path: a BinnedIndex over the cells
     index = build_index(cfg, host, None if mode in AUX_MODES else edges, device=device)
     arrays, _ = transport.inject_photons(
         host, ph_weight=1e50, min_photons=n_min, max_photons=n_max,
         spect=Spectrum.BLACKBODY, theta_min=0.0, fps=PATHS[name][1],
         rng=np.random.default_rng(seed), **inj)
-    photons, _ = transport.photons_from_arrays(arrays, device=device)
-    frame = host.to_device(device)
-    variant = transport.select_variant(cfg, frame, index, xsec)[0]
-    if mode in ("direct", "table", *AUX_MODES) and variant != PATHS[name][2]:
-        raise RuntimeError(f"{name} ({mode}) selects {variant}, not {PATHS[name][2]}")
+    photons, _ = transport.photons_from_arrays(arrays, dtype=dtype, device=device)
+    frame = host.to_device(device, dtype=dtype)
+    if dtype == torch.float32:
+        variant = transport.select_variant(cfg, frame, index, xsec)[0]
+        if mode in ("direct", "table", *AUX_MODES) and variant != PATHS[name][2]:
+            raise RuntimeError(f"{name} ({mode}) selects {variant}, not {PATHS[name][2]}")
     return Problem(cfg, photons, frame, index, xsec, PATHS[name][0])
 
 
@@ -805,10 +830,13 @@ def kernel_vs_twin(name, prob, stokes_on, idle_block=None, pool_lanes=False, tim
 def run_frame(prob, seed, rounds_fn, dt_max=0.2, stokes_on=True):
     from mcrat_tpu_torch import transport
 
+    # the kernel's path: on the card by default (fused=None), on the CPU
+    # (a rehearsal) through the twin
     return transport.transport_frame(
         prob.cfg, prob.photons, prob.frame, prob.index, dt_max,
         torch.Generator().manual_seed(seed), stokes_on=stokes_on, chunk_rounds=64,
-        rounds_fn=rounds_fn, xsec_table=prob.xsec)
+        rounds_fn=rounds_fn, xsec_table=prob.xsec,
+        fused=True if prob.photons.device.type == "cpu" else None)
 
 
 def frame_checks(photons, res):
@@ -875,8 +903,10 @@ def instantiation_of(prob, stokes_on=True):
                             kflags.aux is not None)
 
 
-def check_launches(name, inst, launches, twin_launches, device):
+def check_launches(name, inst, launches, twin_launches, device, engine="kernel"):
     print(f"[{name}] launches: kernel {launches}, twin {twin_launches}", flush=True)
+    if device.type == "cuda" and engine != "kernel":
+        raise RuntimeError(f"the {name} path ran on the {engine} engine, not the kernel")
     if device.type == "cuda" and (launches.get(inst, 0) == 0 or twin_launches != 0
                                   or set(launches) != {inst}):
         raise RuntimeError(f"the {name} path did not run through the {inst} kernel alone")
@@ -914,8 +944,8 @@ def main_path(name, prob, card, device):
         runs[seed] = (ms, res)
         launches = {k: launches.get(k, 0) + lk[k] for k in lk}
         twin_launches += lt
-    check_launches(name, inst, launches, twin_launches, device)
     elapsed_ms, res = sorted(runs.values(), key=lambda s: s[0])[1]
+    check_launches(name, inst, launches, twin_launches, device, res.engine)
     checks = frame_checks(photons, res)
     report_frame(name, prob, res, elapsed_ms, card, "median of 3")
     print(f"[{name}] checks {checks}", flush=True)
@@ -947,7 +977,8 @@ def frame_stokes_off(name, prob, card, device):
     from mcrat_tpu_torch.ops import fused_round as fr
 
     ms, res, lk, lt = frame_once(prob, 1, fr.fused_rounds, device, stokes_on=False)
-    check_launches(f"{name}/stokes_off", instantiation_of(prob, False), lk, lt, device)
+    check_launches(f"{name}/stokes_off", instantiation_of(prob, False), lk, lt, device,
+                   res.engine)
     checks = frame_checks(prob.photons, res)
     report_frame(f"{name}/stokes_off", prob, res, ms, card, "once")
     print(f"[{name}/stokes_off] checks {checks}", flush=True)
@@ -1022,27 +1053,41 @@ def amr_lookup_check(prob):
         raise RuntimeError("the AMR cell lookup on the card differs from the CPU's")
 
 
-def same_outflow_check(prob_a, res_a, prob_b, res_b):
-    """The flagship and the AMR frame hold the same uniform outflow: mean lab
-    energy, mean scatterings and mean Stokes Q of their live photons agree
-    within 4 sigma (standard errors of the two means)."""
-    out = {}
-    for key, prob, res in (("flagship", prob_a, res_a), ("amr_cyl2", prob_b, res_b)):
-        ph = res.photons
-        alive = ph.alive
-        cols = dict(e=ph.p[alive, 0], ns=ph.num_scatt[alive], q=ph.s[alive, 1])
-        out[key] = {k: (float(v.double().mean()), float(v.double().std()) / float(alive.sum()) ** 0.5)
-                    for k, v in cols.items()}
+def frame_cols(res):
+    """Lab energy (units of m_e c), scatterings and Stokes Q, U of the live
+    photons of a FrameResult, float64 numpy."""
+    ph = res.photons
+    alive = ph.alive
+    return {k: v.double().cpu().numpy() for k, v in dict(
+        e=ph.p[alive, 0], ns=ph.num_scatt[alive], q=ph.s[alive, 1], u=ph.s[alive, 2]).items()}
+
+
+def dump_cols(data):
+    """The same columns of a merged npz dump (P0 is p0 x ME_C)."""
+    from mcrat_tpu_torch import ME_C
+
+    return dict(e=data["P0"] / ME_C, ns=data["NS"], q=data["S1"], u=data["S2"])
+
+
+def same_outflow_check(a, b, keys=("e", "ns", "q"), limit=4.0):
+    """Two frames of one outflow (``a`` and ``b``: (name, columns) pairs):
+    the means of ``keys`` agree within ``limit`` sigma (standard errors of
+    the two means); the scattered fraction ``scattered`` compares the share
+    of photons with a scattering.  Prints each beside its limit."""
     bad = []
-    for k in ("e", "ns", "q"):
-        (a, sa), (b, sb) = out["flagship"][k], out["amr_cyl2"][k]
-        z = abs(a - b) / max(np.hypot(sa, sb), 1e-30)
-        print(f"[amr vs flagship] mean {k}: flagship {a:.6e} +- {sa:.2e}, amr_cyl2 {b:.6e} +- "
-              f"{sb:.2e}: {z:.2f} sigma", flush=True)
-        if z > 4.0:
+    (name_a, ca), (name_b, cb) = a, b
+    for k in keys:
+        xa, xb = ((c["ns"] > 0).astype(np.float64) if k == "scattered" else c[k]
+                  for c in (ca, cb))
+        ma, mb = xa.mean(), xb.mean()
+        sa, sb = xa.std() / len(xa) ** 0.5, xb.std() / len(xb) ** 0.5
+        z = abs(ma - mb) / max(np.hypot(sa, sb), 1e-30)
+        print(f"[{name_b} vs {name_a}] mean {k}: {name_a} {ma:.6e} +- {sa:.2e}, {name_b} "
+              f"{mb:.6e} +- {sb:.2e}: {z:.2f} sigma (limit {limit:g})", flush=True)
+        if z > limit:
             bad.append(k)
     if bad:
-        raise RuntimeError(f"the AMR frame's statistics differ from the flagship's: {bad}")
+        raise RuntimeError(f"{name_b}'s statistics differ from {name_a}'s: {bad}")
 
 
 # the driver phase's run directory (git-ignored)
@@ -1593,8 +1638,332 @@ def cs_phase(device, card, n_min=150_000, n_max=400_000):
     return launches
 
 
+# phase 8c: the XLA engine (float64 and fused=False runs) and the PLUTO and
+# RIKEN readers; run directories git-ignored
+XLA_DIR = os.path.join(ROOT, "build", "xla_run")
+READERS_DIR = os.path.join(ROOT, "build", "readers")
+
+
+def count_syncs(fn):
+    """(fn(), the device-to-host synchronizations it made): torch's sync
+    debug mode warns at each; None off the card."""
+    import warnings
+
+    if not torch.cuda.is_available():
+        return fn(), None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def peak_run(fn, device):
+    """(fn(), wall s, peak device memory above what was held before, bytes)."""
+    before = 0
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before if device.type == "cuda" else 0
+    return out, wall, peak
+
+
+XLA_KEYS = ("e", "ns", "scattered", "q", "u")
+
+
+def xla_frames(device, card, n_min, n_max, prob32, kernel_res):
+    """Phase 8c (a): the flagship frame through the XLA engine on the card,
+    in float64 (``transport_frame(fused=None)`` on a float64 population of
+    the same injection) and in float32 (``fused=False`` on the kernel
+    path's photons), each held against the float32 kernel frame: mean lab
+    energy, scatterings a photon, scattered fraction, mean Q and U within 5
+    standard errors of the two means.  No kernel or twin launch may run.
+    Prints the wall, rounds, ms a round, device-to-host syncs and peak
+    device memory of each."""
+    from mcrat_tpu_torch import transport
+    from mcrat_tpu_torch.ops.prng import Key
+
+    t0 = time.perf_counter()
+    prob64 = problem("flagship", device, n_min, n_max, seed=0, dtype=torch.float64)
+    print(f"[xla] flagship float64 frame + injection of {prob64.photons.capacity} photons: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if prob64.photons.capacity != prob32.photons.capacity:
+        raise RuntimeError("the float64 injection differs from the float32 one")
+    for label, prob, fused in (("float64, fused=None", prob64, None),
+                               ("float32, fused=False", prob32, False)):
+        zero_launches()
+        (res, syncs), wall, peak = peak_run(lambda: count_syncs(lambda: transport.transport_frame(
+            prob.cfg, prob.photons, prob.frame, prob.index, prob.dt_max,
+            torch.Generator().manual_seed(2), chunk_rounds=64, fused=fused,
+            key=Key.from_seed(2, device=device))), device)
+        launches, twin = read_launches()
+        print(f"[xla] flagship ({label}) {card}: engine {res.engine}, n_photons "
+              f"{prob.photons.capacity}, n_scatt {res.n_scatt}, n_rounds {res.n_rounds}, wall "
+              f"{wall:.4f} s, {1e3 * wall / max(res.n_rounds, 1):.3f} ms a round, "
+              f"device-to-host syncs {syncs}, peak device memory {peak / 2**20:.1f} MiB above "
+              f"the run's inputs; launches: kernel {launches}, twin {twin}", flush=True)
+        if res.engine != "xla" or launches or twin:
+            raise RuntimeError(f"the flagship ({label}) run did not take the XLA engine alone")
+        print(f"[xla] flagship ({label}) checks {frame_checks(prob.photons, res)}", flush=True)
+        same_outflow_check(("flagship kernel, float32", frame_cols(kernel_res)),
+                           (f"flagship XLA, {label}", frame_cols(res)), XLA_KEYS, limit=5.0)
+        del res
+    del prob64
+
+
+def xla_driver(device, card, n_min, n_max):
+    """Phase 8c (b): ``cli run --dtype float64 --output npz --merge`` of the
+    driver phase's configuration (one injection at frame 0, frames 0-2)
+    through the XLA engine: every frame holds the injected photons with
+    finite fields and positive weights, their weight conserved; a resume
+    from the ``.old`` checkpoint a crash after frame 1 leaves equals the
+    uninterrupted run bit for bit (the checkpoint carries the threefry
+    key).  No kernel or twin launch may run."""
+    import shutil
+
+    from mcrat_tpu_torch.driver import decompose_work
+
+    shutil.rmtree(XLA_DIR, ignore_errors=True)
+    main_dir, resume_dir = (os.path.join(XLA_DIR, d) for d in ("main", "resume"))
+    for d in (main_dir, resume_dir):
+        os.makedirs(d)
+    mcpar = os.path.join(main_dir, "mc.par")
+    par = driver_mcpar(mcpar, 0, n_min, n_max)
+    timings = FrameTimings()
+    logger = logging.getLogger("mcrat_tpu_torch")
+    logger.addHandler(timings)
+    zero_launches()
+    (lines, _), wall, peak = peak_run(lambda: cli_run(
+        main_dir, mcpar, device, "--dtype", "float64", "--last-frame", "2", "--merge"), device)
+    launches, twin = read_launches()
+    for t in timings.rows:
+        print(f"[xla driver] {card}: frame {t['scatt_frame']}: photons {t['n_photons']}, "
+              f"scatterings {t['n_scatt']}, rounds {t['n_rounds']}, transport "
+              f"{t['transport_s']:.4f} s, persistence wait {t['persist_wait_s']:.4f} s",
+              flush=True)
+    print(f"[xla driver] {card}: cli run --dtype float64, {len(timings.rows)} frames: "
+          f"{wall:.3f} s, peak device memory {peak / 2**20:.1f} MiB above the run's start; "
+          f"merge {lines[-1] if lines else None}; launches: kernel {launches}, twin {twin}",
+          flush=True)
+    bad = [] if not launches and not twin else ["kernel or twin launches"]
+    counts = json.loads(lines[-1])
+    mc_dir = decompose_work(par, 0, 1, os.path.join(main_dir, "MC/")).mc_dir
+    main_data = {f: merged(mc_dir, f) for f in (0, 1, 2)}
+    n0 = counts.get("0", 0)
+    w0 = float(main_data[0]["PW"].sum())
+    for f, data in main_data.items():
+        finite = all(bool(np.isfinite(v).all()) for v in data.values() if v.dtype.kind == "f")
+        w = float(data["PW"].sum())
+        print(f"[xla driver] merged frame {f}: {len(data['PW'])} photons, sum PW {w:.9e}, "
+              f"finite {finite}, mean NS {data['NS'].mean():.4f}", flush=True)
+        if (len(data["PW"]) != n0 or not finite or not (data["PW"] > 0).all()
+                or abs(w - w0) > 1e-9 * w0):
+            bad.append(f"frame {f}")
+    if not n_min <= n0 <= n_max:
+        bad.append(f"{n0} photons injected")
+
+    mcpar_r = os.path.join(resume_dir, "mc.par")
+    driver_mcpar(mcpar_r, 0, n_min, n_max)
+    cli_run(resume_dir, mcpar_r, device, "--dtype", "float64", "--last-frame", "1")
+    rdir = decompose_work(par, 0, 1, os.path.join(resume_dir, "MC/")).mc_dir
+    os.remove(os.path.join(rdir, "mc_chkpt_0.npz"))
+    driver_mcpar(mcpar_r, 0, n_min, n_max, restart="c")
+    n_rows = len(timings.rows)
+    _, wall_r = cli_run(resume_dir, mcpar_r, device, "--dtype", "float64", "--last-frame", "2",
+                        "--merge")
+    logger.removeHandler(timings)
+    resumed = [t["scatt_frame"] for t in timings.rows[n_rows:]]
+    print(f"[xla driver] resume: frames run {resumed} ({wall_r:.3f} s after the crash)",
+          flush=True)
+    if resumed != [2]:
+        bad.append(f"resume ran frames {resumed}")
+    for f in (0, 1, 2):
+        got, want = merged(rdir, f), main_data[f]
+        differ = sorted(set(got) ^ set(want)) + [
+            k for k in want if k in got and not np.array_equal(got[k], want[k])]
+        print(f"[xla driver] resume frame {f}: datasets differing from the uninterrupted "
+              f"run's: {differ}", flush=True)
+        if differ:
+            bad.append(f"resumed frame {f}")
+    if bad:
+        raise RuntimeError(f"float64 driver phase failed: {bad}")
+
+
+def write_pluto_frames(directory, host, edges, frames, p_scale):
+    """A PLUTO frame set of a 2-D host frame on the cell edges ``edges``
+    (r0 slowest in the host's order), with numpy alone: grid.out (cell
+    edges), dbl.out (rho vx1 vx2 prs) and data.NNNN.dbl (float64, x1
+    fastest), pressures divided by ``p_scale`` as PLUTO stores them
+    (tests/test_io.py:113-135)."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "grid.out"), "w") as f:
+        f.write("# PLUTO grid file\n# dimensions: 2\n")
+        for e in edges:
+            f.write(f"{len(e) - 1}\n")
+            f.writelines(f"{i + 1} {float(e[i])!r} {float(e[i + 1])!r}\n"
+                         for i in range(len(e) - 1))
+        f.write("1\n1 0.0 1.0\n")
+    with open(os.path.join(directory, "dbl.out"), "w") as f:
+        f.write("0 0.0 1e-3 0 single_file little rho vx1 vx2 prs\n")
+    shape = (len(edges[0]) - 1, len(edges[1]) - 1)
+    data = np.concatenate([np.asarray(a, np.float64).reshape(shape).T.ravel() for a in (
+        host.dens, host.v0, host.v1, host.pres / p_scale)])
+    for frame in frames:
+        data.tofile(os.path.join(directory, f"data.{frame:04d}.dbl"))
+
+
+def write_riken_2d_frames(directory, host, edges, frames, p_scale):
+    """A RIKEN 2-D frame set of a 2-D spherical host frame, with numpy alone:
+    grid-x1.data and grid-x2.data (cell centres, comma-separated) and, per
+    frame, u01/u02/u03/u08 (density, v_r, v_theta, pressure over
+    ``p_scale``) as Fortran records: a float32 marker, six int32 slice
+    indexes (1-based), two float32, float32 data with r fastest
+    (tests/test_io.py:331-338)."""
+    os.makedirs(directory, exist_ok=True)
+    centres = [0.5 * (e[:-1] + e[1:]) for e in edges]
+    for axis, c in zip((1, 2), centres):
+        np.savetxt(os.path.join(directory, f"grid-x{axis}.data"), c[None], delimiter=", ")
+    nr, nt = (len(c) for c in centres)
+    idx = np.array([1, 1, 1, nt, 1, nr], np.int32)
+    for frame in frames:
+        for var, a in ((1, host.dens), (2, host.v0), (3, host.v1), (8, host.pres / p_scale)):
+            with open(os.path.join(directory, f"u0{var}-{frame:04d}small.data"), "wb") as f:
+                np.float32(0.0).tofile(f)
+                idx.tofile(f)
+                np.zeros(2, np.float32).tofile(f)
+                np.asarray(a, np.float32).reshape(nr, nt).T.tofile(f)
+
+
+def reader_mcpar(path, name, n_min, n_max):
+    """mc.par of a reader run: the injection of the frame it holds (the
+    flagship's for PLUTO, the 2-D spherical main path's for RIKEN), one
+    injection at frame 0, frames 0-1."""
+    from mcrat_tpu_torch import McPar, Spectrum, write_mcpar
+
+    dt_max, fps, _ = PATHS[name]
+    r_inj = 2e12 if name == "flagship" else 8e12
+    par = McPar(fps=fps, last_frame=1, r0_domain=(0.0, 0.0), r1_domain=(0.0, 0.0),
+                r2_domain=(0.0, 0.0), theta_min_deg=0.0, theta_max_deg=6.0, n_theta_bins=1,
+                frm0=(0,), frm2=(0,), inj_radius=(r_inj,), spect=Spectrum.BLACKBODY,
+                min_photons=n_min, max_photons=n_max, restart="i")
+    write_mcpar(par, path)
+    return par
+
+
+def reader_phase(device, card, n_min, n_max, results):
+    """Phase 8c (c): the PLUTO (.dbl) and RIKEN (2-D) readers through ``cli
+    run`` on the card.  chip_smoke writes the flagship outflow on its 160 x
+    512 grid as a PLUTO set and the 2-D spherical main frame (384 x 64) as a
+    RIKEN set, two frames each, under build/readers/; each run (SCIENCE:
+    the fields are the files') injects at frame 0 and transports frames 0
+    and 1 on the readers' decimated cell lists behind a BinnedIndex (the
+    carried path), launching its kernel instantiation alone (the twin 0).
+    The same run then goes once more through the twin on the card (the same
+    ``cli run``, its ``driver.run_rank`` given ``rounds_fn=
+    fused_rounds_reference``, into MC_twin/): it launches the twin alone and
+    its per-process npz dumps equal the kernel run's bit for bit.  Frame 0
+    is held against the synthetic main path of the same outflow (mean
+    energy, scatterings, Q within 4 sigma).  Returns the kernel launches by
+    instantiation of each run."""
+    import functools
+    import shutil
+
+    from mcrat_tpu_torch import Config, Dims, Geometry, HydroSim, SimType
+    from mcrat_tpu_torch import driver
+    from mcrat_tpu_torch.driver import decompose_work
+    from mcrat_tpu_torch.grid import frame_from_numpy
+    from mcrat_tpu_torch.models.analytic import (apply_simulation_type, make_grid_2d,
+                                                 synthetic_spherical_frame)
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    shutil.rmtree(READERS_DIR, ignore_errors=True)
+    out = {}
+    for sim in ("pluto", "riken"):
+        run_dir = os.path.join(READERS_DIR, sim)
+        t0 = time.perf_counter()
+        if sim == "pluto":
+            name, geom, inst = "flagship", Geometry.CYLINDRICAL, "packed_cyl2"
+            cfg = Config(sim_switch=HydroSim.PLUTO, dims=Dims.TWO, geometry=geom,
+                         simulation_type=SimType.CYLINDRICAL_OUTFLOW)
+            edges = (np.linspace(0.0, 3.2e11, 161), np.linspace(1.8e12, 2.9e12, 513))
+            host = frame_from_numpy(cfg, make_grid_2d(cfg, *edges))
+            apply_simulation_type(host)
+            write_pluto_frames(run_dir, host, edges, (0, 1), cfg.hydro_p_scale)
+            extra = ["--fileroot", "data."]
+        else:
+            name, geom, inst = "spherical", Geometry.SPHERICAL, "packed_sph2"
+            cfg = Config(sim_switch=HydroSim.RIKEN, dims=Dims.TWO, geometry=geom,
+                         simulation_type=SimType.SPHERICAL_OUTFLOW)
+            host, edges = synthetic_spherical_frame(cfg, r_min=1e12, r_max=9e13, nr=384,
+                                                    ntheta=64, theta_max=0.31416)
+            write_riken_2d_frames(run_dir, host, edges, (0, 1), cfg.hydro_p_scale)
+            extra = []
+        mcpar = os.path.join(run_dir, "mc.par")
+        par = reader_mcpar(mcpar, name, n_min, n_max)
+        print(f"[{sim}] wrote {host.num_elements} cells x 2 frames: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        timings = FrameTimings()
+        logger = logging.getLogger("mcrat_tpu_torch")
+        logger.addHandler(timings)
+        zero_launches()
+        base = ["--sim", sim, "--geometry", geom.value, "--dims", "2", *extra]
+        (lines, _), wall, peak = peak_run(lambda: cli_run(run_dir, mcpar, device, "--merge",
+                                                          base=base), device)
+        launches, twin = read_launches()
+        logger.removeHandler(timings)
+        for t in timings.rows:
+            print(f"[{sim}] {card}: frame {t['scatt_frame']}: photons {t['n_photons']}, "
+                  f"scatterings {t['n_scatt']}, rounds {t['n_rounds']}, transport "
+                  f"{t['transport_s']:.4f} s, persistence wait {t['persist_wait_s']:.4f} s",
+                  flush=True)
+        print(f"[{sim}] {card}: cli run --sim {sim}, {len(timings.rows)} frames: {wall:.3f} s, "
+              f"peak device memory {peak / 2**20:.1f} MiB above the run's start; merge "
+              f"{lines[-1] if lines else None}", flush=True)
+        check_launches(sim, fr.instantiation(inst), launches, twin, device)
+        mc_dir = decompose_work(par, 0, 1, os.path.join(run_dir, "MC/")).mc_dir
+
+        # the same run through the twin: cli run builds run_rank's inputs
+        # as above, and run_rank takes the twin as its rounds_fn
+        run_rank = driver.run_rank
+        driver.run_rank = functools.partial(run_rank, rounds_fn=fr.fused_rounds_reference)
+        zero_launches()
+        try:
+            _, twin_wall = cli_run(run_dir, mcpar, device, base=base + ["--mc-path", "MC_twin/"])
+        finally:
+            driver.run_rank = run_rank
+        twin_lk, twin_lt = read_launches()
+        twin_dir = decompose_work(par, 0, 1, os.path.join(run_dir, "MC_twin/")).mc_dir
+        dumps, twin_dumps = proc_dumps(mc_dir), proc_dumps(twin_dir)
+        differ = dumps_differ(dumps, twin_dumps)
+        print(f"[{sim}] {card}: the same run through the twin: {twin_wall:.3f} s, launches "
+              f"kernel {twin_lk}, twin {twin_lt}; dumps, kernel against twin: {len(dumps)} "
+              f"files, differing {differ}", flush=True)
+        if device.type == "cuda" and (sum(twin_lk.values()) or not twin_lt):
+            raise RuntimeError(f"{sim}: the twin run launched kernel {twin_lk}, twin {twin_lt}")
+        if differ or not dumps:
+            raise RuntimeError(f"{sim}: the kernel run's dumps differ from the twin run's")
+        del dumps, twin_dumps
+
+        data = merged(mc_dir, 0)
+        if not n_min <= len(data["PW"]) <= n_max:
+            raise RuntimeError(f"{sim}: {len(data['PW'])} photons in frame 0")
+        same_outflow_check((f"{name} (synthetic)", frame_cols(results[name, "direct"])),
+                           (f"{sim} reader", dump_cols(data)))
+        out[sim] = launches
+    return out
+
+
 def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300_000),
-         side_n=(150_000, 450_000), cs_n=(150_000, 400_000)):
+         side_n=(150_000, 450_000), cs_n=(150_000, 400_000), xla_n=(100_000, 200_000)):
     # 0. device
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     print(f"[device] nvidia-smi: {smi}", flush=True)
@@ -1686,15 +2055,15 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
         path = name if mode == "direct" else f"{name} ({mode})"
         lk, results[name, mode] = main_path(path, prob, card, device)
         count(f"{path} main path", lk)
-    same_outflow_check(mains["flagship", "direct"], results["flagship", "direct"],
-                       mains["amr_cyl2", "direct"], results["amr_cyl2", "direct"])
+    same_outflow_check(("flagship", frame_cols(results["flagship", "direct"])),
+                       ("amr_cyl2", frame_cols(results["amr_cyl2", "direct"])))
 
     # 7. every other frame once, Stokes on and off
     for (name, mode), prob in probs.items():
         if (name, mode) in MAIN:
             continue
         ms, res, lk, lt = frame_once(prob, 1, fr.fused_rounds, device)
-        check_launches(f"{name} ({mode})", instantiation_of(prob), lk, lt, device)
+        check_launches(f"{name} ({mode})", instantiation_of(prob), lk, lt, device, res.engine)
         checks = frame_checks(prob.photons, res)
         report_frame(f"{name} ({mode})", prob, res, ms, card, "once")
         print(f"[{name} ({mode})] checks {checks}", flush=True)
@@ -1702,9 +2071,14 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
         count(f"{name} ({mode}), Stokes off", frame_stokes_off(f"{name} ({mode})", prob, card,
                                                                 device))
 
-    # 8. the driver's main path; 8b. the cyclo-synchrotron driver
+    # 8. the driver's main path; 8b. the cyclo-synchrotron driver; 8c. the
+    # XLA engine and the PLUTO and RIKEN readers
     driver_launches = driver_phase(device, card, n_min, n_max)
     cs_launches = cs_phase(device, card, *cs_n)
+    xla_frames(device, card, n_min, n_max, mains["flagship", "direct"],
+               results["flagship", "direct"])
+    xla_driver(device, card, *xla_n)
+    reader_launches = reader_phase(device, card, n_min, n_max, results)
 
     # 9. result lines
     names = fr.instantiations()
@@ -1731,6 +2105,8 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
         "source": "mcrat_tpu_torch/csrc/fused_round.cu", "replaces": replaces(n),
         "launches": launches.get(n, 0), "driver_launches": driver_launches.get(n, 0),
         "cs_launches": cs_launches.get(n, 0),
+        "pluto_launches": reader_launches["pluto"].get(n, 0),
+        "riken_launches": reader_launches["riken"].get(n, 0),
         "max_abs_err": errs[n],
         "ms": times[n][0], "plain_ms": times[n][1],
         "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "bound_pipe": bounds[n][2],

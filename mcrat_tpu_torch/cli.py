@@ -9,11 +9,13 @@ independent processes or loop iterations (photon batches never
 communicate), so "N ranks" is --rank/--num-ranks.  ``run`` puts its tensors
 on ``--device`` (default: the card; ``cpu`` runs the kernel's plain twin)
 and dumps photons as ``--output`` h5 (HDF5, needs h5py) or npz (the same
-datasets as numpy files).  ``--synthetic-grid NR NTHETA`` sizes the 2-D
-spherical grid of SYNTHETIC runs (``driver.default_synthetic_factory``).
-Options the port does not run yet (``--mesh``, ``--coordinator`` here;
-``--dtype float64`` in ``driver.run_rank``) raise ``NotImplementedError``
-naming their ROADMAP item.
+datasets as numpy files).  ``--dtype float64`` transports on the XLA engine
+(float32 on the card takes the fused-round kernel).  ``--sim`` reads FLASH,
+PLUTO, PLUTO-Chombo or RIKEN frames from ``--filepath``/``--fileroot``, or
+makes the SYNTHETIC grid that ``--synthetic-grid NR NTHETA`` sizes
+(``driver.default_synthetic_factory``).  The several-device options
+(``--mesh``, ``--coordinator``) raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -169,7 +171,8 @@ def main(argv=None):
                      help="re-adopt unfinished old-rank checkpoints under this job's "
                           "--num-ranks (any size)")
     run.add_argument("--device", default="cuda",
-                     help="torch device of the run (cpu runs the kernel's plain twin)")
+                     help="torch device of the run (float32 on cpu runs the kernel's "
+                          "plain twin)")
     run.add_argument("--output", default="h5", choices=["h5", "npz"],
                      help="photon dump format: HDF5 (needs h5py) or the same datasets "
                           "as numpy files")

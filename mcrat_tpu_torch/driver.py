@@ -14,13 +14,14 @@ The reference main() (Src/mcrat.c:48-1036) on one device:
 * a final merge into ``mcdata_<frame>`` files.
 
 Every tensor lives on one device, the card unless the caller passes
-``device="cpu"``; there transport runs the fused-round kernel's plain twin
-(``transport_frame(fused=True)``), by the caller's choice.  Nothing moves to
-the CPU because the card or its kernel failed.  Cyclo-synchrotron runs add
-the reference's frame-boundary steps (pool emission, the mid-frame and
+``device="cpu"``.  A float32 run transports through the fused-round kernel
+on the card (its plain twin, ``transport_frame(fused=True)``, on the CPU,
+by the caller's choice); a float64 run (``Config.dtype``) through the XLA
+engine on either, its threefry key split once per transport call as the
+JAX driver splits its key.  Nothing moves to the CPU or to the other engine
+because the card or its kernel failed.  Cyclo-synchrotron runs add the
+reference's frame-boundary steps (pool emission, the mid-frame and
 end-of-frame rebins, one-for-one pool replenishment, absorption).
-Configurations the port does not run yet (float64, several devices) raise
-``NotImplementedError`` before anything is injected or written.
 """
 from __future__ import annotations
 
@@ -44,10 +45,11 @@ from .config import Config, Dims, HydroSim, McPar
 from .device import resolve_device
 from .io.checkpoint import CheckpointState, load_checkpoint, save_checkpoint, scan_checkpoints
 from .io.hydro import HydroPaths, build_index, get_hydro_data
+from .grid import torch_dtype
 from .io.photons_h5 import FORMATS, merge_all, proc_path, write_frame
 from .ops import cyclosynch
 from .ops import fused_round as fr
-from .transport import ROADMAP_ITEMS
+from .ops.prng import Key
 
 log = logging.getLogger("mcrat_tpu_torch")
 
@@ -397,29 +399,37 @@ class _PersistWriter:
             self._ex.shutdown()
 
 
-def stream_states(generator: torch.Generator, rng: np.random.Generator) -> dict:
-    """The checkpoint fields of the run's random streams, as they stand."""
+def stream_states(generator: torch.Generator, rng: np.random.Generator,
+                  key: Optional[Key]) -> dict:
+    """The checkpoint fields of the run's random streams, as they stand
+    (no key on a kernel run)."""
     return dict(generator_state=generator.get_state().numpy(),
-                rng_state=json.dumps(rng.bit_generator.state))
+                rng_state=json.dumps(rng.bit_generator.state),
+                key_state=None if key is None else key.state())
 
 
-def unsupported_run(cfg: Config) -> Optional[str]:
-    """Why the port cannot run this configuration end to end (the ROADMAP
-    item that will port it), or None."""
-    if cfg.dtype != "float32":
-        return f"{cfg.dtype} runs: " + ROADMAP_ITEMS["xla"]
-    return None
+def _require_h5py(why: str) -> None:
+    try:
+        import h5py  # noqa: F401
+    except ImportError as exc:
+        raise ImportError(f"{why} needs h5py") from exc
 
 
 def _check_output(output: str) -> None:
     if output not in FORMATS:
         raise ValueError(f"output must be one of {FORMATS}, not {output!r}")
     if output == "h5":
-        try:
-            import h5py  # noqa: F401
-        except ImportError as exc:
-            raise ImportError("output='h5' needs h5py; output='npz' writes the same "
-                              "datasets without it") from exc
+        _require_h5py("output='h5' (output='npz' writes the same datasets without it)")
+
+
+def _check_reader(cfg: Config) -> None:
+    """The HDF5 formats (FLASH, PLUTO .h5, PLUTO-Chombo) need h5py; PLUTO
+    .dbl and RIKEN files need numpy only."""
+    sim = cfg.sim_switch
+    if sim in (HydroSim.FLASH, HydroSim.PLUTO_CHOMBO) or (
+            sim is HydroSim.PLUTO and cfg.pluto_filetype.value.endswith("h5")):
+        _require_h5py(f"reading {sim.value} frames ({cfg.pluto_filetype.value} files)"
+                      if sim is HydroSim.PLUTO else f"reading {sim.value} frames")
 
 
 def run_rank(
@@ -431,6 +441,7 @@ def run_rank(
     base_dir: Optional[str] = None,
     synthetic_frame_factory: Optional[Callable[[int], tuple]] = None,
     generator: Optional[torch.Generator] = None,
+    key: Optional[Key] = None,
     chunk_rounds: int = 256,
     last_frame_override: Optional[int] = None,
     ph_weight: float = 1e50,
@@ -446,15 +457,20 @@ def run_rank(
     ``synthetic_frame_factory(frame) -> (HydroFrameHost, edges | None)``
     supplies the frames of SYNTHETIC runs; file-backed formats read from
     ``paths``.  ``device`` (default: the card) holds every tensor; on
-    ``"cpu"`` transport runs the kernel's plain twin.  ``generator`` (a CPU
-    ``torch.Generator``, seeded 1234 + rank when None) draws the transport
-    seeds; injection draws from ``np.random.default_rng(9876 + rank)``.  A
-    resume from one of this package's checkpoints continues both streams
-    from the states it saved (``io.checkpoint``, fault F9).
+    ``"cpu"`` a float32 run transports through the kernel's plain twin; a
+    float64 run (``cfg.dtype``) takes the XLA engine on either device.
+    ``generator`` (a CPU ``torch.Generator``, seeded 1234 + rank when None)
+    draws the kernel's seeds; ``key`` (a threefry ``ops.prng.Key``,
+    ``Key.from_seed(1234 + rank)`` when None) is split once per transport
+    call of a float64 run, the XLA engine's, as the JAX driver splits its
+    key (a float32 run draws no key and checkpoints none); injection
+    draws from ``np.random.default_rng(9876 + rank)``.  A resume from one of
+    this package's checkpoints continues all three streams from the states
+    it saved (``io.checkpoint``, fault F9).
     ``output`` is the dump format, ``"h5"`` or ``"npz"``
     (``io.photons_h5``); "h5" without h5py raises ImportError before
-    anything is injected.  float64 runs raise NotImplementedError, also
-    before.  TABLE runs cache the hot cross sections in
+    anything is injected, and so do the HDF5 hydro formats (FLASH, PLUTO
+    .h5, PLUTO-Chombo).  TABLE runs cache the hot cross sections in
     ``base_dir/hot_x_section.npz``.  ``rounds_fn`` is the round
     implementation ``transport_frame`` passes to the glue: the kernel
     wrapper, or ``fused_round.fused_rounds_reference`` to run the plain twin
@@ -468,10 +484,8 @@ def run_rank(
     frame's writes and this frame's fetch, checkpoint and dump seconds
     (:meth:`_PersistWriter.submit_frame`).
     """
-    reason = unsupported_run(cfg)
-    if reason is not None:
-        raise NotImplementedError(reason)
     _check_output(output)
+    _check_reader(cfg)
     device = resolve_device(device)
     base_dir = base_dir or os.path.join(paths.filepath, paths.mc_path)
     cleaner = True  # explicit-work callers (elastic) adopt old ranks alone
@@ -500,7 +514,7 @@ def run_rank(
     persist = _PersistWriter()
     try:
         return _run_rank_inner(
-            cfg, par, paths, rank, base_dir, synthetic_frame_factory, generator,
+            cfg, par, paths, rank, base_dir, synthetic_frame_factory, generator, key,
             chunk_rounds, last_frame_override, ph_weight, work, persist, device, output,
             rounds_fn,
         )
@@ -540,17 +554,22 @@ def _append_arrays(photons, meta, arrays: dict, n_alive: int, t_rem=None, new_t=
     return photons, n_new, t_rem
 
 
-def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, generator,
+def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, generator, key,
                     chunk_rounds, last_frame_override, ph_weight, work, persist, device,
                     output, rounds_fn) -> WorkAssignment:
     generator = generator if generator is not None else torch.Generator().manual_seed(1234 + rank)
     rng = np.random.default_rng(9876 + rank)
-    dtype = torch.float32
+    dtype = torch_dtype(cfg)
     last_frm = last_frame_override or par.last_frame
-    # the caller's device picks the round implementation: the kernel on the
-    # card (fused=None: transport_frame raises if it cannot take it), the
-    # plain twin on the CPU
-    fused = True if device.type == "cpu" else None
+    # the engine: float32 takes the kernel on the card (fused=None:
+    # transport_frame raises if it cannot build or launch it) and its plain
+    # twin on the CPU; float64 takes the XLA engine on either (fused=None),
+    # the one engine that draws from the threefry key
+    fused = True if device.type == "cpu" and dtype == torch.float32 else None
+    if dtype != torch.float64:
+        key = None
+    elif key is None:
+        key = Key.from_seed(1234 + rank, device=device)
     proc = proc_path(work.mc_dir, rank, output)
 
     xsec_table = None
@@ -571,6 +590,8 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
                 generator.set_state(torch.from_numpy(state.generator_state))
             if state.rng_state is not None:
                 rng.bit_generator.state = json.loads(state.rng_state)
+            if key is not None and state.key_state is not None:
+                key = Key.from_state(state.key_state, device=device)
             log.info("rank %d: continuing from frame %d scatt %d", rank, state.frame,
                      state.scatt_frame)
 
@@ -665,11 +686,14 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
             n_scatt = n_rounds = 0
             t_rem0 = None
             while True:
+                sub = None
+                if key is not None:
+                    key, sub = key.split()
                 res = transport.transport_frame(
                     cfg, photons, frame_dev, index, dt_frame, generator, stokes_on=cfg.stokes,
                     chunk_rounds=chunk_rounds, fused=fused, rounds_fn=rounds_fn,
                     xsec_table=xsec_table, t_rem0=t_rem0,
-                    cs_limit=par.max_photons if cs_active else None)
+                    cs_limit=par.max_photons if cs_active else None, key=sub)
                 photons = res.photons
                 n_scatt += res.n_scatt
                 n_rounds += res.n_rounds
@@ -735,7 +759,7 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
                 frame=frame, frm2=work.frm2, scatt_frame=sched.next(scatt_frame),
                 time_now=time_now, restart="c",
                 weight_norm=meta.weight_norm, n_injected=meta.n_injected,
-                **stream_states(generator, rng),
+                **stream_states(generator, rng, key),
             )
             sub_ph = transport.compact_live(
                 photons, min(transport._pad64k(n_live), photons.capacity))
@@ -751,7 +775,7 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
         next_inj = sched.next(frame)
         save_checkpoint(work.mc_dir, rank, CheckpointState(
             frame=next_inj, frm2=work.frm2, scatt_frame=next_inj, time_now=time_now,
-            restart="i", **stream_states(generator, rng)))
+            restart="i", **stream_states(generator, rng, key)))
 
     return work
 

@@ -528,27 +528,42 @@ def gather_rows(frame: HydroFrame, cell) -> torch.Tensor:
     return frame.packed[:, safe]
 
 
-def find_cell_rows(cfg: Config, index, frame: HydroFrame, pos, cached):
+def find_cell_rows(cfg: Config, index, frame: HydroFrame, pos, cached, all_lanes=False):
     """Containing-cell lookup behind the cached-cell pin
-    (mcrat_tpu.grid.find_cell_rows, findContainingHydroCell, reference:
-    Src/mclib.c:436-615): a photon still inside its cached cell's box keeps
-    it (this also pins the choice on overlapping seams); the index searches
-    the others, only those lanes.  Out-of-domain photons get -1.
+    (mcrat_tpu.grid.find_cell_rows and find_cell, findContainingHydroCell,
+    reference: Src/mclib.c:436-615): a photon still inside its cached cell's
+    box keeps it (this also pins the choice on overlapping seams); the index
+    searches the others.  Out-of-domain photons get -1.
+
+    The index searches only the lanes that left their cell (one host sync
+    for their count), or with ``all_lanes`` every lane, with no sync: the
+    XLA engine's choice, whose round would otherwise sync once more.  JAX's
+    find_cell guards the search with ``lax.cond`` on any lane needing it,
+    and JAX's own measurement found the unconditional search faster in both
+    regimes (mcrat_tpu/grid.py:542-546); either way the cells are the same.
 
     The JAX package carries each lane's (16, N) packed rows beside its cell;
     the port's kernel reads a cell's rows by its index, and on every in-grid
     lane JAX's carried rows equal ``frame.packed[:, cell]``, so only the cell
-    is carried.  ``pos`` is (N, 3) MCRaT Cartesian, ``cached`` (N,) int32.
-    Returns (cell int32, in_grid bool)."""
+    is carried.  Works on either index.  ``pos`` is (N, 3) MCRaT Cartesian,
+    ``cached`` (N,) int32.  Returns (cell int32, in_grid bool)."""
     r0, r1, r2, inside = _hydro_inside(cfg, frame, pos)
     safe = torch.clamp(cached, 0, frame.num_elements - 1).to(torch.int64)
     in_cached = (cached >= 0) & geo.in_block(
         r0, r1, r2, frame.r0[safe], frame.r1[safe], frame.r2[safe],
         frame.dr0[safe], frame.dr1[safe], frame.dr2[safe], use_r2=cfg.dims is Dims.THREE)
-    cell = torch.where(in_cached, cached.to(torch.int32), -1)
-    miss = torch.nonzero(~in_cached & inside).flatten()
-    if miss.numel():
-        cell[miss] = index.find(r0[miss], r1[miss], r2[miss], frame)
+
+    def search(*r):
+        found = index.find(*r, frame) if isinstance(index, BinnedIndex) else index.find(*r)
+        return found.to(torch.int32)
+
+    if all_lanes:
+        cell = torch.where(in_cached, cached.to(torch.int32), search(r0, r1, r2))
+    else:
+        cell = torch.where(in_cached, cached.to(torch.int32), -1)
+        miss = torch.nonzero(~in_cached & inside).flatten()
+        if miss.numel():
+            cell[miss] = search(r0[miss], r1[miss], r2[miss])
     cell = torch.where(inside, cell, -1)
     return cell, inside & (cell >= 0)
 

@@ -2,6 +2,9 @@
 
 - :mod:`.mcpar`: mc.par parse/write (Src/mcrat_io.c:1136-1237)
 - :mod:`.flash`: FLASH 2-D AMR frames (Src/mclib_flash.c)
+- :mod:`.pluto`, :mod:`.pluto_chombo`: PLUTO ``.dbl``/``.h5`` frames and
+  PLUTO-Chombo AMR frames (Src/mclib_pluto.c)
+- :mod:`.riken`: RIKEN 2-D and 3-D frames (Src/mclib_riken.c)
 - :mod:`.decimate`: the shared photon-band frame decimation
 - :mod:`.hydro`: getHydroData dispatch and the spatial index
   (Src/mcrat_io.c:1898-1990)

@@ -18,12 +18,13 @@ resume must see the comoving momenta the run had.  The JAX package drops
 them with COMV output off (ROADMAP fault F2); such a file loads here with
 zeros in their place, as it loads there.
 
-The port's checkpoints also keep the states of the run's two random
-streams: the transport seeds' ``torch.Generator`` and the injection's
-numpy generator.  A resume continues both.  The JAX package reseeds both at
-a resume, so the first frame after it draws the same random numbers as the
-first frame of the run, and the next injection those of the first
-injection: the frames after a resume are correlated with the run's first
+The port's checkpoints also keep the states of the run's three random
+streams: the kernel seeds' ``torch.Generator``, the XLA engine's threefry
+key and the injection's numpy generator.  A resume continues all three.
+The JAX package reseeds its key and its generator at a resume, so the first
+frame after it draws the same random numbers as the first frame of the run,
+and the next injection those of the first injection: the frames after a
+resume are correlated with the run's first
 (ROADMAP fault F9; the mean energy of the 2-D spherical default frame moves
 by ~0.5 % there).  A JAX-package file carries no states; the port then
 reseeds as that package does.
@@ -61,10 +62,12 @@ class CheckpointState:
     weight_norm: float = 1.0
     n_injected: int = 0
     # the port's additions (the JAX package neither writes nor reads them):
-    # torch.Generator.get_state() of the transport seeds, as uint8, and the
-    # injection generator's numpy bit_generator.state, as JSON
+    # torch.Generator.get_state() of the kernel seeds, as uint8, the
+    # injection generator's numpy bit_generator.state, as JSON, and the XLA
+    # engine's threefry key words (ops.prng.Key.state), as uint32
     generator_state: Optional[np.ndarray] = dataclasses.field(default=None, compare=False)
     rng_state: Optional[str] = None
+    key_state: Optional[np.ndarray] = dataclasses.field(default=None, compare=False)
 
 
 def checkpoint_path(mc_dir: str, rank: int) -> str:
@@ -94,6 +97,8 @@ def save_checkpoint(mc_dir: str, rank: int, state: CheckpointState,
         payload["generator_state"] = np.asarray(state.generator_state, dtype=np.uint8)
     if state.rng_state is not None:
         payload["rng_state"] = state.rng_state
+    if state.key_state is not None:
+        payload["key_state"] = np.asarray(state.key_state, dtype=np.uint32)
     if photons is not None:
         ptype = np.array(photons["ptype"])
         ptype[ptype == int(PhotonType.COMPTONIZED)] = int(PhotonType.UNABSORBED_CS)
@@ -126,6 +131,7 @@ def read_checkpoint(mc_dir: str, rank: int, with_photons: bool = True):
             weight_norm=float(z["weight_norm"]), n_injected=int(z["n_injected"]),
             generator_state=z["generator_state"] if "generator_state" in z.files else None,
             rng_state=str(z["rng_state"]) if "rng_state" in z.files else None,
+            key_state=z["key_state"] if "key_state" in z.files else None,
         )
         if "p" not in z.files or not with_photons:
             return state, None

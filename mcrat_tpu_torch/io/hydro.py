@@ -3,8 +3,9 @@
 getHydroData (reference: Src/mcrat_io.c:1898-1990): builds the frame file
 name, dispatches on the hydro format, applies the analytic test-problem
 overwrite and the nonthermal electron densities, and builds the spatial
-index of the loaded frame on the device.  SYNTHETIC and FLASH frames are
-ported; PLUTO, PLUTO-Chombo and RIKEN raise ``NotImplementedError``.
+index of the loaded frame on the device.  Every format the JAX package
+reads: SYNTHETIC, FLASH, PLUTO (``.dbl``, or ``.h5`` through h5py),
+PLUTO-Chombo (h5py) and RIKEN (2-D and 3-D).
 """
 from __future__ import annotations
 
@@ -13,11 +14,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..config import Config, HydroSim, NonthermalDist, SimType
+from ..config import Config, Dims, HydroSim, NonthermalDist, SimType
 from ..grid import HydroFrameHost, build_binned_index, build_rectilinear_index, torch_dtype
 from ..models.analytic import apply_simulation_type
-from ..transport import ROADMAP_ITEMS
-from . import flash
+from . import flash, pluto, pluto_chombo, riken
 
 
 @dataclasses.dataclass
@@ -30,16 +30,19 @@ class HydroPaths:
     mc_path: str = "MC/"
 
 
-def _unported(cfg: Config) -> NotImplementedError:
-    return NotImplementedError(f"{cfg.sim_switch.value} frames: " + ROADMAP_ITEMS["readers"])
-
-
 def frame_filename(cfg: Config, paths: HydroPaths, frame: int) -> str:
+    """The file of a frame (RIKEN: the prefix the reader completes per
+    variable)."""
     if cfg.sim_switch is HydroSim.FLASH:
         return flash.flash_frame_name(paths.filepath, paths.fileroot, frame)
-    if cfg.sim_switch is HydroSim.SYNTHETIC:
-        raise ValueError(f"no files for {cfg.sim_switch}")
-    raise _unported(cfg)
+    if cfg.sim_switch is HydroSim.PLUTO:
+        suffix = "." + cfg.pluto_filetype.value
+        return paths.filepath + pluto.pluto_frame_name(paths.fileroot, frame, suffix)
+    if cfg.sim_switch is HydroSim.PLUTO_CHOMBO:
+        return paths.filepath + pluto.pluto_frame_name(paths.fileroot, frame, ".hdf5")
+    if cfg.sim_switch is HydroSim.RIKEN:
+        return paths.filepath
+    raise ValueError(f"no files for {cfg.sim_switch}")
 
 
 def get_hydro_data(
@@ -65,13 +68,17 @@ def get_hydro_data(
         if synthetic_frame is None:
             raise ValueError("SYNTHETIC runs need a synthetic_frame")
         host = synthetic_frame
-    elif cfg.sim_switch is HydroSim.FLASH:
-        host = flash.read_flash(
-            cfg, frame_filename(cfg, paths, frame), fps, r_inj, ph_inj_switch,
-            min_r, max_r, min_theta, max_theta,
-        )
+    elif cfg.sim_switch is HydroSim.RIKEN and cfg.dims is Dims.THREE:
+        host = riken.read_riken_3d(cfg, paths.filepath, frame, fps, r_inj, ph_inj_switch,
+                                   min_r, max_r)
+    elif cfg.sim_switch is HydroSim.RIKEN:
+        host = riken.read_riken_2d(cfg, paths.filepath, frame, fps, r_inj, ph_inj_switch,
+                                   min_r, max_r, min_theta, max_theta)
     else:
-        raise _unported(cfg)
+        reader = {HydroSim.FLASH: flash.read_flash, HydroSim.PLUTO: pluto.read_pluto,
+                  HydroSim.PLUTO_CHOMBO: pluto_chombo.read_pluto_chombo}[cfg.sim_switch]
+        host = reader(cfg, frame_filename(cfg, paths, frame), fps, r_inj, ph_inj_switch,
+                      min_r, max_r, min_theta, max_theta)
 
     # analytic test-problem overwrite (reference: Src/mcrat_io.c:1969-1975)
     if cfg.simulation_type is not SimType.SCIENCE:
@@ -88,9 +95,9 @@ def get_hydro_data(
 def build_index(cfg: Config, host: HydroFrameHost, edges: Optional[Tuple] = None,
                 device=None):
     """The index of a frame on ``device`` (default: the card): rectilinear
-    (exact) when the caller knows the grid edges (synthetic grids, full
-    PLUTO grids), else the uniform-bin CSR index over the cell list (AMR
-    readers: FLASH, PLUTO-Chombo)."""
+    (exact) when the caller knows the grid edges (synthetic grids), else the
+    uniform-bin CSR index over the cell list (the readers' decimated frames:
+    FLASH, PLUTO, PLUTO-Chombo, RIKEN)."""
     if edges is not None:
         return build_rectilinear_index(*edges, dtype=torch_dtype(cfg), device=device)
     return build_binned_index(host, device=device)

@@ -60,3 +60,26 @@ def zero_norm(p):
     norm = xp.sqrt(_sum_last(pv * pv))
     scale = xp.where(norm > 0, p[..., :1] / xp.maximum(norm, _tiny(p)), 1.0)
     return _cat(xp, [p[..., :1], pv * scale])
+
+
+# Rotations with the angle given as (cos, sin): the engine takes them from
+# vector components, never from angles (mcrat_tpu.ops.fourvec; the scatter
+# kernel's rot0/rot1, reference: Src/mcrat_scattering.c:247-283).
+
+
+def rotate_about_z_cs(v, c, s):
+    """Rotate 3-vectors (..., 3) about z by the angle of (cos, sin)."""
+    return torch.stack([c * v[..., 0] - s * v[..., 1], s * v[..., 0] + c * v[..., 1],
+                        v[..., 2]], dim=-1)
+
+
+def rotate_about_y_cs(v, c, s):
+    """Rotate 3-vectors about y (rot1's convention: x' = c x - s z)."""
+    return torch.stack([c * v[..., 0] - s * v[..., 2], v[..., 1],
+                        s * v[..., 0] + c * v[..., 2]], dim=-1)
+
+
+def rotate_about_x_cs(v, c, s):
+    """Rotate 3-vectors about x."""
+    return torch.stack([v[..., 0], c * v[..., 1] - s * v[..., 2],
+                        s * v[..., 1] + c * v[..., 2]], dim=-1)

@@ -6,23 +6,31 @@ the frame's time window, concurrently with all others:
     while any photon has frame-time left:
         lookup cell -> tau-rate -> sample dt -> move -> attempt KN scatter
 
-The rounds run in the fused-round kernel (``ops.fused_round``): a hand-written
-CUDA kernel on the card, its plain PyTorch twin on CPU tensors.  Photon state
-is a fixed-capacity structure of arrays (:class:`Photons`) with masking in
-place of the reference's null-photon slot recycling (Src/photons.c).
-Four-momenta are dimensionless (units of m_e c); positions are in cm.
+Two engines run the rounds, chosen per frame by :func:`transport_frame` as
+the JAX package chooses (``fused_transport_available``):
 
-Slice covered: every (dims x geometry) frame -- 2-D and 2.5-D
-cartesian/cylindrical/spherical, 3-D cartesian/spherical/polar -- on a
+* the fused-round kernel (``ops.fused_round``): a hand-written CUDA kernel
+  on the card, its plain PyTorch twin on CPU tensors; float32;
+* the XLA engine, :func:`transport_rounds`: the round as PyTorch ops with
+  the JAX package's threefry draws (``ops.prng``), float32 or float64, on
+  any device -- every float64 run, and every run the caller keeps off the
+  kernel (``fused=False``).
+
+Photon state is a fixed-capacity structure of arrays (:class:`Photons`)
+with masking in place of the reference's null-photon slot recycling
+(Src/photons.c).  Four-momenta are dimensionless (units of m_e c); positions
+are in cm.
+
+Every (dims x geometry) frame -- 2-D and 2.5-D cartesian/cylindrical/
+spherical, 3-D cartesian/spherical/polar -- runs on a
 :class:`~mcrat_tpu_torch.grid.RectilinearIndex` (uniform or not) or on an
 AMR cell list (:class:`~mcrat_tpu_torch.grid.BinnedIndex`), with DIRECT
 (Thomson) or TABLE (hot cross-section, ``ops.hot_xsec``) optical depth,
 thermal electrons and, in TABLE mode, nonthermal (broken) power-law
-electrons, float32, Stokes on or off; cyclo-synchrotron pool photons scatter
-in place and are promoted, and the population surgery of the cyclo-synchrotron
-frame boundary (grow, append, extract the scattered-CS subset) runs on the
-device without a host sync.  Other configurations raise
-``NotImplementedError`` naming the ROADMAP item that will port them.
+electrons, Stokes on or off; cyclo-synchrotron pool photons scatter in place
+and are promoted, and the population surgery of the cyclo-synchrotron frame
+boundary (grow, append, extract the scattered-CS subset) runs on the device
+without a host sync.
 """
 from __future__ import annotations
 
@@ -40,10 +48,14 @@ from .constants import C_LIGHT, H_OVER_MEC2, K_B, M_P, ME_C2, PL_CONST, THOM_X_S
 from . import geometry as geo
 from .device import resolve_device
 from .grid import (PCOL, BinnedIndex, HydroFrame, HydroFrameHost, RectilinearIndex,
-                   find_cell_direct, find_cell_rows, gather_rows)
+                   find_cell_direct, find_cell_rows, fluid_beta_from_rows,
+                   gather_rows)
+from .ops import compton, electrons
 from .ops import fused_round as fr
 from .ops import hot_xsec
 from .ops.fourvec import lorentz_boost
+from .ops.prng import MASK32, Key
+from .ops.stokes import stokes_rotation
 
 # Default mean free path for photons outside the grid [cm] (Src/mclib.c:620)
 DEFAULT_MFP = 1e12
@@ -53,11 +65,8 @@ NUM_DENS_COEFF_WIEN = 8.44
 # smallest working buffer compaction shrinks to (capacities stay powers of 2)
 MIN_COMPACT_CAPACITY = 1024
 
-# where each configuration outside the slice will be ported
+# where each configuration outside the port will be ported
 ROADMAP_ITEMS = dict(
-    xla="ROADMAP.md queue 1 item 5 (the XLA-path physics ops and "
-        "transport_rounds: float64 and non-CUDA runs)",
-    readers="ROADMAP.md queue 1 item 15 (the PLUTO, PLUTO-Chombo and RIKEN readers)",
     mesh="ROADMAP.md queue 1 item 13 (multiple devices)",
 )
 
@@ -341,12 +350,13 @@ class FrameResult(NamedTuple):
     t_rem: torch.Tensor  # (N,) frame time left per photon
     rebin_pending: bool = False  # True: the scattered-CS count passed cs_limit
     n_cs: Optional[int] = None  # live scattered-CS count of the last chunk (cs_limit set)
+    engine: str = "kernel"  # the engine that ran: "kernel" or "xla"
 
 
 class ChunkResult(NamedTuple):
     photons: Photons
     t_rem: torch.Tensor  # (N,) frame time left per photon
-    n_scatt: torch.Tensor  # int64 scalar
+    n_scatt: torch.Tensor  # integer scalar
     n_rounds: int
     all_done: torch.Tensor  # bool scalar: no active photons remain
     n_active: torch.Tensor  # int64 scalar: alive photons with time left
@@ -402,6 +412,170 @@ def check_xsec_table(cfg: Config, xsec_table) -> None:
     missing = _missing_tables(cfg, xsec_table)
     if missing is not None:
         raise ValueError(missing)
+
+
+def _tau_rate(cfg: Config, photons: Photons, rows: torch.Tensor, xsec_table=None):
+    """Per-photon optical depth per unit length [1/cm] in the cells whose
+    packed rows (W, N) are ``rows`` (``mcrat_tpu.transport._tau_rate``;
+    calculateOpticalDepth, reference: Src/optical_depth.c:7-112):
+
+        rate = (dens_lab / m_p) sigma_T sigma_hat (1 - beta cos_angle)
+
+    with the angle between the fluid velocity and the photon's lab
+    momentum; sigma_hat = 1 in DIRECT mode, the hot cross section in TABLE
+    mode.  With nonthermal electrons (and a table) each Lorentz-factor
+    subgroup i adds its biased depth bias_i tau_i, bias_i = tau_norm / tau_i
+    (tau_norm = tau_0, or subgroup 1's tau in cells without thermal
+    electrons; the thermal bias is 1, :170-183).  Returns (rate, fluid beta
+    (N, 3), None or (tau0, tau_i, bias_i, total) for the population
+    choice)."""
+    fluid_beta = fluid_beta_from_rows(cfg, rows, photons.pos[:, 0], photons.pos[:, 1])
+    gam = rows[PCOL["gamma"]]
+    pv = photons.p[:, 1:]
+    tiny = torch.finfo(pv.dtype).tiny
+    fl_norm = torch.sqrt((fluid_beta * fluid_beta).sum(dim=-1))
+    ph_norm = torch.sqrt((pv * pv).sum(dim=-1))
+    cos_ang = (fluid_beta * pv).sum(dim=-1) / torch.clamp(fl_norm * ph_norm, min=tiny)
+    beta = torch.sqrt(torch.clamp(1.0 - 1.0 / (gam * gam), min=0.0))
+    n_e_lab = rows[PCOL["dens_lab"]] / M_P
+    fluid_factor = 1.0 - beta * cos_ang
+    sigma_hat = 1.0
+    if cfg.tau_calculation is TauCalculation.TABLE and xsec_table is not None:
+        sigma_hat = hot_xsec.interp_thermal(xsec_table, photons.comv_p[:, 0], rows[PCOL["temp"]])
+    tau0 = n_e_lab * THOM_X_SECT * sigma_hat * fluid_factor
+    if cfg.nonthermal_e_dist is NonthermalDist.OFF or xsec_table is None:
+        return tau0, fluid_beta, None
+    sigma_sub = hot_xsec.interp_nonthermal(xsec_table, photons.comv_p[:, 0])
+    frac = torch.as_tensor(xsec_table.subgroup_frac, dtype=tau0.dtype, device=tau0.device)
+    n_nt_lab = rows[PCOL["nonthermal_dens"]] * gam
+    tau_i = n_nt_lab[:, None] * frac[None, :] * THOM_X_SECT * sigma_sub * fluid_factor[:, None]
+    tau_norm = torch.where(tau0 > 0, tau0, tau_i[:, 0])
+    bias_i = tau_norm[:, None] / torch.clamp(tau_i, min=torch.finfo(tau0.dtype).tiny)
+    total = tau0 + (bias_i * tau_i).sum(dim=-1)
+    return total, fluid_beta, (tau0, tau_i, bias_i, total)
+
+
+def _electrons(cfg: Config, key: Key, temp, comv_p, tau_aux):
+    """The scattering electron of every lane: thermal, or with nonthermal
+    populations the one the biased cumulative depths choose
+    (generateSingleElectron, reference: Src/electron.c:7-68, with a proper
+    uniform draw where the reference left the override random_num = 0.6 at
+    :21)."""
+    el_p = electrons.sample_thermal_electron(key, temp, comv_p)
+    if tau_aux is None:
+        return el_p
+    tau0, tau_i, bias_i, total = tau_aux
+    dtype = comv_p.dtype
+    k_pop, k_nt = key.fold_in(1).split()
+    u = k_pop.uniform(tau0.shape, dtype)
+    safe_total = torch.clamp(total, min=torch.finfo(dtype).tiny)
+    cum_thermal = tau0 / safe_total
+    cum = cum_thermal[:, None] + torch.cumsum(bias_i * tau_i, dim=-1) / safe_total[:, None]
+    subgroup = 1 + (u[:, None] > cum).to(torch.int32).sum(dim=-1)
+    subgroup = torch.clamp(subgroup, 1, cfg.n_gamma)
+    el_nt = electrons.sample_nonthermal_electron(k_nt, subgroup, comv_p, cfg)
+    return torch.where((cum_thermal >= u)[:, None], el_p, el_nt)
+
+
+def transport_rounds(
+    cfg: Config,
+    photons: Photons,
+    frame: HydroFrame,
+    index,
+    t_rem: torch.Tensor,
+    key: Key,
+    xsec_table=None,
+    stokes_on: bool = True,
+    max_rounds: int = 0,
+) -> ChunkResult:
+    """Advance the population by up to ``max_rounds`` rounds on the XLA
+    engine (``mcrat_tpu.transport.transport_rounds``; the frame loop of
+    Src/mcrat.c:761-846): per round, each active photon's cell
+    (:func:`~mcrat_tpu_torch.grid.find_cell_rows`, the cached-cell pin then
+    the index search on every lane), its optical depth (:func:`_tau_rate`), an exponential free
+    path, the move (pool photons stay), and for photons whose free path ends
+    inside the frame window a polarized Klein-Nishina scatter off a drawn
+    electron (``ops.compton.single_scatter``); rejected scatters are null
+    collisions.  A scattered pool photon becomes COMPTONIZED.
+
+    Float32 or float64 on any device.  ``key`` is a threefry
+    :class:`~mcrat_tpu_torch.ops.prng.Key` (moved to the photons' device),
+    split per round as JAX splits it, so with the same key the engine draws
+    JAX's numbers lane for lane.
+    The cell properties are read from the frame's packed rows, which equal
+    the rows JAX's loop carries on every in-grid lane.  The loop test is one
+    host sync a round (eager PyTorch has no device-side while loop); 0
+    ``max_rounds`` runs up to ``cfg.max_rounds_per_frame``.  ``photons`` is
+    not modified.
+    """
+    check_xsec_table(cfg, xsec_table)
+    key = Key(key.data.to(photons.device))
+    dtype = photons.p.dtype
+    tiny = torch.finfo(dtype).tiny
+    cap = photons.capacity
+    round_cap = max_rounds if max_rounds > 0 else cfg.max_rounds_per_frame
+    n_cell = frame.num_elements
+    ph = photons
+    t_rem = t_rem.to(dtype)
+    n_scatt = torch.zeros((), dtype=torch.int64 if dtype == torch.float64 else torch.int32,
+                          device=photons.device)
+    rounds = 0
+    while rounds < round_cap:
+        active = ph.alive & (t_rem > 0)
+        if not bool(active.any()):
+            break
+        key, k_mfp, k_el, k_sc = key.split(4)
+        # CS pool photons scatter in place but never move (Src/mclib.c:1070)
+        is_pool = ph.ptype == int(PhotonType.CS_POOL)
+
+        # 1.+2. containing cell and its packed rows
+        cell, in_grid = find_cell_rows(cfg, index, frame, ph.pos, ph.cell, all_lanes=True)
+        rows = frame.packed[:, torch.clamp(cell, 0, n_cell - 1).to(torch.int64)]
+        rate, fluid_beta, tau_aux = _tau_rate(cfg, ph, rows, xsec_table)
+        comv_p = lorentz_boost(fluid_beta, ph.p, photon=True)
+        ph = ph.replace(comv_p=torch.where((active & in_grid)[:, None], comv_p, ph.comv_p),
+                        cell=torch.where(active, cell, ph.cell))
+
+        # 3. exponential free path -> candidate time step
+        u = torch.clamp(k_mfp.uniform((cap,), dtype), min=tiny)
+        mfp = torch.where(in_grid & (rate > 0), -torch.log(u) / torch.clamp(rate, min=tiny),
+                          DEFAULT_MFP)
+        dt_scatt = mfp / C_LIGHT
+        will_scatter = active & in_grid & (dt_scatt < t_rem)
+        dt = torch.where(active, torch.where(will_scatter, dt_scatt, t_rem), 0.0)
+
+        # 4. advance along the lab direction at c (reference: mclib.c:1054-1100)
+        inv_p0 = 1.0 / torch.clamp(ph.p[:, 0], min=tiny)
+        step = (ph.p[:, 1:] * inv_p0[:, None]) * (C_LIGHT * dt)[:, None]
+        moves = active & ~is_pool
+        ph = ph.replace(pos=torch.where(moves[:, None], ph.pos + step, ph.pos))
+        t_rem = t_rem - dt
+
+        # 5. the scatter of the candidates (a null collision on reject)
+        s_comv = (stokes_rotation(fluid_beta, ph.p[:, 1:], ph.comv_p[:, 1:], ph.s)
+                  if stokes_on else ph.s)
+        el_p = _electrons(cfg, k_el, rows[PCOL["temp"]], ph.comv_p, tau_aux)
+        res = compton.single_scatter(k_sc, el_p, ph.comv_p, s_comv, stokes_on=stokes_on)
+        scattered = will_scatter & res.scattered
+        new_lab = lorentz_boost(-fluid_beta, res.ph_p, photon=True)
+        s_lab = (stokes_rotation(-fluid_beta, res.ph_p[:, 1:], new_lab[:, 1:], res.s)
+                 if stokes_on else res.s)
+        mask = scattered[:, None]
+        # a scattered pool photon is promoted (reference: Src/mcrat.c:791-808)
+        ptype = torch.where(scattered & is_pool, int(PhotonType.COMPTONIZED), ph.ptype)
+        ph = ph.replace(
+            p=torch.where(mask, new_lab, ph.p),
+            comv_p=torch.where(mask, res.ph_p, ph.comv_p),
+            s=torch.where(mask, s_lab, ph.s),
+            num_scatt=ph.num_scatt + scattered.to(dtype),
+            ptype=ptype.to(torch.int32),
+        )
+        n_scatt = n_scatt + scattered.sum().to(n_scatt.dtype)
+        rounds += 1
+
+    active = ph.alive & (t_rem > 0)
+    return ChunkResult(photons=ph, t_rem=t_rem, n_scatt=n_scatt, n_rounds=rounds,
+                       all_done=~active.any(), n_active=active.sum())
 
 
 def fused_transport_available(cfg: Config, photons: Photons, frame: HydroFrame,
@@ -570,6 +744,10 @@ def lane_flags(alive, pool, in_grid) -> torch.Tensor:
             + in_grid.to(torch.int32) * fr.FLAG_INGRID)
 
 
+_NO_FLOAT64_KERNEL = ("the fused-round kernel runs float32 photons only (as the JAX "
+                      "package's); float64 runs take the XLA engine (fused=None or False)")
+
+
 def transport_rounds_fused(
     cfg: Config,
     photons: Photons,
@@ -619,7 +797,7 @@ def transport_rounds_fused(
     if reason is not None:
         raise NotImplementedError(reason)
     if photons.p.dtype != torch.float32:
-        raise NotImplementedError("float64 transport: " + ROADMAP_ITEMS["xla"])
+        raise ValueError(_NO_FLOAT64_KERNEL)
     variant, table, kflags = setup
     carried = isinstance(index, BinnedIndex)
     dev = photons.device
@@ -765,7 +943,7 @@ def transport_frame(
     frame: HydroFrame,
     index,
     dt_max,
-    generator: torch.Generator,
+    generator: Optional[torch.Generator] = None,
     stokes_on: bool = True,
     chunk_rounds: int = 0,
     fused: Optional[bool] = None,
@@ -774,24 +952,35 @@ def transport_frame(
     xsec_table=None,
     t_rem0: Optional[torch.Tensor] = None,
     cs_limit: Optional[int] = None,
+    key: Optional[Key] = None,
 ) -> FrameResult:
     """Advance the whole population through one hydro-frame time window.
 
-    Runs :func:`transport_rounds_fused` in bounded-round chunks when
-    ``chunk_rounds`` > 0, with one batched host fetch per chunk.  Once fewer
-    than a quarter of the lanes are still active, the active photons move
-    into a power-of-two buffer (>= MIN_COMPACT_CAPACITY) and transport
-    continues there; results are written back into the population buffers
-    IN PLACE (the caller's ``photons`` tensors are never written: the first
-    chunk's output is the population buffer).
+    The engine (``FrameResult.engine``), as the JAX package chooses it:
+    ``fused=None`` takes the fused-round kernel (:func:`transport_rounds_fused`)
+    exactly when :func:`fused_transport_available` holds (CUDA float32 photons,
+    the tables a TABLE run needs) and the XLA engine (:func:`transport_rounds`)
+    otherwise; ``fused=True`` takes the kernel on any device (the plain twin
+    on CPU tensors) and raises ValueError for float64 photons, which no
+    kernel runs; ``fused=False`` takes the XLA engine on any device and
+    dtype.  A kernel that fails to build or launch raises: no run moves to
+    the other engine by itself.
 
-    ``fused=None`` takes the kernel when :func:`fused_transport_available`
-    says it covers the run; ``fused=True`` also runs the glue on CPU tensors
-    (through the plain twin).  Every other case raises NotImplementedError:
-    there is no silent fallback.  ``generator`` draws each chunk's base seed;
-    ``rounds_fn`` is passed to :func:`transport_rounds_fused`.  TABLE mode
-    needs ``xsec_table`` (``ops.hot_xsec.load_or_build``; ValueError
-    without); its per-cell Chebyshev rows are built once per frame, here.
+    The engines run in bounded-round chunks when ``chunk_rounds`` > 0, with
+    one batched host fetch per chunk.  Once fewer than a quarter of the lanes
+    are still active, the active photons move into a power-of-two buffer
+    (>= MIN_COMPACT_CAPACITY) and transport continues there; results are
+    written back into the population buffers IN PLACE (the caller's
+    ``photons`` tensors are never written: the first chunk's output is the
+    population buffer).
+
+    The kernel draws each chunk's base seed from ``generator``; the XLA
+    engine splits ``key`` (a threefry :class:`~mcrat_tpu_torch.ops.prng.Key`)
+    once per chunk, ``key, sub = key.split()``, as JAX does, or, without a
+    key, starts from one seeded by ``generator``.  ``rounds_fn`` is passed to
+    :func:`transport_rounds_fused`.  TABLE mode needs ``xsec_table``
+    (``ops.hot_xsec.load_or_build``; ValueError without); the kernel's
+    per-cell Chebyshev rows are built once per frame, here.
 
     ``t_rem0`` resumes a frame left early (each photon's frame time, as a
     ``FrameResult.t_rem`` gives it).  ``cs_limit`` arms the mid-frame rebin
@@ -807,11 +996,15 @@ def transport_frame(
         raise NotImplementedError(reason)
     if fused is None:
         fused = fused_transport_available(cfg, photons, frame, index, xsec_table)
-    if not fused:
-        raise NotImplementedError(
-            f"non-fused transport ({photons.device.type}, {photons.p.dtype}): "
-            + ROADMAP_ITEMS["xla"])
-    setup = select_variant(cfg, frame, index, xsec_table)
+    if fused and photons.p.dtype != torch.float32:
+        raise ValueError("fused=True: " + _NO_FLOAT64_KERNEL)
+    if generator is None and (fused or key is None):
+        raise ValueError("transport_frame needs generator= (the kernel's seeds) or, on the "
+                         "XLA engine, key=")
+    if fused:
+        setup = select_variant(cfg, frame, index, xsec_table)
+    elif key is None:
+        key = Key.from_seed(draw_seed(generator) & MASK32, device=photons.device)
     t_rem = frame_time(photons, dt_max) if t_rem0 is None else t_rem0
     n_scatt_total = 0
     rounds_total = 0
@@ -822,13 +1015,19 @@ def transport_frame(
     n_cs = None
 
     while True:
-        res = transport_rounds_fused(
-            cfg, work_ph, frame, index, work_t, base_seed=draw_seed(generator), setup=setup,
-            stokes_on=stokes_on, max_rounds=chunk_rounds, s_rows=s_rows, rounds_fn=rounds_fn,
-        )
+        if fused:
+            res = transport_rounds_fused(
+                cfg, work_ph, frame, index, work_t, base_seed=draw_seed(generator), setup=setup,
+                stokes_on=stokes_on, max_rounds=chunk_rounds, s_rows=s_rows, rounds_fn=rounds_fn,
+            )
+        else:
+            key, sub = key.split()
+            res = transport_rounds(cfg, work_ph, frame, index, work_t, sub, xsec_table=xsec_table,
+                                   stokes_on=stokes_on, max_rounds=chunk_rounds)
         work_ph, work_t = res.photons, res.t_rem
         # ONE batched host fetch per chunk
-        fetch = [res.n_scatt, res.all_done.to(torch.int64), res.n_active.to(torch.int64)]
+        fetch = [res.n_scatt.to(torch.int64), res.all_done.to(torch.int64),
+                 res.n_active.to(torch.int64)]
         if cs_limit is not None:
             fetch.append(_count_cs(work_ph))
         n_scatt, all_done, n_active, *cs = torch.stack(fetch).tolist()
@@ -857,7 +1056,8 @@ def transport_frame(
         keep = slots < result_ph.capacity
         result_t[slots[keep]] = work_t[keep]
     return FrameResult(photons=result_ph, n_scatt=n_scatt_total, n_rounds=rounds_total,
-                       t_rem=result_t, rebin_pending=rebin_pending, n_cs=n_cs)
+                       t_rem=result_t, rebin_pending=rebin_pending, n_cs=n_cs,
+                       engine="kernel" if fused else "xla")
 
 
 # ---------------------------------------------------------------------------

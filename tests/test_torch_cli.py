@@ -2,8 +2,8 @@
 --merge`` of tests/test_driver.py's mc.par (the full 384 x 64 default grid,
 one angle bin, frames 10-12), then ``merge`` of the angle directory and of
 the MC base directory (ALL_DATA), and ``status``; ``run --cyclosynchrotron``;
-the options the port does not run yet raise NotImplementedError naming their
-ROADMAP item."""
+the several-device options the port does not run yet raise
+NotImplementedError naming their ROADMAP item, and ``--dtype float64`` runs."""
 import contextlib
 import dataclasses
 import io
@@ -79,9 +79,16 @@ def test_run_cyclosynchrotron(tmp_path):
                                         (["--coordinator", "localhost:1"], "item 13"),
                                         (["--dtype", "float64"], "item 5")])
 def test_unported_options_raise(tmp_path, flags, item):
+    """The several-device options (item 13) raise before anything is
+    written; ``--dtype float64`` (item 5, ported: the XLA engine) runs."""
     mcpar = str(tmp_path / "mc.par")
     tmcpar.write_mcpar(convert.mcpar_from_reference(_par()), mcpar)
+    argv = ["run", "--mcpar", mcpar, "--filepath", str(tmp_path) + "/", *RUN, "--device", "cpu",
+            "--output", "npz", *flags]
+    if item == "item 5":
+        assert cli.main(argv + ["--last-frame", "10"]) == 0
+        assert sorted(os.listdir(tmp_path)) == ["MC", "mc.par"]
+        return
     with pytest.raises(NotImplementedError, match=item):
-        cli.main(["run", "--mcpar", mcpar, "--filepath", str(tmp_path) + "/", *RUN,
-                  "--device", "cpu", "--output", "npz", *flags])
+        cli.main(argv)
     assert os.listdir(tmp_path) == ["mc.par"]

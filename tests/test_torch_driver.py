@@ -19,8 +19,9 @@ injection, float32, ``device="cpu"`` (the fused-round kernel's plain twin).
   seeds and the same frames as the run that was not interrupted, and an
   injection after the resume draws the photons the uninterrupted run drew.
 * Elastic re-adoption runs the unfinished old rank under its old id.
-* Cyclo-synchrotron runs; float64, HDF5 without h5py and a run without a
-  card raise before anything is written.
+* Cyclo-synchrotron runs; float64 runs (the XLA engine, held against JAX in
+  test_torch_float64_driver); HDF5 without h5py and a run without a card
+  raise before anything is written.
 * ``get_hydro_data`` of a FLASH file (the reader, the test-problem overwrite
   and the nonthermal densities) gives JAX's frame field for field.
 """
@@ -215,6 +216,8 @@ def test_resume_after_a_crash_continues_the_random_streams(tmp_path, monkeypatch
     os.remove(tck.checkpoint_path(part.mc_dir, 0))
     state, _ = tck.read_checkpoint(part.mc_dir, 0)
     assert (state.restart, state.scatt_frame) == ("c", 12)
+    # the kernel's run draws no threefry key, so it checkpoints none
+    assert state.generator_state is not None and state.key_state is None
     _run(tmp_path / "crash", dataclasses.replace(par, restart="c"), num_ranks=1)
     assert seeds == whole_seeds
     for fr in (10, 11, 12, 13):
@@ -404,17 +407,22 @@ def test_run_rank_runs_cyclosynchrotron(tmp_path):
     work = _run(tmp_path, _tpar(), cfg=cfg, num_ranks=4, last_frame_override=12,
                 init_clean_wait_s=0.1)
     assert _proc_frames(work) == [10, 11, 12]
-    assert tdriver.unsupported_run(cfg) is None
 
 
 @pytest.mark.parametrize("case", ["float64", "h5_without_h5py", "format", "no_card"])
 def test_unported_runs_raise_before_writing(tmp_path, monkeypatch, case):
+    """Runs the port cannot make raise before anything is written; a
+    float64 run (ROADMAP item 5, ported) writes its checkpoint and dumps,
+    with the HDF5 hydro formats' h5py check passed over (SYNTHETIC)."""
     par = _tpar()
     cfg, kw, err = TCFG, {}, NotImplementedError
     if case == "float64":
-        cfg = dataclasses.replace(TCFG, dtype="float64")
-        match = "item 5"
-    elif case == "h5_without_h5py":
+        monkeypatch.setitem(sys.modules, "h5py", None)
+        work = _run(tmp_path, par, cfg=dataclasses.replace(TCFG, dtype="float64"),
+                    last_frame_override=11)
+        assert _proc_frames(work) == [10, 11]
+        return
+    if case == "h5_without_h5py":
         monkeypatch.setitem(sys.modules, "h5py", None)
         kw, err, match = dict(output="h5"), ImportError, "output='npz'"
     elif case == "format":

@@ -254,10 +254,10 @@ def test_unported_configurations_raise():
     ph = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}, device="cpu")
     frame = convert.frame_from_numpy_fields(cfg, vars(host)).to_device("cpu")
     index = convert.index_from_edges(*edges, device="cpu")
-    # no silent fallback: on CPU the default refuses, fused=True runs the twin
+    # on CPU the kernel is not available: the default takes the XLA engine
+    # (ROADMAP item 5, ported), fused=True the twin; no run switches engines
     assert not tt.fused_transport_available(cfg, ph, frame, index)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        tt.transport_frame(cfg, ph, frame, index, 0.05, torch.Generator())
+    assert tt.transport_frame(cfg, ph, frame, index, 0.05, torch.Generator()).engine == "xla"
     # TABLE and nonthermal electrons are ported, but TABLE without its tables
     # raises: no quiet sigma_hat = 1
     table = TConfig(dims=TDims.TWO, geometry=TGeometry.CYLINDRICAL,
@@ -283,9 +283,10 @@ def test_unported_configurations_raise():
     assert tt.select_variant(cfg, frame, nonuniform)[0] == "slim_cyl2"
     sph = TConfig(dims=TDims.TWO, geometry=TGeometry.SPHERICAL)
     assert tt.unsupported_reason(sph, frame, index) is None
-    # cyclo-synchrotron is ported (test_torch_cyclosynch*); still to port:
-    # float64; an object that is no index (the AMR BinnedIndex is ported,
-    # test_torch_amr_*) raises too
+    # cyclo-synchrotron is ported (test_torch_cyclosynch*), float64 runs on
+    # the XLA engine (test_torch_xla_rounds); an object that is no index (the
+    # AMR BinnedIndex is ported, test_torch_amr_*) raises, and the kernel
+    # refuses float64 photons: it has no float64 form
     assert tt.unsupported_reason(TConfig(
         dims=TDims.TWO, geometry=TGeometry.CYLINDRICAL, cyclosynchrotron=True), frame, index) is None
     assert "not a spatial index" in tt.unsupported_reason(cfg, frame, object())
@@ -294,7 +295,7 @@ def test_unported_configurations_raise():
                                   base_seed=0, setup=tt.select_variant(cfg, frame, index))
     ph64 = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()},
                                       dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="float64"):
+    with pytest.raises(ValueError, match="float32 photons only"):
         tt.transport_rounds_fused(cfg, ph64, frame, index, tt.frame_time(ph64, 0.05),
                                   base_seed=0, setup=tt.select_variant(cfg, frame, index))
     assert tt.unsupported_reason(cfg, frame, index) is None

@@ -43,7 +43,8 @@ def test_package_sources_found():
     assert {"transport.py", "grid.py", "fused_round.py", "config.py", "constants.py",
             "chip_smoke.py", "profile_torch_frames.py", "kernel_ab.py", "sass_counts.py",
             "driver.py", "cli.py", "checkpoint.py", "photons_h5.py", "mcpar.py",
-            "analysis.py"} <= names
+            "analysis.py", "prng.py", "stokes.py", "compton.py", "electrons.py", "pluto.py",
+            "pluto_chombo.py", "riken.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -31,6 +31,7 @@ from mcrat_tpu_torch import driver as tdriver
 from mcrat_tpu_torch.io import checkpoint as tck
 from mcrat_tpu_torch.io import mcpar as tmcpar
 from mcrat_tpu_torch.io import photons_h5 as tph
+from mcrat_tpu_torch.ops import prng
 
 from test_io import MCPAR_TEXT
 
@@ -114,16 +115,18 @@ def test_jax_checkpoint_loads_in_the_port(tmp_path, comv, stokes):
 
 def test_port_checkpoint_loads_in_jax(tmp_path):
     """A checkpoint of the port's persistence writer with COMV output off
-    keeps comv_p (F2 not copied) and its random streams' states (F9); JAX
-    loads it, comv_p included, and ignores the states."""
+    keeps comv_p (F2 not copied) and its random streams' states (F9: the
+    kernel seeds' generator, the injection generator and the XLA engine's
+    threefry key); JAX loads it, comv_p included, and ignores the states."""
     arrays = _arrays()
     cfg = convert.config_from_reference(Config(comv=False, stokes=True))
     sub = convert.photons_from_numpy(arrays, device="cpu")
     gen = torch.Generator().manual_seed(7)
     rng = np.random.default_rng(8)
+    key = prng.Key.from_seed(9).split()[1]
     st = tck.CheckpointState(frame=10, frm2=11, scatt_frame=12, time_now=2.4, restart="c",
                              weight_norm=_Meta.weight_norm, n_injected=200,
-                             **tdriver.stream_states(gen, rng))
+                             **tdriver.stream_states(gen, rng, key))
     writer = tdriver._PersistWriter()
     timing = dict(rank=0, frame=10, scatt_frame=12, n_photons=200, n_scatt=0, n_rounds=0,
                   n_scatt_max=0.0, n_scatt_mean=0.0, r_mean=0.0, transport_s=0.0)
@@ -154,6 +157,7 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
     rng2 = np.random.default_rng()
     rng2.bit_generator.state = json.loads(tstate.rng_state)
     np.testing.assert_array_equal(rng2.random(4), rng.random(4))
+    np.testing.assert_array_equal(tstate.key_state, key.state())
     # the dump honours cfg.comv
     assert not any(k.startswith("COMV") for k in tph.read_frame(
         os.path.join(tmp_path, "mc_proc_0", "12", "0.npz")))
