@@ -134,11 +134,35 @@ off) -- and checks them:
      twin 0; the same run once more through the twin on the card, its npz
      dumps equal to the kernel run's bit for bit; frame 0 held against the
      synthetic main path of the same outflow within 4 sigma (reader_phase);
+  8d. the photon axis over a mesh (mesh_phase, into build/mesh_run/): (a)
+     the flagship frame of 3. on a two-shard mesh of the card (the card
+     twice), 64-round chunks with compaction: the kernel launched on both
+     shards (``Mesh.launches``) and nothing else, the same call through the
+     twin bit for bit with the twin alone launching, weight conserved,
+     within 5 standard errors of the one-device kernel frame of 3. (mean
+     energy, scatterings, scattered fraction, Q, U); a one-shard mesh bit
+     for bit ``transport_frame`` (mesh_frames); (b) ``cli run --mesh 1
+     --coordinator 127.0.0.1:<port> --num-hosts 1 --host-id 0`` of the
+     driver phase's configuration, frames 0-2 (NCCL at world size 1): its
+     dumps bit for bit the plain ``cli run``'s of the same frames
+     (mesh_cli); (c) two processes on the card (gloo, one shard each, a
+     worker script, ``driver.run_rank(mesh=)``) on the driver phase's frame
+     with one injection, frames 0-2, npz: an uninterrupted run beside a run
+     killed after frame 1 (its ``.old`` checkpoint restored), then resumed
+     and merged; every process within its timeout, process 1 writing
+     nothing under the run directory (an audit hook), the kernel launched
+     in both processes, the resumed dumps bit for bit the uninterrupted
+     run's, the merged frames within 4 sigma of the driver phase's first
+     injection (mesh_processes); (d) ``parallel.dryrun.dryrun_multichip(4,
+     "cuda")``, four shards on the card through the kernel; (e) the serial
+     oracle in float64 on tests/test_serial_equivalence.py's frame against
+     the XLA engine on the card, by that test's checks (serial_phase);
   9. prints the kernels' JSON line (with each instantiation's block,
      registers, local memory a thread -- spills and stack, as the CUDA
      runtime reports them -- and shared memory, and its launches in the
-     driver run, in the cyclo-synchrotron run and in the PLUTO and RIKEN
-     runs), then {"ok": true, "device": {...}} last.
+     driver run, in the cyclo-synchrotron run, in the PLUTO and RIKEN runs
+     and in phase 8d's in-process mesh runs, ``mesh_launches``), then
+     {"ok": true, "device": {...}} last.
 
 Each path's launch counts (the driver runs' too) are set to 0 just before it
 runs and read just after.  An instantiation's ``launches`` in the kernels' line are those of
@@ -1962,6 +1986,375 @@ def reader_phase(device, card, n_min, n_max, results):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 8d. the photon axis over a mesh of shards and of processes; the serial oracle
+# ---------------------------------------------------------------------------
+
+# the mesh phase's run directories (git-ignored)
+MESH_DIR = os.path.join(ROOT, "build", "mesh_run")
+# each process of the two-process runs
+MESH_PROCESS_TIMEOUT_S = 300
+
+# the run directory's writes made by a process other than 0 (audit events)
+MESH_AUDIT = r"""
+import json, os, sys
+WRITES = []
+
+
+def _audit(root):
+    root = os.path.realpath(root)
+    write_flags = os.O_WRONLY | os.O_RDWR | os.O_CREAT | os.O_APPEND
+
+    def under(path):
+        try:
+            return os.path.realpath(os.fsdecode(path)).startswith(root)
+        except TypeError:
+            return False
+
+    def hook(event, args):
+        if event == "open" and args and args[0] is not None and not isinstance(args[0], int):
+            mode, flags = args[1], args[2] or 0
+            writes = (isinstance(mode, str) and any(c in mode for c in "wax+")) or (
+                flags & write_flags)
+            if writes and under(args[0]):
+                WRITES.append((event, os.fsdecode(args[0])))
+        elif event in ("os.mkdir", "os.rename", "os.replace", "os.remove", "os.rmdir",
+                       "shutil.rmtree") and args and under(args[0]):
+            WRITES.append((event, os.fsdecode(args[0])))
+
+    sys.addaudithook(hook)
+"""
+
+# one process of the two-process driver run: gloo (two processes on one
+# card), one shard each, the driver phase's frame through run_rank(mesh=)
+MESH_WORKER = MESH_AUDIT + r"""
+pid, port, outdir, phase, device = (int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4],
+                                    sys.argv[5])
+sys.path.insert(0, {root!r})
+if pid != 0:
+    _audit(outdir)
+import logging, time
+import torch
+from mcrat_tpu_torch.parallel.mesh import init_distributed, make_mesh, shutdown_distributed
+TIMINGS = []
+handler = logging.Handler()
+handler.emit = lambda record: TIMINGS.append(getattr(record, "frame_timing", None))
+logging.getLogger("mcrat_tpu_torch").addHandler(handler)
+init_distributed(f"127.0.0.1:{{port}}", 2, pid, backend="gloo", device=device, timeout_s=240)
+mesh = make_mesh(devices=[device])
+from mcrat_tpu_torch import Config, Dims, Geometry, SimType, read_mcpar
+from mcrat_tpu_torch.driver import default_synthetic_factory, merge_rank_outputs, run_rank
+from mcrat_tpu_torch.io.hydro import HydroPaths
+cfg = Config(dims=Dims.TWO, geometry=Geometry.SPHERICAL,
+             simulation_type=SimType.SPHERICAL_OUTFLOW)
+par = read_mcpar(os.path.join(outdir, "mc.par"))
+t0 = time.perf_counter()
+work = run_rank(cfg, par, HydroPaths(filepath=outdir + "/", mc_path="MC/"),
+                synthetic_frame_factory=default_synthetic_factory(cfg, par), device=device,
+                output="npz", mesh=mesh, last_frame_override=1 if phase == "start" else 2)
+if device.startswith("cuda"):
+    torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+if phase == "resume" and pid == 0:
+    print("MERGED " + json.dumps(merge_rank_outputs(work, par, last_frame=2)), flush=True)
+print("LAUNCHES " + json.dumps(dict(mesh.launches)), flush=True)
+print(f"WALL {{wall:.3f}}", flush=True)
+print("TIMING " + json.dumps([{{k: t[k] for k in ("scatt_frame", "n_photons", "transport_s",
+                                                 "gather_s", "persist_wait_s")}}
+                             for t in TIMINGS if t is not None]), flush=True)
+shutdown_distributed()
+print("WRITES " + json.dumps(WRITES), flush=True)
+print(f"WORKER_OK pid={{pid}} phase={{phase}}", flush=True)
+"""
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mesh_frames(device, card, prob, kernel_res):
+    """8d (a): the flagship frame on a two-shard mesh of one device (the
+    card twice), 64-round chunks with compaction: the kernel on both shards,
+    the same call through the twin bit for bit, weight conserved, within 5
+    sigma of the one-device kernel frame (mean energy, scatterings,
+    scattered fraction, Q, U); a one-shard mesh bit for bit
+    transport_frame.  Returns the kernel's launches by instantiation in the
+    two-shard run."""
+    from types import SimpleNamespace
+
+    from mcrat_tpu_torch.ops import fused_round as fr
+    from mcrat_tpu_torch.parallel import mesh as pm
+
+    from mcrat_tpu_torch import transport
+
+    fused = True if device.type == "cpu" else None
+    photons = prob.photons
+    if photons.capacity % 2:
+        photons = transport.grow_photons(photons, photons.capacity + 1)[0]
+
+    def run(mesh, rounds_fn, seed):
+        return pm.sharded_transport_frame(
+            prob.cfg, mesh, photons, prob.frame, prob.index, prob.dt_max,
+            torch.Generator().manual_seed(seed), stokes_on=True, chunk_rounds=64,
+            rounds_fn=rounds_fn, fused=fused)
+
+    def same(a, b):
+        a, b = (pm.fetch_global(x) for x in (a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return all(torch.equal(getattr(a, k), getattr(b, k)) for k in a.fields())
+
+    bad = []
+    mesh = pm.make_mesh(devices=[device, device])
+    inst = instantiation_of(prob)
+    zero_launches()
+    res, wall, peak = peak_run(lambda: run(mesh, fr.fused_rounds, 11), device)
+    launches, twin = read_launches()
+    shards = [mesh.launches[i] for i in range(2)]
+    got = pm.fetch_global(res.photons)
+    print(f"[mesh] {card}: flagship frame, {prob.photons.capacity} photons over 2 shards of "
+          f"{device}: {wall:.4f} s, {res.n_scatt} scatterings, {res.n_rounds} rounds, engine "
+          f"{res.engine}; peak device memory {peak / 2**20:.1f} MiB; launches by shard "
+          f"{shards}, by instantiation {launches}, twin {twin}", flush=True)
+    if device.type == "cuda" and (res.engine != "kernel" or set(launches) != {inst} or twin
+                                  or min(shards) == 0):
+        bad.append("the two-shard frame did not launch the kernel on both shards alone")
+    alive = got.alive
+    if not (torch.equal(got.weight, photons.weight.cpu())
+            and all(bool(torch.isfinite(x).all()) for x in (got.p, got.pos, got.s))
+            and bool((pm.fetch_global(res.t_rem)[alive] <= 0).all()) and res.n_scatt > 0):
+        bad.append("two-shard frame checks (weight, finite, finished, scatterings)")
+
+    zero_launches()
+    mesh.launches.clear()
+    twin_res, twin_wall, _ = peak_run(lambda: run(mesh, fr.fused_rounds_reference, 11), device)
+    lk, lt = read_launches()
+    identical = same(twin_res.photons, res.photons) and same(twin_res.t_rem, res.t_rem)
+    print(f"[mesh] {card}: the same two-shard frame through the twin: {twin_wall:.4f} s, "
+          f"launches kernel {lk}, twin {lt}; identical photon for photon: {identical}",
+          flush=True)
+    if lk or not lt or not identical:
+        bad.append("two-shard twin frame")
+    same_outflow_check(("flagship one-device kernel frame", frame_cols(kernel_res)),
+                       ("flagship 2-shard mesh", frame_cols(SimpleNamespace(photons=got))),
+                       keys=XLA_KEYS, limit=5.0)
+
+    one = pm.make_mesh(devices=[device])
+    r1, wall1, _ = peak_run(lambda: run(one, fr.fused_rounds, 13), device)
+    plain, wall0, _ = peak_run(lambda: run_frame(prob, 13, fr.fused_rounds,
+                                                 dt_max=prob.dt_max), device)
+    identical = same(r1.photons, plain.photons) and (r1.n_scatt, r1.n_rounds) == (
+        plain.n_scatt, plain.n_rounds)
+    print(f"[mesh] {card}: one-shard mesh {wall1:.4f} s, transport_frame {wall0:.4f} s, "
+          f"identical photon for photon: {identical}", flush=True)
+    if not identical:
+        bad.append("one-shard mesh differs from transport_frame")
+    if bad:
+        raise RuntimeError(f"mesh frames failed: {bad}")
+    return launches
+
+
+def mesh_cli(device, card, n_min, n_max):
+    """8d (b): ``cli run --mesh 1 --coordinator 127.0.0.1:<port> --num-hosts
+    1 --host-id 0`` of the driver phase's configuration, frames 0-2 (NCCL at
+    world size 1 on the card, gloo on the CPU): its per-process dumps equal
+    the plain ``cli run``'s of the same frames bit for bit.  Returns the
+    kernel's launches by instantiation in the mesh run."""
+    import shutil
+
+    from mcrat_tpu_torch.ops import fused_round as fr
+
+    inst = fr.instantiation("packed_sph2", 0, None, True)
+    dumps = {}
+    for name, extra in (("plain", ()), ("cli", ("--mesh", "1", "--coordinator",
+                                                f"127.0.0.1:{free_port()}", "--num-hosts", "1",
+                                                "--host-id", "0"))):
+        run_dir = os.path.join(MESH_DIR, name)
+        shutil.rmtree(run_dir, ignore_errors=True)
+        os.makedirs(run_dir)
+        mcpar = os.path.join(run_dir, "mc.par")
+        driver_mcpar(mcpar, 1, n_min, n_max)
+        zero_launches()
+        _, wall = cli_run(run_dir, mcpar, device, "--last-frame", "2", *extra)
+        launches, twin = read_launches()
+        print(f"[mesh cli] {card}: cli run {' '.join(extra)} (the {name} run), frames 0-2: "
+              f"{wall:.3f} s", flush=True)
+        check_launches(f"mesh cli ({name})", inst, launches, twin, device)
+        dumps[name] = proc_dumps(os.path.join(run_dir, "MC", "0-6"))
+    differ = dumps_differ(dumps["cli"], dumps["plain"])
+    print(f"[mesh cli] {len(dumps['cli'])} dumps of cli run --mesh 1 against the plain cli "
+          f"run's: differing {differ}", flush=True)
+    if differ or not dumps["cli"]:
+        raise RuntimeError(f"cli run --mesh 1 dumps differ from the plain run's: {differ}")
+    return launches
+
+
+def mesh_processes(device, card, n_min, n_max):
+    """8d (c): two processes on one device (gloo), one shard each, the
+    driver phase's frame with one injection, frames 0-2, npz: an
+    uninterrupted run and, beside it, a run killed after frame 1 (its
+    ``.old`` checkpoint restored), then resumed and merged.  Checks: every
+    process exits 0 within its timeout; process 1 writes nothing under the
+    run directory; the kernel launched in both processes; the resumed
+    dumps equal the uninterrupted run's bit for bit; the merged frames
+    within 4 sigma of the plain driver run's first injection."""
+    import shutil
+
+    dirs = {name: os.path.join(MESH_DIR, name) for name in ("full", "run")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        driver_mcpar(os.path.join(d, "mc.par"), 0, n_min, n_max)
+    script = os.path.join(MESH_DIR, "worker.py")
+    with open(script, "w") as f:
+        f.write(MESH_WORKER.format(root=ROOT))
+    dev = "cuda:0" if device.type == "cuda" else "cpu"
+
+    def start(outdir, phase):
+        port = free_port()
+        return [subprocess.Popen([sys.executable, script, str(pid), str(port), outdir, phase,
+                                  dev], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True) for pid in (0, 1)]
+
+    def finish(procs, tag):
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MESH_PROCESS_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for pid, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or "WORKER_OK" not in out:
+                raise RuntimeError(f"{tag} process {pid} exited {p.returncode}:\n{out[-3000:]}")
+        field = {key: [json.loads(line.split(" ", 1)[1]) for out in outs
+                       for line in out.splitlines() if line.startswith(key + " ")]
+                 for key in ("LAUNCHES", "WALL", "WRITES", "MERGED", "TIMING")}
+        print(f"[mesh processes] {card}: {tag}: run_rank walls {field['WALL']} s, kernel "
+              f"launches by shard {field['LAUNCHES']}, process 1's writes under the run "
+              f"directory {field['WRITES'][1]}; process 0's frames (transport, persistence "
+              f"gather and wait, s) {field['TIMING'][0]}", flush=True)
+        if field["WRITES"][1]:
+            raise RuntimeError(f"{tag}: process 1 wrote {field['WRITES'][1]}")
+        if device.type == "cuda" and not all(
+                sum(launches.values()) > 0 for launches in field["LAUNCHES"]):
+            raise RuntimeError(f"{tag}: the kernel did not launch in both processes")
+        return field
+
+    t0 = time.perf_counter()
+    full, started = start(dirs["full"], "full"), start(dirs["run"], "start")
+    finish(full, "uninterrupted run, frames 0-2")
+    finish(started, "run to frame 1 (the kill)")
+    mc_dir = os.path.join(dirs["run"], "MC", "0-6")
+    chk = os.path.join(mc_dir, "mc_chkpt_0.npz")
+    os.replace(chk + ".old", chk)
+    driver_mcpar(os.path.join(dirs["run"], "mc.par"), 0, n_min, n_max, restart="c")
+    resumed = finish(start(dirs["run"], "resume"), "resume from frame 2, merge")
+    wall = time.perf_counter() - t0
+    bad = []
+    got, want = proc_dumps(mc_dir), proc_dumps(os.path.join(dirs["full"], "MC", "0-6"))
+    differ = dumps_differ(got, want)
+    print(f"[mesh processes] {card}: three two-process runs {wall:.3f} s; resumed dumps "
+          f"{sorted(got)} against the uninterrupted run's: differing {differ}", flush=True)
+    if differ or len(got) != 3:
+        bad.append(f"resumed dumps {differ}")
+    if len(resumed["MERGED"]) != 1:
+        bad.append(f"merge {resumed['MERGED']}")
+    main_dir = os.path.join(DRIVER_DIR, "main", "MC", "0-6")
+    n0 = len(merged(main_dir, 0)["PW"])
+    for f in range(3):
+        data = merged(mc_dir, f)
+        plain = {k: v[:n0] for k, v in merged(main_dir, f).items()}
+        print(f"[mesh processes] merged frame {f}: {len(data['PW'])} photons (plain run's "
+              f"first injection {n0})", flush=True)
+        if len(data["PW"]) != n0:
+            bad.append(f"frame {f} count")
+        same_outflow_check((f"plain driver frame {f}", dump_cols(plain)),
+                           (f"two-process mesh frame {f}", dump_cols(data)))
+    if bad:
+        raise RuntimeError(f"two-process mesh runs failed: {bad}")
+
+
+def serial_phase(device, card):
+    """8d (e): the serial oracle in float64 on tests/test_serial_equivalence.py's
+    frame (the uniform cylindrical outflow on 64 x 128 cells, 300-1,200
+    photons, a 0.03 s window) against the XLA engine on the same device, by
+    that test's checks: scatterings within 5 sigma, mean energy within 5 %,
+    mean scatterings within 5 standard errors, mean radius within 1e-3."""
+    from mcrat_tpu_torch import Config, Dims, Geometry, SimType, Spectrum, serial, transport
+    from mcrat_tpu_torch.grid import build_rectilinear_index, frame_from_numpy
+    from mcrat_tpu_torch.models.analytic import apply_simulation_type, make_grid_2d
+    from mcrat_tpu_torch.ops.prng import Key
+
+    cfg = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL,
+                 simulation_type=SimType.CYLINDRICAL_OUTFLOW, dtype="float64")
+    r0_edges, r1_edges = np.linspace(0.0, 3.2e11, 65), np.linspace(1.8e12, 2.6e12, 129)
+    host = frame_from_numpy(cfg, make_grid_2d(cfg, r0_edges, r1_edges))
+    apply_simulation_type(host)
+    arrays, _ = transport.inject_photons(
+        host, r_inj=2e12, ph_weight=1e50, min_photons=300, max_photons=1200,
+        spect=Spectrum.BLACKBODY, theta_min=0.0, theta_max=np.pi / 30, fps=5.0,
+        rng=np.random.default_rng(0))
+    frame = host.to_device(device, dtype=torch.float64)
+    index = build_rectilinear_index(r0_edges, r1_edges, dtype=torch.float64, device=device)
+    photons, _ = transport.photons_from_arrays(arrays, dtype=torch.float64, device=device)
+    res_b, wall_b, _ = peak_run(lambda: transport.transport_frame(
+        cfg, photons, frame, index, 0.03, key=Key.from_seed(11)), device)
+    res_s, wall_s, _ = peak_run(lambda: serial.transport_frame_serial(
+        cfg, photons, frame, index, 0.03, Key.from_seed(22)), device)
+    nb, ns = res_b.n_scatt, res_s.n_scatt
+    e_b, e_s = (float(transport.average_photon_energy(r.photons)) for r in (res_b, res_s))
+    ns_b, ns_s = (r.photons.num_scatt.cpu().numpy() for r in (res_b, res_s))
+    se = np.sqrt(ns_b.var() / len(ns_b) + ns_s.var() / len(ns_s))
+    r_b, r_s = (float(r.photons.pos.norm(dim=1).mean()) for r in (res_b, res_s))
+    checks = {
+        "scatterings > 50": nb > 50 and ns > 50,
+        "scatterings within 5 sigma": abs(nb - ns) < 5.0 * np.sqrt(nb + ns),
+        "mean energy within 5 %": abs(e_b - e_s) / e_s < 0.05,
+        "mean scatterings within 5 se": abs(ns_b.mean() - ns_s.mean()) < 5.0 * se + 1e-9,
+        "mean radius within 1e-3": abs(r_b - r_s) / r_s < 1e-3,
+    }
+    print(f"[serial] {card}: {len(arrays['weight'])} photons, float64 on {device}: the XLA "
+          f"engine {wall_b:.3f} s ({nb} scatterings, engine {res_b.engine}), the serial "
+          f"oracle {wall_s:.3f} s ({ns} scatterings, {res_s.n_events_attempted} candidates "
+          f"walked); checks {checks}", flush=True)
+    if res_b.engine != "xla" or not all(checks.values()):
+        raise RuntimeError(f"serial oracle checks failed: {checks}")
+
+
+def mesh_phase(device, card, n_min, n_max, flagship, flagship_res):
+    """Phase 8d: the photon axis over a mesh (mesh_frames, mesh_cli,
+    mesh_processes, dryrun_multichip(4)) and the serial oracle.  Returns the
+    kernel's launches by instantiation in the in-process mesh runs (the
+    two-shard flagship frame, the mesh cli run and the dry run's, each
+    counted from 0 just before it and read just after)."""
+    from mcrat_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    launches = collections.Counter(mesh_frames(device, card, flagship, flagship_res))
+    launches.update(mesh_cli(device, card, n_min, n_max))
+    mesh_processes(device, card, n_min, n_max)
+    zero_launches()
+    out, wall, _ = peak_run(lambda: dryrun_multichip(4, device.type), device)
+    lk, lt = read_launches()
+    print(f"[mesh dryrun] {card}: dryrun_multichip(4, {device.type!r}): {wall:.3f} s, {out}; "
+          f"launches kernel {lk}, twin {lt}", flush=True)
+    if device.type == "cuda" and (not lk or lt):
+        raise RuntimeError("dryrun_multichip did not run through the kernel alone")
+    launches.update(lk)
+    serial_phase(device, card)
+    print(f"[mesh] phase 8d: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return dict(launches)
+
+
 def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300_000),
          side_n=(150_000, 450_000), cs_n=(150_000, 400_000), xla_n=(100_000, 200_000)):
     # 0. device
@@ -2079,6 +2472,9 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
                results["flagship", "direct"])
     xla_driver(device, card, *xla_n)
     reader_launches = reader_phase(device, card, n_min, n_max, results)
+    # 8d. the photon axis over a mesh of shards and of processes; the serial oracle
+    mesh_launches = mesh_phase(device, card, n_min, n_max, mains["flagship", "direct"],
+                               results["flagship", "direct"])
 
     # 9. result lines
     names = fr.instantiations()
@@ -2107,6 +2503,7 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
         "cs_launches": cs_launches.get(n, 0),
         "pluto_launches": reader_launches["pluto"].get(n, 0),
         "riken_launches": reader_launches["riken"].get(n, 0),
+        "mesh_launches": mesh_launches.get(n, 0),
         "max_abs_err": errs[n],
         "ms": times[n][0], "plain_ms": times[n][1],
         "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "bound_pipe": bounds[n][2],

@@ -10,13 +10,16 @@ on any (dims x geometry) frame, on a rectilinear grid or on an AMR cell list
 or TABLE (hot cross-section) optical depth, thermal and nonthermal
 electrons, cyclo-synchrotron pool photons, float32, in PyTorch, with the fused transport round as a
 hand-written CUDA kernel (``ops/fused_round.py``, ``csrc/fused_round.cu``)
-on an NVIDIA H100.  Entry points put their tensors on ``DEFAULT_DEVICE``
-("cuda") unless the caller passes ``device=``; without a card they raise.
+on an NVIDIA H100; float64 runs take the XLA engine (``transport_rounds``);
+one rank's photon axis shards over a mesh of devices and processes
+(``parallel``); ``serial`` holds the reference-ordered oracle.  Entry points
+put their tensors on ``DEFAULT_DEVICE`` ("cuda") unless the caller passes
+``device=``; without a card they raise.
 
 Module names mirror ``mcrat_tpu`` so each counterpart is easy to find.  The
 package imports torch and numpy and nothing of the JAX package: it keeps its
-own ``config`` and ``constants``.  Configurations outside the slice raise
-``NotImplementedError`` naming the ROADMAP item that will port them.
+own ``config`` and ``constants``.  A frame no index or geometry of the JAX
+package describes raises ``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

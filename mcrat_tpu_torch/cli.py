@@ -13,9 +13,13 @@ datasets as numpy files).  ``--dtype float64`` transports on the XLA engine
 (float32 on the card takes the fused-round kernel).  ``--sim`` reads FLASH,
 PLUTO, PLUTO-Chombo or RIKEN frames from ``--filepath``/``--fileroot``, or
 makes the SYNTHETIC grid that ``--synthetic-grid NR NTHETA`` sizes
-(``driver.default_synthetic_factory``).  The several-device options
-(``--mesh``, ``--coordinator``) raise ``NotImplementedError`` naming their
-ROADMAP item.
+(``driver.default_synthetic_factory``).  ``--mesh N`` shards one rank's
+photon axis over N devices of every process (``-1``: every card), each
+process taking its own cards (one CPU shard a process with ``--device
+cpu``); ``--coordinator host:port``, ``--num-hosts`` and ``--host-id`` join
+the processes (``torch.distributed``: NCCL between cards, gloo between CPU
+processes), every process running the same command and process 0 alone
+writing files.
 """
 from __future__ import annotations
 
@@ -24,7 +28,6 @@ import json
 import logging
 import sys
 
-from .transport import ROADMAP_ITEMS
 
 
 def _build_config(args) -> "Config":
@@ -61,13 +64,23 @@ def _build_config(args) -> "Config":
     return Config(**kw)
 
 
-def _unported_options(args) -> None:
-    """Raise NotImplementedError for the several-device options, which the
-    driver does not take (it raises for the configurations it cannot run:
-    ``driver.unsupported_run``)."""
-    for flag, given in (("--mesh", args.mesh != 0), ("--coordinator", args.coordinator)):
-        if given:
-            raise NotImplementedError(f"{flag}: " + ROADMAP_ITEMS["mesh"])
+def _mesh(args):
+    """The run's mesh (None without ``--mesh``) and whether this call joined
+    the processes (``--coordinator``; this process's first device made
+    current before them)."""
+    if not args.mesh:
+        return None, False
+    import torch
+    import torch.distributed as dist
+
+    from .parallel.mesh import init_distributed, local_devices, make_mesh
+
+    dev_type = torch.device(args.device).type
+    host_id = args.host_id or 0
+    devices = local_devices(args.mesh, dev_type, args.num_hosts, host_id)
+    joined = args.coordinator is not None and not dist.is_initialized()
+    init_distributed(args.coordinator, args.num_hosts, host_id, device=devices[0])
+    return make_mesh(devices=devices), joined
 
 
 def _status(args) -> int:
@@ -177,9 +190,13 @@ def main(argv=None):
                      help="photon dump format: HDF5 (needs h5py) or the same datasets "
                           "as numpy files")
     run.add_argument("--mesh", type=int, default=0,
-                     help="shard the photon axis over N devices (not ported)")
+                     help="shard the photon axis over N devices (0 = single device; "
+                          "-1 = every card)")
     run.add_argument("--coordinator", default=None,
-                     help="multi-host coordinator address host:port (not ported)")
+                     help="multi-process coordinator address host:port "
+                          "(torch.distributed, process 0 listens)")
+    run.add_argument("--num-hosts", type=int, default=1, help="processes of the mesh")
+    run.add_argument("--host-id", type=int, default=None, help="this process's index")
 
     mrg = sub.add_parser("merge", help="merge per-process outputs (the MERGE tool)")
     mrg.add_argument("mc_dir",
@@ -202,7 +219,6 @@ def main(argv=None):
     if args.command == "merge":
         return _merge(args)
 
-    _unported_options(args)
     from .config import HydroSim
     from .driver import default_synthetic_factory, merge_rank_outputs, run_elastic, run_rank
     from .io.hydro import HydroPaths
@@ -214,17 +230,26 @@ def main(argv=None):
     nr, ntheta = args.synthetic_grid
     factory = (default_synthetic_factory(cfg, par, nr=nr, ntheta=ntheta)
                if cfg.sim_switch is HydroSim.SYNTHETIC else None)
-    kw = dict(last_frame_override=args.last_frame, chunk_rounds=args.chunk_rounds,
-              synthetic_frame_factory=factory, ph_weight=args.ph_weight,
-              device=args.device, output=args.output)
-    if args.elastic:
-        works = run_elastic(cfg, par, paths, rank=args.rank, num_ranks=args.num_ranks, **kw)
-        work = works[-1] if works else None
-    else:
-        work = run_rank(cfg, par, paths, rank=args.rank, num_ranks=args.num_ranks, **kw)
-    if args.merge and work is not None:
-        counts = merge_rank_outputs(work, par, last_frame=args.last_frame)
-        print(json.dumps({str(k): v for k, v in counts.items()}))
+    from .parallel.mesh import shutdown_distributed
+
+    joined = False
+    try:
+        mesh, joined = _mesh(args)
+        kw = dict(last_frame_override=args.last_frame, chunk_rounds=args.chunk_rounds,
+                  synthetic_frame_factory=factory, ph_weight=args.ph_weight,
+                  device=args.device, output=args.output, mesh=mesh)
+        if args.elastic:
+            works = run_elastic(cfg, par, paths, rank=args.rank, num_ranks=args.num_ranks,
+                                **kw)
+            work = works[-1] if works else None
+        else:
+            work = run_rank(cfg, par, paths, rank=args.rank, num_ranks=args.num_ranks, **kw)
+        if args.merge and work is not None and (mesh is None or mesh.process_index == 0):
+            counts = merge_rank_outputs(work, par, last_frame=args.last_frame)
+            print(json.dumps({str(k): v for k, v in counts.items()}))
+    finally:
+        if joined:
+            shutdown_distributed()
     return 0
 
 

@@ -50,6 +50,8 @@ from .io.photons_h5 import FORMATS, merge_all, proc_path, write_frame
 from .ops import cyclosynch
 from .ops import fused_round as fr
 from .ops.prng import Key
+from .parallel import mesh as pmesh
+from .parallel.mesh import Sharded
 
 log = logging.getLogger("mcrat_tpu_torch")
 
@@ -450,6 +452,7 @@ def run_rank(
     device=None,
     output: str = "h5",
     rounds_fn=fr.fused_rounds,
+    mesh: Optional[pmesh.Mesh] = None,
 ) -> WorkAssignment:
     """Run one rank's simulation: inject -> transport -> checkpoint -> dump
     (``mcrat_tpu.driver.run_rank`` on one device).
@@ -483,10 +486,29 @@ def run_rank(
     rebinning and absorption, the main thread's wait for the previous
     frame's writes and this frame's fetch, checkpoint and dump seconds
     (:meth:`_PersistWriter.submit_frame`).
+
+    With ``mesh`` (:func:`~mcrat_tpu_torch.parallel.mesh.make_mesh`) the
+    photon axis is sharded over the mesh (``device`` is then the mesh's
+    first device) and each frame window runs as one
+    ``parallel.mesh.sharded_transport_frame``: an injection's photons go in
+    equal runs to the shards' slabs (``parallel.mesh.spread_photons``, its
+    capacity padded to equal slabs), each process keeps its own shards'
+    slabs, growth (``grow_photons`` on every slab, the frame time
+    alongside), appends, rebins and absorption act on them,
+    the statistics come from one collective, and the persistence subset is
+    gathered on the main thread in the same order on every process.  Every
+    process of the mesh runs this same call; only process 0 touches
+    files (the stale sweep, the log, checkpoints and dumps), and a resume
+    loads the checkpoint on every process, restores the population's
+    injection capacity and continues the same random streams.  A mesh
+    run's results depend on the mesh size; a resumed mesh run equals the
+    uninterrupted one where the live photons fill the first lanes (runs
+    without cyclo-synchrotron).
     """
     _check_output(output)
     _check_reader(cfg)
-    device = resolve_device(device)
+    device = mesh.devices[0] if mesh is not None else resolve_device(device)
+    files_here = mesh is None or mesh.process_index == 0
     base_dir = base_dir or os.path.join(paths.filepath, paths.mc_path)
     cleaner = True  # explicit-work callers (elastic) adopt old ranks alone
     dir_ranks = None
@@ -498,65 +520,117 @@ def run_rank(
         cleaner = rank == work.angle_id * procs_per_angle
         dir_ranks = [r for r in range(num_ranks)
                      if min(r // procs_per_angle, par.n_theta_bins - 1) == work.angle_id]
-    os.makedirs(work.mc_dir, exist_ok=True)
-    if par.restart == "i":
-        n_rm = clean_initialize_dir(work.mc_dir, rank, cleaner=cleaner,
-                                    wait_s=init_clean_wait_s, expected_ranks=dir_ranks)
-        if n_rm:
-            log.info("rank %d: initialize mode removed %d stale outputs", rank, n_rm)
-    # per-rank log file (reference: mc_output_<rank>.log, Src/mcrat.c:567-575)
-    log_handler = logging.FileHandler(os.path.join(work.mc_dir, f"mc_output_{rank}.log"))
-    log_handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
-    log.addHandler(log_handler)
-    if log.level > logging.INFO or log.level == logging.NOTSET:
-        log_handler.setLevel(logging.INFO)
-        log.setLevel(logging.INFO)
+    log_handler = None
+    if files_here:
+        os.makedirs(work.mc_dir, exist_ok=True)
+        if par.restart == "i":
+            n_rm = clean_initialize_dir(work.mc_dir, rank, cleaner=cleaner,
+                                        wait_s=init_clean_wait_s, expected_ranks=dir_ranks)
+            if n_rm:
+                log.info("rank %d: initialize mode removed %d stale outputs", rank, n_rm)
+        # per-rank log file (reference: mc_output_<rank>.log, Src/mcrat.c:567-575)
+        log_handler = logging.FileHandler(os.path.join(work.mc_dir, f"mc_output_{rank}.log"))
+        log_handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+        log.addHandler(log_handler)
+        if log.level > logging.INFO or log.level == logging.NOTSET:
+            log_handler.setLevel(logging.INFO)
+            log.setLevel(logging.INFO)
     persist = _PersistWriter()
     try:
         return _run_rank_inner(
             cfg, par, paths, rank, base_dir, synthetic_frame_factory, generator, key,
             chunk_rounds, last_frame_override, ph_weight, work, persist, device, output,
-            rounds_fn,
+            rounds_fn, mesh, files_here,
         )
     finally:
         persist.close()
-        log.removeHandler(log_handler)
-        log_handler.close()
+        if log_handler is not None:
+            log.removeHandler(log_handler)
+            log_handler.close()
+
+
+def _population(photons) -> transport.Photons:
+    """A population's first slab on a mesh, the population itself else
+    (for its dtype and device)."""
+    return photons.parts[0] if isinstance(photons, Sharded) else photons
+
+
+def _frame_stats(photons, n_abs=None) -> list:
+    """``transport.frame_stats`` as a list, in one host fetch (on a mesh,
+    one collective), with the absorbed count (one tensor, or one a shard
+    on a mesh) appended when given."""
+    if isinstance(photons, Sharded):
+        return pmesh.frame_stats(photons, () if n_abs is None else n_abs)
+    stats = transport.frame_stats(photons)
+    if n_abs is not None:
+        stats = torch.cat([stats, n_abs.to(stats.dtype)[None]])
+    return stats.tolist()
+
+
+def _absorb(photons, nu_c: torch.Tensor):
+    """``cyclosynch.apply_absorption``: (photons, absorbed count, or one a
+    shard on a mesh)."""
+    if not isinstance(photons, Sharded):
+        return cyclosynch.apply_absorption(photons, nu_c)[:2]
+    out = [cyclosynch.apply_absorption(p, nu_c.to(p.device)) for p in photons.parts]
+    return Sharded(photons.mesh, [o[0] for o in out]), [o[1] for o in out]
+
+
+def _rebin(cfg: Config, photons, max_photons: int, n_cs: int, t_rem=None):
+    """``cyclosynch.rebin_population``; on a mesh the scattered-CS subset is
+    gathered over every process (a collective) and merged alike on each."""
+    if not isinstance(photons, Sharded):
+        return cyclosynch.rebin_population(cfg, photons, max_photons, n_cs=n_cs, t_rem=t_rem)
+    if n_cs <= max_photons:
+        return photons, None, None
+    nulled, sub, sub_t = pmesh.extract_cs_subset(photons, transport._pow2(n_cs), t_rem)
+    return (nulled, *cyclosynch.rebin_subset(cfg, sub, sub_t, max_photons, t_rem is not None))
 
 
 def _append_arrays(photons, meta, arrays: dict, n_alive: int, t_rem=None, new_t=None,
                    place=None):
     """Append host photon arrays to the population on its device
-    (``mcrat_tpu.driver._append_arrays`` on one device): grown to the next
+    (``mcrat_tpu.driver._append_arrays``): grown to the next
     power of two when its free slots (capacity - ``n_alive``, the live count
     the driver tracks from its statistics fetches) cannot take them, the new
     photons packed with the population's weight norm, ``place`` (or None)
     applied to them, then written into the first free slots.  ``t_rem`` and
-    ``new_t`` carry the frame time of a mid-frame append alongside.
+    ``new_t`` carry the frame time of a mid-frame append alongside.  On a
+    mesh every process packs the same new photons, each slab growing by its
+    share and each shard taking the run of them its free slots hold.
     Returns (photons, number appended, t_rem)."""
     if not arrays:
         return photons, 0, t_rem
     n_new = len(arrays["weight"])
+    sharded = isinstance(photons, Sharded)
     if photons.capacity - n_alive < n_new:
-        photons, t_rem = transport.grow_photons(
-            photons, int(2 ** math.ceil(math.log2(photons.capacity + n_new))), t_rem)
+        new_cap = int(2 ** math.ceil(math.log2(photons.capacity + n_new)))
+        if sharded:
+            photons, t_rem = pmesh.grow(
+                photons, pmesh.pad_capacity(new_cap, photons.mesh.n_shards), t_rem)
+        else:
+            photons, t_rem = transport.grow_photons(photons, new_cap, t_rem)
+    first = _population(photons)
     n_pad = transport._pow2(n_new)
-    new, _ = transport.photons_from_arrays(arrays, capacity=n_pad, dtype=photons.p.dtype,
-                                           device=photons.device, weight_norm=meta.weight_norm)
+    new, _ = transport.photons_from_arrays(arrays, capacity=n_pad, dtype=first.p.dtype,
+                                           device=first.device, weight_norm=meta.weight_norm)
     if place is not None:
         new = place(new)
     nt = None
     if t_rem is not None:
-        nt = torch.zeros(n_pad, dtype=t_rem.dtype)
-        nt[:n_new] = torch.as_tensor(new_t, dtype=t_rem.dtype)
-        nt = nt.to(t_rem.device)
-    photons, t_rem = transport.append_photons_device(photons, new, t_rem, nt)
+        nt = torch.zeros(n_pad, dtype=first.p.dtype)
+        nt[:n_new] = torch.as_tensor(new_t, dtype=first.p.dtype)
+        nt = nt.to(first.device)
+    if sharded:
+        photons, t_rem = pmesh.append_photons(photons, new, t_rem, nt)
+    else:
+        photons, t_rem = transport.append_photons_device(photons, new, t_rem, nt)
     return photons, n_new, t_rem
 
 
 def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, generator, key,
                     chunk_rounds, last_frame_override, ph_weight, work, persist, device,
-                    output, rounds_fn) -> WorkAssignment:
+                    output, rounds_fn, mesh, files_here) -> WorkAssignment:
     generator = generator if generator is not None else torch.Generator().manual_seed(1234 + rank)
     rng = np.random.default_rng(9876 + rank)
     dtype = torch_dtype(cfg)
@@ -592,6 +666,10 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
                 rng.bit_generator.state = json.loads(state.rng_state)
             if key is not None and state.key_state is not None:
                 key = Key.from_state(state.key_state, device=device)
+            if mesh is not None and photons is not None:
+                # the injection's capacity and runs: every photon is back in its lane
+                photons = pmesh.spread_photons(photons, mesh, int(2 ** math.ceil(
+                    math.log2(max(state.n_injected, 1) * cfg.capacity_factor))))
             log.info("rank %d: continuing from frame %d scatt %d", rank, state.frame,
                      state.scatt_frame)
 
@@ -620,6 +698,8 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
             cap = int(2 ** math.ceil(math.log2(len(arrays["weight"]) * cfg.capacity_factor)))
             photons, meta = transport.photons_from_arrays(arrays, capacity=cap, dtype=dtype,
                                                           device=device)
+            if mesh is not None:
+                photons = pmesh.spread_photons(photons, mesh)
             scatt_start = frame
             log.info("rank %d: injected %d photons at frame %d (w=%.3e)", rank,
                      meta.n_injected, frame, meta.weight_norm)
@@ -636,7 +716,7 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
             # one statistics fetch a frame: the decimation bounds, the pool
             # and live counts come with the previous frame's statistics
             if pending_stats is None:
-                pending_stats = transport.frame_stats(photons).tolist()
+                pending_stats = _frame_stats(photons)
             r_min, r_max, t_min, t_max = pending_stats[4:8]
             n_pool, n_alive = int(pending_stats[8]), int(pending_stats[9])
             # cyclo-synchrotron after an injection's first frame, the first
@@ -667,8 +747,7 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
 
             def rebin(ph, n_cs, t_rem=None):
                 t = time.perf_counter()
-                out = cyclosynch.rebin_population(cfg, ph, par.max_photons, n_cs=n_cs,
-                                                  t_rem=t_rem)
+                out = _rebin(cfg, ph, par.max_photons, n_cs, t_rem)
                 cs["rebin_s"] += time.perf_counter() - t
                 return out
 
@@ -689,11 +768,15 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
                 sub = None
                 if key is not None:
                     key, sub = key.split()
-                res = transport.transport_frame(
-                    cfg, photons, frame_dev, index, dt_frame, generator, stokes_on=cfg.stokes,
-                    chunk_rounds=chunk_rounds, fused=fused, rounds_fn=rounds_fn,
-                    xsec_table=xsec_table, t_rem0=t_rem0,
-                    cs_limit=par.max_photons if cs_active else None, key=sub)
+                kw = dict(stokes_on=cfg.stokes, chunk_rounds=chunk_rounds, fused=fused,
+                          rounds_fn=rounds_fn, xsec_table=xsec_table, t_rem0=t_rem0,
+                          cs_limit=par.max_photons if cs_active else None, key=sub)
+                if mesh is None:
+                    res = transport.transport_frame(cfg, photons, frame_dev, index, dt_frame,
+                                                    generator, **kw)
+                else:
+                    res = pmesh.sharded_transport_frame(cfg, mesh, photons, frame_dev, index,
+                                                        dt_frame, generator, **kw)
                 photons = res.photons
                 n_scatt += res.n_scatt
                 n_rounds += res.n_rounds
@@ -719,7 +802,7 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
                 # (Src/mcrat.c:791-808), the end-of-frame rebin, absorption
                 # (Src/mcrat.c:819-830, 853-878); one statistics fetch gives
                 # the pool deficit, the live count and the rebin trigger
-                mid = transport.frame_stats(photons).tolist()
+                mid = _frame_stats(photons)
                 n_alive, n_cs = int(mid[9]), int(mid[10])
                 cs["n_promoted"] = n_pool - int(mid[8])
                 if cs["n_promoted"] > 0:
@@ -737,15 +820,12 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
                     cs["rebin_s"] += time.perf_counter() - t
                 t = time.perf_counter()
                 nu_c = cyclosynch.cell_nu_c(cfg, host, device, dtype)
-                photons, n_abs, _ = cyclosynch.apply_absorption(photons, nu_c)
+                photons, n_abs = _absorb(photons, nu_c)
                 cs["absorption_s"] = time.perf_counter() - t
             # end-of-frame fetch: statistics for the log, the next frame's
             # decimation bounds, the live count that sizes the dump (and
             # the absorbed count)
-            stats = transport.frame_stats(photons)
-            if n_abs is not None:
-                stats = torch.cat([stats, n_abs.to(stats.dtype)[None]])
-            pending_stats = stats.tolist()
+            pending_stats = _frame_stats(photons, n_abs)
             if n_abs is not None:
                 cs["n_absorbed"] = int(pending_stats.pop())
             transport_s = (time.perf_counter() - t0 - cs["emission_s"] - cs["rebin_s"]
@@ -761,21 +841,30 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
                 weight_norm=meta.weight_norm, n_injected=meta.n_injected,
                 **stream_states(generator, rng, key),
             )
-            sub_ph = transport.compact_live(
-                photons, min(transport._pad64k(n_live), photons.capacity))
             timing = dict(rank=rank, frame=frame, scatt_frame=scatt_frame, n_photons=n_live,
                           n_scatt=n_scatt, n_rounds=n_rounds, n_scatt_max=mx,
                           n_scatt_mean=mean, r_mean=r_avg, transport_s=transport_s, **cs)
-            persist.submit_frame(cfg, work.mc_dir, rank, st, sub_ph, meta, scatt_frame, proc,
-                                 timing)
+            n_out = min(transport._pad64k(n_live), photons.capacity)
+            if mesh is None:
+                sub_ph = transport.compact_live(photons, n_out)
+            else:
+                # the persistence gather is a collective: on the main thread,
+                # in the same order on every process; only process 0 writes
+                t = time.perf_counter()
+                sub_ph = pmesh.gather_live(photons, n_out)
+                timing["gather_s"] = time.perf_counter() - t
+            if files_here:
+                persist.submit_frame(cfg, work.mc_dir, rank, st, sub_ph, meta, scatt_frame,
+                                     proc, timing)
 
         # injection-complete marker (reference: mcrat_io.c:966-1001)
         state = None
-        persist.wait()
-        next_inj = sched.next(frame)
-        save_checkpoint(work.mc_dir, rank, CheckpointState(
-            frame=next_inj, frm2=work.frm2, scatt_frame=next_inj, time_now=time_now,
-            restart="i", **stream_states(generator, rng, key)))
+        if files_here:
+            persist.wait()
+            next_inj = sched.next(frame)
+            save_checkpoint(work.mc_dir, rank, CheckpointState(
+                frame=next_inj, frm2=work.frm2, scatt_frame=next_inj, time_now=time_now,
+                restart="i", **stream_states(generator, rng, key)))
 
     return work
 

@@ -534,6 +534,15 @@ def rebin_population(cfg: Config, photons: tr.Photons, max_photons: int, n_cs: i
     if n_cs <= max_photons:
         return photons, None, None
     nulled, sub, sub_t = tr.extract_cs_subset(photons, tr._pow2(n_cs), t_rem=t_rem)
+    return (nulled, *rebin_subset(cfg, sub, sub_t, max_photons, t_rem is not None))
+
+
+def rebin_subset(cfg: Config, sub: tr.Photons, sub_t: torch.Tensor, max_photons: int,
+                 with_t: bool):
+    """The host half of :func:`rebin_population`: the gathered scattered-CS
+    photons ``sub`` (and their frame time ``sub_t``) fetched in one stacked
+    tensor and merged by :func:`rebin_comptonized` in float64.  Returns
+    (merged arrays, merged t_rem or None)."""
     host = torch.cat([sub.p, sub.comv_p, sub.pos, sub.s, sub.weight[:, None],
                       sub.num_scatt[:, None], sub_t[:, None]], dim=1).cpu().numpy()
     host = host.astype(np.float64)
@@ -541,10 +550,10 @@ def rebin_population(cfg: Config, photons: tr.Photons, max_photons: int, n_cs: i
     h = host[live]
     subd = dict(p=h[:, 0:4], comv_p=h[:, 4:8], pos=h[:, 8:11], s=h[:, 11:15], weight=h[:, 15],
                 num_scatt=h[:, 16])
-    extra = {"t_rem": h[:, 17]} if t_rem is not None else None
+    extra = {"t_rem": h[:, 17]} if with_t else None
     merged = rebin_comptonized(cfg, subd, max_photons, extra=extra)
     merged_t = merged.pop("t_rem", None)
-    return nulled, merged, merged_t
+    return merged, merged_t
 
 
 # ---------------------------------------------------------------------------

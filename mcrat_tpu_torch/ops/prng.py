@@ -155,6 +155,35 @@ class Key:
         # contracts floats * span + lo into one fused multiply-add
         return torch.clamp(_fma(floats, float(span), float(lo)), min=float(lo))
 
+    def randint(self, shape: Sequence[int], minval: int, maxval: int,
+                bits: int = 64) -> torch.Tensor:
+        """``jax.random.randint(key, shape, minval, maxval)`` (int64 under
+        ``jax_enable_x64``, JAX's default int then; ``bits=32`` for its
+        int32 draw): two ``bits``-bit draws from ``split()``'s two keys,
+        ``(hi mod span) * (2**bits mod span) + lo mod span``, mod span, as
+        JAX's ``_randint`` computes it in unsigned ``bits``-bit arithmetic
+        (a span of 1 where ``maxval <= minval``).  Spans up to 2**31 - 1."""
+        span = int(maxval) - int(minval) if maxval > minval else 1
+        if span >= 1 << 31:
+            raise ValueError(f"randint spans up to 2**31 - 1, not {span}")
+        k_hi, k_lo = self.split()
+
+        def mod_span(key):
+            b1, b2 = key.bits(shape)
+            if bits == 32:
+                return (b1 ^ b2) % span
+            # the 64-bit word (b1 << 32) | b2, reduced without leaving int64
+            return ((b1 % span) * ((1 << 32) % span) + b2) % span
+
+        half = (1 << (bits // 2)) % span
+        multiplier = ((half * half) & ((1 << bits) - 1)) % span  # wraps as uint32 does
+        offset = mod_span(k_hi) * multiplier
+        if bits == 32:
+            offset = (offset & MASK32) + mod_span(k_lo) & MASK32
+        else:
+            offset = offset + mod_span(k_lo)
+        return int(minval) + offset % span
+
 
 _SPLITTER = 134217729.0  # 2**27 + 1, Dekker's split of a float64
 

@@ -65,11 +65,6 @@ NUM_DENS_COEFF_WIEN = 8.44
 # smallest working buffer compaction shrinks to (capacities stay powers of 2)
 MIN_COMPACT_CAPACITY = 1024
 
-# where each configuration outside the port will be ported
-ROADMAP_ITEMS = dict(
-    mesh="ROADMAP.md queue 1 item 13 (multiple devices)",
-)
-
 
 @dataclasses.dataclass
 class Photons:
@@ -360,6 +355,7 @@ class ChunkResult(NamedTuple):
     n_rounds: int
     all_done: torch.Tensor  # bool scalar: no active photons remain
     n_active: torch.Tensor  # int64 scalar: alive photons with time left
+    n_cs: Optional[torch.Tensor] = None  # live scattered-CS count (a mesh step's)
 
 
 def _count_cs(photons: Photons) -> torch.Tensor:
@@ -378,8 +374,8 @@ FRAMES = {
 
 
 def unsupported_reason(cfg: Config, frame: HydroFrame, index) -> Optional[str]:
-    """Why the slice cannot run this configuration (the ROADMAP item that
-    will port it), or None when it can."""
+    """Why no engine can run this frame and index (not a frame or index the
+    JAX package defines), or None when they can."""
     if not isinstance(index, (RectilinearIndex, BinnedIndex)):
         return f"{type(index).__name__}: not a spatial index (RectilinearIndex, BinnedIndex)"
     if cfg.geometry not in FRAMES[cfg.dims]:
@@ -913,17 +909,10 @@ def _scatter_photons(dst: Photons, slots: torch.Tensor, src: Photons) -> Photons
     return dst
 
 
-def _compact_step(result_ph: Photons, slots: torch.Tensor, work_ph: Photons,
-                  t_rem: torch.Tensor, new_cap: int):
-    """One compaction: write the working set back into ``result_ph`` (in
-    place) and gather its active lanes into a ``new_cap`` buffer.
-
-    Returns ``(result_ph, sub_ph, sub_t, sub_slots)``; ``sub_slots`` maps
-    working lanes to original slots, with pads set to ``result_ph.capacity``
-    so the final write-back drops them.  Pad lanes are dead (weight 0,
-    ptype NULL) so they cannot transport twice.
-    """
-    _scatter_photons(result_ph, slots, work_ph)
+def _gather_active(work_ph: Photons, t_rem: torch.Tensor, slots: torch.Tensor, new_cap: int,
+                   sentinel: int):
+    """The active lanes of a working set gathered into a ``new_cap`` buffer
+    (pad lanes dead): (photons, t_rem, slots; pads carry ``sentinel``)."""
     idx = torch.nonzero(work_ph.alive & (t_rem > 0)).flatten()[:new_cap]
     n = idx.numel()
     pad = torch.zeros(new_cap - n, dtype=idx.dtype, device=idx.device)
@@ -933,8 +922,36 @@ def _compact_step(result_ph: Photons, slots: torch.Tensor, work_ph: Photons,
     sub.weight = torch.where(valid, sub.weight, 0.0)
     sub.ptype = torch.where(valid, sub.ptype, int(PhotonType.NULL)).to(torch.int32)
     sub_t = torch.where(valid, t_rem[safe], 0.0)
-    sub_slots = torch.where(valid, slots[safe], result_ph.capacity).to(slots.dtype)
-    return result_ph, sub, sub_t, sub_slots
+    sub_slots = torch.where(valid, slots[safe], sentinel).to(slots.dtype)
+    return sub, sub_t, sub_slots
+
+
+def _compact_step(result_ph: Photons, slots: Optional[torch.Tensor], work_ph: Photons,
+                  t_rem: torch.Tensor, new_cap: int):
+    """One compaction: write the working set back into ``result_ph`` (in
+    place) and gather its active lanes into a ``new_cap`` buffer.
+
+    ``slots`` maps working lanes to population slots (None: the working set
+    is the population).  Returns ``(result_ph, sub_ph, sub_t, sub_slots)``;
+    ``sub_slots`` maps working lanes to original slots, with pads set to
+    ``result_ph.capacity`` so the final write-back drops them.  Pad lanes
+    are dead (weight 0, ptype NULL) so they cannot transport twice.
+    """
+    if slots is None:
+        slots = torch.arange(work_ph.capacity, dtype=torch.int64, device=work_ph.device)
+    _scatter_photons(result_ph, slots, work_ph)
+    return (result_ph, *_gather_active(work_ph, t_rem, slots, new_cap, result_ph.capacity))
+
+
+def _write_back(result_ph: Photons, slots: torch.Tensor, work_ph: Photons,
+                work_t: torch.Tensor):
+    """The frame's last write-back of a compacted working set: (population,
+    frame time left per slot, 0 where no working lane maps)."""
+    result_ph = _scatter_photons(result_ph, slots, work_ph)
+    result_t = torch.zeros(result_ph.capacity, dtype=work_t.dtype, device=work_t.device)
+    keep = slots < result_ph.capacity
+    result_t[slots[keep]] = work_t[keep]
+    return result_ph, result_t
 
 
 def transport_frame(
@@ -953,6 +970,10 @@ def transport_frame(
     t_rem0: Optional[torch.Tensor] = None,
     cs_limit: Optional[int] = None,
     key: Optional[Key] = None,
+    step_fn=None,
+    compact_fn=None,
+    finish_fn=None,
+    min_compact_capacity: Optional[int] = None,
 ) -> FrameResult:
     """Advance the whole population through one hydro-frame time window.
 
@@ -969,10 +990,10 @@ def transport_frame(
     The engines run in bounded-round chunks when ``chunk_rounds`` > 0, with
     one batched host fetch per chunk.  Once fewer than a quarter of the lanes
     are still active, the active photons move into a power-of-two buffer
-    (>= MIN_COMPACT_CAPACITY) and transport continues there; results are
-    written back into the population buffers IN PLACE (the caller's
-    ``photons`` tensors are never written: the first chunk's output is the
-    population buffer).
+    (>= ``min_compact_capacity``, default MIN_COMPACT_CAPACITY) and
+    transport continues there; results are written back into the population
+    buffers IN PLACE (the caller's ``photons`` tensors are never written:
+    the first chunk's output is the population buffer).
 
     The kernel draws each chunk's base seed from ``generator``; the XLA
     engine splits ``key`` (a threefry :class:`~mcrat_tpu_torch.ops.prng.Key`)
@@ -989,23 +1010,50 @@ def transport_frame(
     chunk's fetch, passes it at a chunk boundary before the frame is done,
     the frame exits with ``rebin_pending`` and the whole population's
     ``t_rem``, so the driver can rebin and re-enter.
+
+    The JAX package's hooks (``parallel.mesh`` runs this one chunk loop
+    with every step sharded over a device mesh):
+    ``step_fn(work_ph, work_t, sub) -> ChunkResult`` replaces the engine
+    (``sub`` the chunk's split of ``key``, None without a key; ``fused`` then
+    names the engine it runs, and ``t_rem0`` is required); ``compact_fn``
+    replaces :func:`_compact_step` (same arguments and returns; it may round
+    ``new_cap`` up); ``finish_fn`` replaces :func:`_write_back`.  A step's
+    ``n_rounds`` may be a tensor and its ``n_cs`` a count; both then ride in
+    the chunk's one fetch.
     """
-    check_xsec_table(cfg, xsec_table)
-    reason = unsupported_reason(cfg, frame, index)
-    if reason is not None:
-        raise NotImplementedError(reason)
-    if fused is None:
-        fused = fused_transport_available(cfg, photons, frame, index, xsec_table)
-    if fused and photons.p.dtype != torch.float32:
-        raise ValueError("fused=True: " + _NO_FLOAT64_KERNEL)
-    if generator is None and (fused or key is None):
-        raise ValueError("transport_frame needs generator= (the kernel's seeds) or, on the "
-                         "XLA engine, key=")
-    if fused:
-        setup = select_variant(cfg, frame, index, xsec_table)
-    elif key is None:
-        key = Key.from_seed(draw_seed(generator) & MASK32, device=photons.device)
-    t_rem = frame_time(photons, dt_max) if t_rem0 is None else t_rem0
+    if min_compact_capacity is None:
+        min_compact_capacity = MIN_COMPACT_CAPACITY
+    if step_fn is None:
+        check_xsec_table(cfg, xsec_table)
+        reason = unsupported_reason(cfg, frame, index)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        if fused is None:
+            fused = fused_transport_available(cfg, photons, frame, index, xsec_table)
+        if fused and photons.p.dtype != torch.float32:
+            raise ValueError("fused=True: " + _NO_FLOAT64_KERNEL)
+        if generator is None and (fused or key is None):
+            raise ValueError("transport_frame needs generator= (the kernel's seeds) or, on the "
+                             "XLA engine, key=")
+        if fused:
+            setup = select_variant(cfg, frame, index, xsec_table)
+            key = None
+        elif key is None:
+            key = Key.from_seed(draw_seed(generator) & MASK32, device=photons.device)
+
+        def step_fn(work_ph, work_t, sub):
+            if fused:
+                return transport_rounds_fused(
+                    cfg, work_ph, frame, index, work_t, base_seed=draw_seed(generator),
+                    setup=setup, stokes_on=stokes_on, max_rounds=chunk_rounds, s_rows=s_rows,
+                    rounds_fn=rounds_fn)
+            return transport_rounds(cfg, work_ph, frame, index, work_t, sub,
+                                    xsec_table=xsec_table, stokes_on=stokes_on,
+                                    max_rounds=chunk_rounds)
+
+        t_rem = frame_time(photons, dt_max) if t_rem0 is None else t_rem0
+    else:
+        t_rem = t_rem0
     n_scatt_total = 0
     rounds_total = 0
     work_ph, work_t = photons, t_rem
@@ -1015,46 +1063,40 @@ def transport_frame(
     n_cs = None
 
     while True:
-        if fused:
-            res = transport_rounds_fused(
-                cfg, work_ph, frame, index, work_t, base_seed=draw_seed(generator), setup=setup,
-                stokes_on=stokes_on, max_rounds=chunk_rounds, s_rows=s_rows, rounds_fn=rounds_fn,
-            )
-        else:
+        sub = None
+        if key is not None:
             key, sub = key.split()
-            res = transport_rounds(cfg, work_ph, frame, index, work_t, sub, xsec_table=xsec_table,
-                                   stokes_on=stokes_on, max_rounds=chunk_rounds)
+        res = step_fn(work_ph, work_t, sub)
         work_ph, work_t = res.photons, res.t_rem
         # ONE batched host fetch per chunk
         fetch = [res.n_scatt.to(torch.int64), res.all_done.to(torch.int64),
                  res.n_active.to(torch.int64)]
+        rounds_on_device = isinstance(res.n_rounds, torch.Tensor)
+        if rounds_on_device:
+            fetch.append(res.n_rounds.to(torch.int64))
         if cs_limit is not None:
-            fetch.append(_count_cs(work_ph))
-        n_scatt, all_done, n_active, *cs = torch.stack(fetch).tolist()
+            fetch.append(_count_cs(work_ph) if res.n_cs is None else res.n_cs.to(torch.int64))
+        n_scatt, all_done, n_active, *rest = torch.stack(fetch).tolist()
         n_scatt_total += n_scatt
-        rounds_total += res.n_rounds
+        rounds_total += rest.pop(0) if rounds_on_device else res.n_rounds
         if cs_limit is not None:
-            n_cs = cs[0]
+            n_cs = rest[0]
             if n_cs > cs_limit and not all_done:
                 rebin_pending = True
                 break
         if all_done or chunk_rounds == 0 or rounds_total >= cfg.max_rounds_per_frame:
             break
-        if work_ph.capacity > MIN_COMPACT_CAPACITY and n_active < work_ph.capacity // 4:
+        if work_ph.capacity > min_compact_capacity and n_active < work_ph.capacity // 4:
             if slots is None:
                 result_ph = work_ph
-                slots = torch.arange(work_ph.capacity, dtype=torch.int64, device=work_ph.device)
-            new_cap = max(MIN_COMPACT_CAPACITY, 1 << int(np.ceil(np.log2(max(n_active, 1)))))
-            result_ph, work_ph, work_t, slots = _compact_step(
+            new_cap = max(min_compact_capacity, 1 << int(np.ceil(np.log2(max(n_active, 1)))))
+            result_ph, work_ph, work_t, slots = (compact_fn or _compact_step)(
                 result_ph, slots, work_ph, work_t, new_cap)
 
     if slots is None:
         result_ph, result_t = work_ph, work_t
     else:
-        result_ph = _scatter_photons(result_ph, slots, work_ph)
-        result_t = torch.zeros(result_ph.capacity, dtype=work_t.dtype, device=work_t.device)
-        keep = slots < result_ph.capacity
-        result_t[slots[keep]] = work_t[keep]
+        result_ph, result_t = (finish_fn or _write_back)(result_ph, slots, work_ph, work_t)
     return FrameResult(photons=result_ph, n_scatt=n_scatt_total, n_rounds=rounds_total,
                        t_rem=result_t, rebin_pending=rebin_pending, n_cs=n_cs,
                        engine="kernel" if fused else "xla")

@@ -2,13 +2,14 @@
 --merge`` of tests/test_driver.py's mc.par (the full 384 x 64 default grid,
 one angle bin, frames 10-12), then ``merge`` of the angle directory and of
 the MC base directory (ALL_DATA), and ``status``; ``run --cyclosynchrotron``;
-the several-device options the port does not run yet raise
-NotImplementedError naming their ROADMAP item, and ``--dtype float64`` runs."""
+``--mesh 1 --coordinator`` (a process group of one) and ``--dtype
+float64`` run, and ``--mesh 2`` with one CPU shard a process raises."""
 import contextlib
 import dataclasses
 import io
 import json
 import os
+import socket
 
 import pytest
 import torch
@@ -76,19 +77,33 @@ def test_run_cyclosynchrotron(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [(["--mesh", "2"], "item 13"),
-                                        (["--coordinator", "localhost:1"], "item 13"),
+                                        (["--mesh", "1", "--coordinator", "PORT", "--num-hosts",
+                                          "1", "--host-id", "0"], "item 13"),
                                         (["--dtype", "float64"], "item 5")])
 def test_unported_options_raise(tmp_path, flags, item):
-    """The several-device options (item 13) raise before anything is
-    written; ``--dtype float64`` (item 5, ported: the XLA engine) runs."""
+    """The several-device options (item 13, ported: the mesh) run: ``--mesh
+    1 --coordinator`` joins a process group of one (gloo on the CPU) and
+    writes the run; ``--mesh 2`` on the CPU, one shard a process, raises
+    ValueError before anything is written; ``--dtype float64`` (item 5,
+    ported: the XLA engine) runs."""
     mcpar = str(tmp_path / "mc.par")
     tmcpar.write_mcpar(convert.mcpar_from_reference(_par()), mcpar)
+    flags = [f"127.0.0.1:{_free_port()}" if f == "PORT" else f for f in flags]
     argv = ["run", "--mcpar", mcpar, "--filepath", str(tmp_path) + "/", *RUN, "--device", "cpu",
             "--output", "npz", *flags]
-    if item == "item 5":
+    if flags != ["--mesh", "2"]:
         assert cli.main(argv + ["--last-frame", "10"]) == 0
         assert sorted(os.listdir(tmp_path)) == ["MC", "mc.par"]
+        assert not torch.distributed.is_initialized()
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="one shard"):
         cli.main(argv)
     assert os.listdir(tmp_path) == ["mc.par"]
+
+
+def _free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port

@@ -12,7 +12,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "mcrat_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_frames.py",
-    ROOT / "tools" / "kernel_ab.py", ROOT / "tools" / "sass_counts.py"]
+    ROOT / "tools" / "kernel_ab.py", ROOT / "tools" / "sass_counts.py",
+    ROOT / "tools" / "mesh_seeds.py"]
 ALLOWED_FROM_JAX_PACKAGE = set()
 
 
@@ -44,7 +45,7 @@ def test_package_sources_found():
             "chip_smoke.py", "profile_torch_frames.py", "kernel_ab.py", "sass_counts.py",
             "driver.py", "cli.py", "checkpoint.py", "photons_h5.py", "mcpar.py",
             "analysis.py", "prng.py", "stokes.py", "compton.py", "electrons.py", "pluto.py",
-            "pluto_chombo.py", "riken.py"} <= names
+            "pluto_chombo.py", "riken.py", "mesh.py", "dryrun.py", "serial.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -60,7 +61,8 @@ def test_entry_points_import_without_jax_or_h5py():
     and analysis and loads neither jax nor h5py nor the JAX package."""
     code = ("import sys; import mcrat_tpu_torch, mcrat_tpu_torch.cli, mcrat_tpu_torch.driver, "
             "mcrat_tpu_torch.io.checkpoint, mcrat_tpu_torch.io.photons_h5, "
-            "mcrat_tpu_torch.analysis; "
+            "mcrat_tpu_torch.analysis, mcrat_tpu_torch.parallel, "
+            "mcrat_tpu_torch.parallel.dryrun, mcrat_tpu_torch.serial; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'h5py', 'mcrat_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -80,6 +82,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from mcrat_tpu_torch.io.hydro import build_index
     from mcrat_tpu_torch.models.analytic import make_grid_2d
     from mcrat_tpu_torch.ops import hot_xsec
+    from mcrat_tpu_torch.parallel import make_mesh
+    from mcrat_tpu_torch.parallel.dryrun import dryrun_multichip
 
     assert DEFAULT_DEVICE == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -100,6 +104,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: convert.index_from_edges(*edges),
         lambda: convert.binned_index_from_numpy(np.zeros(4), np.zeros(1), np.full(1, 4),
                                                 np.zeros(3), np.ones(3), (1, 1, 1), 4),
+        lambda: make_mesh(),
+        lambda: dryrun_multichip(2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
