@@ -19,7 +19,10 @@ process taking its own cards (one CPU shard a process with ``--device
 cpu``); ``--coordinator host:port``, ``--num-hosts`` and ``--host-id`` join
 the processes (``torch.distributed``: NCCL between cards, gloo between CPU
 processes), every process running the same command and process 0 alone
-writing files.
+writing files.  ``--trace-json PATH`` turns tracing on for the run
+(``telemetry.enable(records=True)``: every span's record is kept, ~40-150 a
+transport frame) and writes the spans and counters of its frames to PATH at
+the end, turning tracing off again.
 """
 from __future__ import annotations
 
@@ -197,6 +200,9 @@ def main(argv=None):
                           "(torch.distributed, process 0 listens)")
     run.add_argument("--num-hosts", type=int, default=1, help="processes of the mesh")
     run.add_argument("--host-id", type=int, default=None, help="this process's index")
+    run.add_argument("--trace-json", default=None, metavar="PATH",
+                     help="trace the run's frames (telemetry spans and counters) and write "
+                          "their records and summary to PATH as JSON at the end")
 
     mrg = sub.add_parser("merge", help="merge per-process outputs (the MERGE tool)")
     mrg.add_argument("mc_dir",
@@ -219,6 +225,7 @@ def main(argv=None):
     if args.command == "merge":
         return _merge(args)
 
+    from . import telemetry
     from .config import HydroSim
     from .driver import default_synthetic_factory, merge_rank_outputs, run_elastic, run_rank
     from .io.hydro import HydroPaths
@@ -233,6 +240,8 @@ def main(argv=None):
     from .parallel.mesh import shutdown_distributed
 
     joined = False
+    if args.trace_json:
+        telemetry.enable(records=True)
     try:
         mesh, joined = _mesh(args)
         kw = dict(last_frame_override=args.last_frame, chunk_rounds=args.chunk_rounds,
@@ -250,7 +259,18 @@ def main(argv=None):
     finally:
         if joined:
             shutdown_distributed()
+        if args.trace_json:
+            telemetry.enable(False)
+            _write_trace(args.trace_json)
     return 0
+
+
+def _write_trace(path: str) -> None:
+    """The run's telemetry records and summary as one JSON file."""
+    from . import telemetry
+
+    with open(path, "w") as f:
+        json.dump(dict(summary=telemetry.summary(), spans=telemetry.snapshot()), f)
 
 
 if __name__ == "__main__":

@@ -40,7 +40,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from . import transport
+from . import telemetry, transport
 from .config import Config, Dims, HydroSim, McPar
 from .device import resolve_device
 from .io.checkpoint import CheckpointState, load_checkpoint, save_checkpoint, scan_checkpoints
@@ -342,14 +342,14 @@ class _PersistWriter:
     buffers that the next frame writes in place) into pinned buffers before
     it queues the job, so the transfer overlaps too; the worker waits on
     the copy's CUDA event.  A write error surfaces on the next
-    :meth:`submit_frame` or :meth:`close`.  ``wait_s`` sums the time the
-    main thread spent waiting for the worker.
+    :meth:`submit_frame` or :meth:`close`.  Its steps are the spans
+    ``driver.persist.wait`` (the main thread), ``driver.persist.fetch``,
+    ``.checkpoint`` and ``.dump`` (the worker).
     """
 
     def __init__(self):
         self._ex = concurrent.futures.ThreadPoolExecutor(1)
         self._fut = None
-        self.wait_s = 0.0
 
     def submit_frame(self, cfg: Config, mc_dir: str, rank: int, st: CheckpointState,
                      sub_ph: transport.Photons, meta, scatt_frame: int, proc: str,
@@ -358,9 +358,8 @@ class _PersistWriter:
         wait for the previous frame's writes) here and, once this frame's are
         done, the worker's ``fetch_s`` (the copy's event), ``checkpoint_s``
         and ``dump_s``; the worker then logs it (:func:`_log_frame`)."""
-        wait0 = self.wait_s
-        self.wait()  # at most one frame in flight; surfaces earlier errors
-        timing["persist_wait_s"] = self.wait_s - wait0
+        timing["persist_wait_s"] = 0.0
+        self.wait(timing)  # at most one frame in flight; surfaces earlier errors
         fields = sub_ph.fields()
         # the Stokes planes with Stokes off and the cell cache (the first
         # lookup after a resume re-resolves it) stay on the device; comv_p
@@ -371,28 +370,25 @@ class _PersistWriter:
         host, ready = _fetch_async(fields)
 
         def job():
-            t0 = time.perf_counter()
-            if ready is not None:
-                ready.synchronize()
-            arrays = {k: v.numpy() for k, v in host.items()}
-            t1 = time.perf_counter()
-            save_checkpoint(mc_dir, rank, st, arrays)
-            t2 = time.perf_counter()
-            write_frame(cfg, proc, scatt_frame, arrays, meta)
-            timing.update(fetch_s=t1 - t0, checkpoint_s=t2 - t1,
-                          dump_s=time.perf_counter() - t2)
+            with telemetry.timed("driver.persist.fetch", timing, "fetch_s"):
+                if ready is not None:
+                    ready.synchronize()
+                arrays = {k: v.numpy() for k, v in host.items()}
+            with telemetry.timed("driver.persist.checkpoint", timing, "checkpoint_s"):
+                save_checkpoint(mc_dir, rank, st, arrays)
+            with telemetry.timed("driver.persist.dump", timing, "dump_s"):
+                write_frame(cfg, proc, scatt_frame, arrays, meta)
             _log_frame(timing)
 
         self._fut = self._ex.submit(job)
 
-    def wait(self) -> None:
+    def wait(self, timing: Optional[dict] = None) -> None:
+        """Wait for the frame in flight; its seconds go to
+        ``timing["persist_wait_s"]`` where ``timing`` is given."""
         if self._fut is not None:
             fut, self._fut = self._fut, None
-            t0 = time.perf_counter()
-            try:
+            with telemetry.timed("driver.persist.wait", timing, "persist_wait_s"):
                 fut.result()
-            finally:
-                self.wait_s += time.perf_counter() - t0
 
     def close(self) -> None:
         try:
@@ -711,151 +707,143 @@ def _run_rank_inner(cfg, par, paths, rank, base_dir, synthetic_frame_factory, ge
             dt_frame = sched.end_time(scatt_frame, inj_frame=frame) - time_now
             if dt_frame <= 0:
                 continue
-            t0 = time.perf_counter()
-            cs = dict.fromkeys(CS_TIMING, 0)
-            # one statistics fetch a frame: the decimation bounds, the pool
-            # and live counts come with the previous frame's statistics
-            if pending_stats is None:
-                pending_stats = _frame_stats(photons)
-            r_min, r_max, t_min, t_max = pending_stats[4:8]
-            n_pool, n_alive = int(pending_stats[8]), int(pending_stats[9])
-            # cyclo-synchrotron after an injection's first frame, the first
-            # frame after a resume included (F11 of the JAX package, which
-            # tests scatt_frame != scatt_start, is not copied): the pool
-            # lives in the injection shell advected to this frame, at the
-            # schedule's fps (F3, par.fps there, is not copied either)
-            cs_active = cfg.cyclosynchrotron and scatt_frame != frame
-            shell_fps = sched.step(scatt_frame)[1]
-            if cs_active:
-                lo, hi = cyclosynch.cs_r_limits(scatt_frame, frame, shell_fps, work.r_inj)
-                r_min, r_max = min(r_min, lo), max(r_max, hi)
-            host, edges = load_frame(scatt_frame, False, (r_min, r_max, t_min, t_max))
-            frame_dev = host.to_device(device, dtype=dtype)
-            index = build_index(cfg, host, edges, device=device)
+            with telemetry.frame("driver.frame", device) as frame_span:
+                cs = dict.fromkeys(CS_TIMING, 0)
+                # one statistics fetch a frame: the decimation bounds, the pool
+                # and live counts come with the previous frame's statistics
+                if pending_stats is None:
+                    pending_stats = _frame_stats(photons)
+                r_min, r_max, t_min, t_max = pending_stats[4:8]
+                n_pool, n_alive = int(pending_stats[8]), int(pending_stats[9])
+                # cyclo-synchrotron after an injection's first frame, the first
+                # frame after a resume included (F11 of the JAX package, which
+                # tests scatt_frame != scatt_start, is not copied): the pool
+                # lives in the injection shell advected to this frame, at the
+                # schedule's fps (F3, par.fps there, is not copied either)
+                cs_active = cfg.cyclosynchrotron and scatt_frame != frame
+                shell_fps = sched.step(scatt_frame)[1]
+                if cs_active:
+                    lo, hi = cyclosynch.cs_r_limits(scatt_frame, frame, shell_fps, work.r_inj)
+                    r_min, r_max = min(r_min, lo), max(r_max, hi)
+                host, edges = load_frame(scatt_frame, False, (r_min, r_max, t_min, t_max))
+                frame_dev = host.to_device(device, dtype=dtype)
+                index = build_index(cfg, host, edges, device=device)
 
-            def place(new):
-                # fault F10 (not copied): merged photons get their cell and
-                # comoving momentum before transport or absorption reads them
-                return cyclosynch.place_in_cells(cfg, frame_dev, index, new)
+                def place(new):
+                    # fault F10 (not copied): merged photons get their cell and
+                    # comoving momentum before transport or absorption reads them
+                    return cyclosynch.place_in_cells(cfg, frame_dev, index, new)
 
-            def emit(fn, *args):
-                t = time.perf_counter()
-                arrays = fn(cfg, host, scatt_frame, frame, shell_fps, work.r_inj,
-                            meta.weight_norm, *args, work.theta_min, work.theta_max, rng)
-                cs["emission_s"] += time.perf_counter() - t
-                return arrays
+                def emit(fn, *args):
+                    with telemetry.timed("driver.emission", cs, "emission_s"):
+                        return fn(cfg, host, scatt_frame, frame, shell_fps, work.r_inj,
+                                  meta.weight_norm, *args, work.theta_min, work.theta_max, rng)
 
-            def rebin(ph, n_cs, t_rem=None):
-                t = time.perf_counter()
-                out = _rebin(cfg, ph, par.max_photons, n_cs, t_rem)
-                cs["rebin_s"] += time.perf_counter() - t
-                return out
+                def rebin(ph, n_cs, t_rem=None):
+                    with telemetry.timed("driver.rebin", cs, "rebin_s"):
+                        return _rebin(cfg, ph, par.max_photons, n_cs, t_rem)
 
-            if cs_active:
-                arrays, _ = emit(cyclosynch.emit_pool_photons, par.max_photons)
-                photons, cs["n_pool_emitted"], _ = _append_arrays(photons, meta, arrays,
-                                                                  n_alive)
-                n_alive += cs["n_pool_emitted"]
-                n_pool += cs["n_pool_emitted"]
+                if cs_active:
+                    arrays, _ = emit(cyclosynch.emit_pool_photons, par.max_photons)
+                    photons, cs["n_pool_emitted"], _ = _append_arrays(photons, meta, arrays,
+                                                                      n_alive)
+                    n_alive += cs["n_pool_emitted"]
+                    n_pool += cs["n_pool_emitted"]
 
-            # transport, the mid-frame rebin armed when cyclo-synchrotron is
-            # live: the scattered pool photons merge at a chunk boundary once
-            # they pass max_photons, and the frame goes on from each photon's
-            # frame time (reference: Src/mcrat.c:819-830)
-            n_scatt = n_rounds = 0
-            t_rem0 = None
-            while True:
-                sub = None
-                if key is not None:
-                    key, sub = key.split()
-                kw = dict(stokes_on=cfg.stokes, chunk_rounds=chunk_rounds, fused=fused,
-                          rounds_fn=rounds_fn, xsec_table=xsec_table, t_rem0=t_rem0,
-                          cs_limit=par.max_photons if cs_active else None, key=sub)
-                if mesh is None:
-                    res = transport.transport_frame(cfg, photons, frame_dev, index, dt_frame,
-                                                    generator, **kw)
-                else:
-                    res = pmesh.sharded_transport_frame(cfg, mesh, photons, frame_dev, index,
-                                                        dt_frame, generator, **kw)
-                photons = res.photons
-                n_scatt += res.n_scatt
-                n_rounds += res.n_rounds
-                if not res.rebin_pending:
-                    break
-                photons, merged, merged_t = rebin(photons, res.n_cs, res.t_rem)
-                t_rem0 = res.t_rem
-                n_alive -= res.n_cs
-                merged["weight"] = merged["weight"] * meta.weight_norm
-                t = time.perf_counter()
-                photons, n_mrg, t_rem0 = _append_arrays(photons, meta, merged, n_alive, t_rem0,
-                                                        merged_t, place)
-                cs["rebin_s"] += time.perf_counter() - t
-                n_alive += n_mrg
-                cs["n_merged_mid"] += n_mrg
-                log.info("rank %d frame %d scatt %d: mid-frame rebin %d -> %d CS photons", rank,
-                         frame, scatt_frame, res.n_cs, n_mrg)
-            time_now += dt_frame
-
-            n_abs = None
-            if cs_active:
-                # one-for-one replenishment of the promoted pool photons
-                # (Src/mcrat.c:791-808), the end-of-frame rebin, absorption
-                # (Src/mcrat.c:819-830, 853-878); one statistics fetch gives
-                # the pool deficit, the live count and the rebin trigger
-                mid = _frame_stats(photons)
-                n_alive, n_cs = int(mid[9]), int(mid[10])
-                cs["n_promoted"] = n_pool - int(mid[8])
-                if cs["n_promoted"] > 0:
-                    arrays = emit(cyclosynch.emit_pool_replacements, cs["n_promoted"])
-                    photons, cs["n_pool_replaced"], _ = _append_arrays(photons, meta, arrays,
-                                                                       n_alive)
-                    n_alive += cs["n_pool_replaced"]
-                photons, merged, _ = rebin(photons, n_cs)
-                if merged is not None:
-                    n_alive -= n_cs
+                # transport, the mid-frame rebin armed when cyclo-synchrotron is
+                # live: the scattered pool photons merge at a chunk boundary once
+                # they pass max_photons, and the frame goes on from each photon's
+                # frame time (reference: Src/mcrat.c:819-830)
+                n_scatt = n_rounds = 0
+                t_rem0 = None
+                while True:
+                    sub = None
+                    if key is not None:
+                        key, sub = key.split()
+                    kw = dict(stokes_on=cfg.stokes, chunk_rounds=chunk_rounds, fused=fused,
+                              rounds_fn=rounds_fn, xsec_table=xsec_table, t_rem0=t_rem0,
+                              cs_limit=par.max_photons if cs_active else None, key=sub)
+                    if mesh is None:
+                        res = transport.transport_frame(cfg, photons, frame_dev, index, dt_frame,
+                                                        generator, **kw)
+                    else:
+                        res = pmesh.sharded_transport_frame(cfg, mesh, photons, frame_dev, index,
+                                                            dt_frame, generator, **kw)
+                    photons = res.photons
+                    n_scatt += res.n_scatt
+                    n_rounds += res.n_rounds
+                    if not res.rebin_pending:
+                        break
+                    photons, merged, merged_t = rebin(photons, res.n_cs, res.t_rem)
+                    t_rem0 = res.t_rem
+                    n_alive -= res.n_cs
                     merged["weight"] = merged["weight"] * meta.weight_norm
-                    t = time.perf_counter()
-                    photons, cs["n_merged_end"], _ = _append_arrays(photons, meta, merged,
-                                                                    n_alive, place=place)
-                    cs["rebin_s"] += time.perf_counter() - t
-                t = time.perf_counter()
-                nu_c = cyclosynch.cell_nu_c(cfg, host, device, dtype)
-                photons, n_abs = _absorb(photons, nu_c)
-                cs["absorption_s"] = time.perf_counter() - t
-            # end-of-frame fetch: statistics for the log, the next frame's
-            # decimation bounds, the live count that sizes the dump (and
-            # the absorbed count)
-            pending_stats = _frame_stats(photons, n_abs)
-            if n_abs is not None:
-                cs["n_absorbed"] = int(pending_stats.pop())
-            transport_s = (time.perf_counter() - t0 - cs["emission_s"] - cs["rebin_s"]
-                           - cs["absorption_s"])
-            mx, _, mean, r_avg = pending_stats[0:4]
-            n_live = int(pending_stats[9])
+                    with telemetry.timed("driver.rebin", cs, "rebin_s"):
+                        photons, n_mrg, t_rem0 = _append_arrays(photons, meta, merged, n_alive,
+                                                                t_rem0, merged_t, place)
+                    n_alive += n_mrg
+                    cs["n_merged_mid"] += n_mrg
+                    log.info("rank %d frame %d scatt %d: mid-frame rebin %d -> %d CS photons", rank,
+                             frame, scatt_frame, res.n_cs, n_mrg)
+                time_now += dt_frame
 
-            # the next scatt frame per the schedule (reference: the RIKEN +10
-            # resume case in readCheckpoint, mcrat_io.c:1044-1053)
-            st = CheckpointState(
-                frame=frame, frm2=work.frm2, scatt_frame=sched.next(scatt_frame),
-                time_now=time_now, restart="c",
-                weight_norm=meta.weight_norm, n_injected=meta.n_injected,
-                **stream_states(generator, rng, key),
-            )
-            timing = dict(rank=rank, frame=frame, scatt_frame=scatt_frame, n_photons=n_live,
-                          n_scatt=n_scatt, n_rounds=n_rounds, n_scatt_max=mx,
-                          n_scatt_mean=mean, r_mean=r_avg, transport_s=transport_s, **cs)
-            n_out = min(transport._pad64k(n_live), photons.capacity)
-            if mesh is None:
-                sub_ph = transport.compact_live(photons, n_out)
-            else:
-                # the persistence gather is a collective: on the main thread,
-                # in the same order on every process; only process 0 writes
-                t = time.perf_counter()
-                sub_ph = pmesh.gather_live(photons, n_out)
-                timing["gather_s"] = time.perf_counter() - t
-            if files_here:
-                persist.submit_frame(cfg, work.mc_dir, rank, st, sub_ph, meta, scatt_frame,
-                                     proc, timing)
+                n_abs = None
+                if cs_active:
+                    # one-for-one replenishment of the promoted pool photons
+                    # (Src/mcrat.c:791-808), the end-of-frame rebin, absorption
+                    # (Src/mcrat.c:819-830, 853-878); one statistics fetch gives
+                    # the pool deficit, the live count and the rebin trigger
+                    mid = _frame_stats(photons)
+                    n_alive, n_cs = int(mid[9]), int(mid[10])
+                    cs["n_promoted"] = n_pool - int(mid[8])
+                    if cs["n_promoted"] > 0:
+                        arrays = emit(cyclosynch.emit_pool_replacements, cs["n_promoted"])
+                        photons, cs["n_pool_replaced"], _ = _append_arrays(photons, meta, arrays,
+                                                                           n_alive)
+                        n_alive += cs["n_pool_replaced"]
+                    photons, merged, _ = rebin(photons, n_cs)
+                    if merged is not None:
+                        n_alive -= n_cs
+                        merged["weight"] = merged["weight"] * meta.weight_norm
+                        with telemetry.timed("driver.rebin", cs, "rebin_s"):
+                            photons, cs["n_merged_end"], _ = _append_arrays(
+                                photons, meta, merged, n_alive, place=place)
+                    with telemetry.timed("driver.absorption", cs, "absorption_s"):
+                        nu_c = cyclosynch.cell_nu_c(cfg, host, device, dtype)
+                        photons, n_abs = _absorb(photons, nu_c)
+                # end-of-frame fetch: statistics for the log, the next frame's
+                # decimation bounds, the live count that sizes the dump (and
+                # the absorbed count)
+                pending_stats = _frame_stats(photons, n_abs)
+                if n_abs is not None:
+                    cs["n_absorbed"] = int(pending_stats.pop())
+                transport_s = (frame_span.elapsed_s() - cs["emission_s"] - cs["rebin_s"]
+                               - cs["absorption_s"])
+                mx, _, mean, r_avg = pending_stats[0:4]
+                n_live = int(pending_stats[9])
+
+                # the next scatt frame per the schedule (reference: the RIKEN +10
+                # resume case in readCheckpoint, mcrat_io.c:1044-1053)
+                st = CheckpointState(
+                    frame=frame, frm2=work.frm2, scatt_frame=sched.next(scatt_frame),
+                    time_now=time_now, restart="c",
+                    weight_norm=meta.weight_norm, n_injected=meta.n_injected,
+                    **stream_states(generator, rng, key),
+                )
+                timing = dict(rank=rank, frame=frame, scatt_frame=scatt_frame, n_photons=n_live,
+                              n_scatt=n_scatt, n_rounds=n_rounds, n_scatt_max=mx,
+                              n_scatt_mean=mean, r_mean=r_avg, transport_s=transport_s, **cs)
+                n_out = min(transport._pad64k(n_live), photons.capacity)
+                if mesh is None:
+                    sub_ph = transport.compact_live(photons, n_out)
+                else:
+                    # the persistence gather is a collective: on the main thread,
+                    # in the same order on every process; only process 0 writes
+                    with telemetry.timed("driver.gather", timing, "gather_s"):
+                        sub_ph = pmesh.gather_live(photons, n_out)
+                if files_here:
+                    persist.submit_frame(cfg, work.mc_dir, rank, st, sub_ph, meta, scatt_frame,
+                                         proc, timing)
 
         # injection-complete marker (reference: mcrat_io.c:966-1001)
         state = None

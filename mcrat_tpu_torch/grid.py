@@ -27,6 +27,7 @@ from .config import Config, Dims, Geometry
 from .constants import A_RAD, M_P
 
 from . import geometry as geo
+from . import telemetry
 from .device import resolve_device
 
 # Row layout of HydroFrame.packed (mcrat_tpu.grid.PCOL).  In 3-D, v0..v2 hold
@@ -446,6 +447,9 @@ class BinnedIndex:
         :data:`SEARCH_BUDGET_BYTES`."""
         chunk = max(1, SEARCH_BUDGET_BYTES // (_SEARCH_BYTES_PER_CANDIDATE * self.max_slab))
         n = r0.shape[0]
+        telemetry.count("grid.search_chunks", max(1, -(-n // chunk)))
+        telemetry.count("grid.search_candidates",
+                        n * (27 if self.dims[2] > 1 else 9) * self.max_slab)
         if n <= chunk:
             return self._find_chunk(r0, r1, r2, frame)
         return torch.cat([self._find_chunk(r0[a:a + chunk], r1[a:a + chunk], r2[a:a + chunk],
@@ -554,14 +558,17 @@ def find_cell_rows(cfg: Config, index, frame: HydroFrame, pos, cached, all_lanes
         frame.dr0[safe], frame.dr1[safe], frame.dr2[safe], use_r2=cfg.dims is Dims.THREE)
 
     def search(*r):
-        found = index.find(*r, frame) if isinstance(index, BinnedIndex) else index.find(*r)
+        telemetry.count("grid.search_lanes", r[0].numel())
+        with telemetry.span("grid.search"):
+            found = index.find(*r, frame) if isinstance(index, BinnedIndex) else index.find(*r)
         return found.to(torch.int32)
 
     if all_lanes:
         cell = torch.where(in_cached, cached.to(torch.int32), search(r0, r1, r2))
     else:
         cell = torch.where(in_cached, cached.to(torch.int32), -1)
-        miss = torch.nonzero(~in_cached & inside).flatten()
+        with telemetry.span("grid.miss_count"):
+            miss = torch.nonzero(~in_cached & inside).flatten()
         if miss.numel():
             cell[miss] = search(r0[miss], r1[miss], r2[miss])
     cell = torch.where(inside, cell, -1)

@@ -46,6 +46,7 @@ from .config import (
 from .constants import C_LIGHT, H_OVER_MEC2, K_B, M_P, ME_C2, PL_CONST, THOM_X_SECT
 
 from . import geometry as geo
+from . import telemetry
 from .device import resolve_device
 from .grid import (PCOL, BinnedIndex, HydroFrame, HydroFrameHost, RectilinearIndex,
                    find_cell_direct, find_cell_rows, fluid_beta_from_rows,
@@ -801,19 +802,20 @@ def transport_rounds_fused(
     round_cap = max_rounds if max_rounds > 0 else cfg.max_rounds_per_frame
     lanes = fr.LANES
     block_lanes = s_rows * lanes
-    state, alive, pool = lane_planes(photons, t_rem, s_rows)
-    n_pad = state.shape[1]
-    r_pad = n_pad // lanes
-    n_blocks = r_pad // s_rows
-    promoted_any = torch.zeros(n_pad, dtype=torch.bool, device=dev)
-    row_iota = torch.arange(r_pad, device=dev)
-    block_iota = torch.arange(n_blocks, device=dev)
-    orig = row_iota.clone()  # row -> original row, across partitions
-    ns0 = state[fr.SP_NS].to(torch.int64).sum()
-    grid = grid_scalars(frame, index)
-    n_cell = frame.num_elements
-    cell = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
-    cell[:cap] = photons.cell
+    with telemetry.span("transport.lane_planes"):
+        state, alive, pool = lane_planes(photons, t_rem, s_rows)
+        n_pad = state.shape[1]
+        r_pad = n_pad // lanes
+        n_blocks = r_pad // s_rows
+        promoted_any = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+        row_iota = torch.arange(r_pad, device=dev)
+        block_iota = torch.arange(n_blocks, device=dev)
+        orig = row_iota.clone()  # row -> original row, across partitions
+        ns0 = state[fr.SP_NS].to(torch.int64).sum()
+        grid = grid_scalars(frame, index)
+        n_cell = frame.num_elements
+        cell = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+        cell[:cap] = photons.cell
 
     def rows(x):
         return x.view(-1, r_pad, lanes)
@@ -826,68 +828,83 @@ def transport_rounds_fused(
         act_row = (alive & (state[fr.SP_TREM] > 0)).view(r_pad, lanes).any(dim=1)
         # the loop test is one host sync per kernel call (eager PyTorch has
         # no device-side while loop); it also feeds the partition
-        n_act = int(act_row.sum())
+        with telemetry.span("transport.loop_test"):
+            n_act = int(act_row.sum())
         if n_act == 0:
             break
         if carried or n_act * 8 < n_last * 7:
             # stable active-first permutation of 128-lane rows; the direct
             # branch redoes it only when the active-row count dropped by
             # >= 1/8 and skips idle blocks in place through block_act between
-            perm = torch.argsort((~act_row).to(torch.int8), stable=True)
-            state = rows(state)[:, perm].reshape(fr.N_STATE, n_pad)
-            alive, pool, promoted_any = (
-                rows(x)[0, perm].reshape(-1) for x in (alive, pool, promoted_any))
-            cell = rows(cell)[0, perm].reshape(-1)
-            orig = orig[perm]
-            act_row = row_iota < n_act
+            with telemetry.span("transport.partition"):
+                perm = torch.argsort((~act_row).to(torch.int8), stable=True)
+                state = rows(state)[:, perm].reshape(fr.N_STATE, n_pad)
+                alive, pool, promoted_any = (
+                    rows(x)[0, perm].reshape(-1) for x in (alive, pool, promoted_any))
+                cell = rows(cell)[0, perm].reshape(-1)
+                orig = orig[perm]
+                act_row = row_iota < n_act
             n_last = n_act
+            telemetry.count("transport.partitions")
         if carried:
             block_act = (block_iota < -(-n_act // s_rows)).to(torch.int32)
-            cell, in_grid = find_cell_rows(cfg, index, frame, pos(state), cell)
+            with telemetry.span("grid.lookup"):
+                cell, in_grid = find_cell_rows(cfg, index, frame, pos(state), cell)
         else:
             block_act = act_row.view(n_blocks, s_rows).any(dim=1).to(torch.int32)
-            cell, in_grid = find_cell_direct(cfg, index, frame, pos(state))
+            with telemetry.span("grid.lookup"):
+                cell, in_grid = find_cell_direct(cfg, index, frame, pos(state))
         safe = torch.clamp(cell, 0, n_cell - 1).to(torch.int32)
-        aux = (None if kflags.aux is None else
-               aux_planes(cfg, kflags.aux, frame, safe, state[fr.SP_C0]).contiguous())
-        out = rounds_fn(
-            state, safe, lane_flags(alive, pool, in_grid), table, block_act,
-            fr.rng_seed_i32(base_seed + rounds * 7919), grid,
-            stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=block_lanes,
-            variant=variant, cheb_base=kflags.cheb_base, nt=kflags.nt, aux=aux,
-        )
+        aux = None
+        if kflags.aux is not None:
+            with telemetry.span("transport.aux_planes"):
+                aux = aux_planes(cfg, kflags.aux, frame, safe, state[fr.SP_C0]).contiguous()
+        with telemetry.span("fused_round.call"):
+            out = rounds_fn(
+                state, safe, lane_flags(alive, pool, in_grid), table, block_act,
+                fr.rng_seed_i32(base_seed + rounds * 7919), grid,
+                stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=block_lanes,
+                variant=variant, cheb_base=kflags.cheb_base, nt=kflags.nt, aux=aux,
+            )
+        telemetry.count("transport.kernel_calls")
+        telemetry.count("transport.rows_active", n_act)
+        telemetry.count("transport.rows_total", r_pad)
         promoted = (out & fr.OUT_PROMOTED) != 0
         pool = pool & ~promoted
         promoted_any = promoted_any | promoted
         rounds += inner_rounds
 
     # undo the active-first partitions
-    inv = torch.empty_like(orig)
-    inv[orig] = row_iota
-    state = rows(state)[:, inv].reshape(fr.N_STATE, n_pad)
-    promoted_any = rows(promoted_any)[0, inv].reshape(-1)
+    with telemetry.span("transport.unplane"):
+        inv = torch.empty_like(orig)
+        inv[orig] = row_iota
+        state = rows(state)[:, inv].reshape(fr.N_STATE, n_pad)
+        promoted_any = rows(promoted_any)[0, inv].reshape(-1)
     # final cell sync for the photons that moved in the last kernel call
-    if carried:
-        cell, _ = find_cell_rows(cfg, index, frame, pos(state), rows(cell)[0, inv].reshape(-1))
-    else:
-        cell, _ = find_cell_direct(cfg, index, frame, pos(state))
+    with telemetry.span("grid.lookup"):
+        if carried:
+            cell, _ = find_cell_rows(cfg, index, frame, pos(state),
+                                     rows(cell)[0, inv].reshape(-1))
+        else:
+            cell, _ = find_cell_direct(cfg, index, frame, pos(state))
 
     def unplane(lo, hi):
         return state[lo:hi, :cap].T.contiguous()
 
-    ptype = torch.where(
-        promoted_any[:cap] & (photons.ptype == int(PhotonType.CS_POOL)),
-        int(PhotonType.COMPTONIZED), photons.ptype).to(torch.int32)
-    stokes = torch.cat([torch.ones((cap, 1), dtype=torch.float32, device=dev),
-                        unplane(fr.SP_Q, fr.SP_V + 1)], dim=1)
-    ph = photons.replace(
-        p=unplane(fr.SP_P0, fr.SP_P3 + 1), pos=unplane(fr.SP_X, fr.SP_Z + 1), s=stokes,
-        num_scatt=state[fr.SP_NS, :cap].clone(),
-        comv_p=unplane(fr.SP_C0, fr.SP_C3 + 1), cell=cell[:cap].contiguous(), ptype=ptype,
-    )
-    t_out = state[fr.SP_TREM, :cap].clone()
-    n_scatt = state[fr.SP_NS].to(torch.int64).sum() - ns0
-    active = ph.alive & (t_out > 0)
+    with telemetry.span("transport.unplane"):
+        ptype = torch.where(
+            promoted_any[:cap] & (photons.ptype == int(PhotonType.CS_POOL)),
+            int(PhotonType.COMPTONIZED), photons.ptype).to(torch.int32)
+        stokes = torch.cat([torch.ones((cap, 1), dtype=torch.float32, device=dev),
+                            unplane(fr.SP_Q, fr.SP_V + 1)], dim=1)
+        ph = photons.replace(
+            p=unplane(fr.SP_P0, fr.SP_P3 + 1), pos=unplane(fr.SP_X, fr.SP_Z + 1), s=stokes,
+            num_scatt=state[fr.SP_NS, :cap].clone(),
+            comv_p=unplane(fr.SP_C0, fr.SP_C3 + 1), cell=cell[:cap].contiguous(), ptype=ptype,
+        )
+        t_out = state[fr.SP_TREM, :cap].clone()
+        n_scatt = state[fr.SP_NS].to(torch.int64).sum() - ns0
+        active = ph.alive & (t_out > 0)
     return ChunkResult(
         photons=ph, t_rem=t_out, n_scatt=n_scatt, n_rounds=rounds,
         all_done=~active.any(), n_active=active.sum(),
@@ -952,6 +969,12 @@ def _write_back(result_ph: Photons, slots: torch.Tensor, work_ph: Photons,
     keep = slots < result_ph.capacity
     result_t[slots[keep]] = work_t[keep]
     return result_ph, result_t
+
+
+def _population_device(photons) -> torch.device:
+    """The device of a population, or of a sharded population's first slab."""
+    parts = getattr(photons, "parts", None)
+    return parts[0].device if parts else photons.device
 
 
 def transport_frame(
@@ -1020,86 +1043,96 @@ def transport_frame(
     ``new_cap`` up); ``finish_fn`` replaces :func:`_write_back`.  A step's
     ``n_rounds`` may be a tensor and its ``n_cs`` a count; both then ride in
     the chunk's one fetch.
+
+    The frame is a :func:`telemetry.frame` scope: with tracing on, its steps
+    (the hooks' calls among them) are spans and its counts counters.
     """
     if min_compact_capacity is None:
         min_compact_capacity = MIN_COMPACT_CAPACITY
-    if step_fn is None:
-        check_xsec_table(cfg, xsec_table)
-        reason = unsupported_reason(cfg, frame, index)
-        if reason is not None:
-            raise NotImplementedError(reason)
-        if fused is None:
-            fused = fused_transport_available(cfg, photons, frame, index, xsec_table)
-        if fused and photons.p.dtype != torch.float32:
-            raise ValueError("fused=True: " + _NO_FLOAT64_KERNEL)
-        if generator is None and (fused or key is None):
-            raise ValueError("transport_frame needs generator= (the kernel's seeds) or, on the "
-                             "XLA engine, key=")
-        if fused:
-            setup = select_variant(cfg, frame, index, xsec_table)
-            key = None
-        elif key is None:
-            key = Key.from_seed(draw_seed(generator) & MASK32, device=photons.device)
-
-        def step_fn(work_ph, work_t, sub):
+    with telemetry.frame(telemetry.FRAME, _population_device(photons)):
+        if step_fn is None:
+            check_xsec_table(cfg, xsec_table)
+            reason = unsupported_reason(cfg, frame, index)
+            if reason is not None:
+                raise NotImplementedError(reason)
+            if fused is None:
+                fused = fused_transport_available(cfg, photons, frame, index, xsec_table)
+            if fused and photons.p.dtype != torch.float32:
+                raise ValueError("fused=True: " + _NO_FLOAT64_KERNEL)
+            if generator is None and (fused or key is None):
+                raise ValueError("transport_frame needs generator= (the kernel's seeds) or, on the "
+                                 "XLA engine, key=")
             if fused:
-                return transport_rounds_fused(
-                    cfg, work_ph, frame, index, work_t, base_seed=draw_seed(generator),
-                    setup=setup, stokes_on=stokes_on, max_rounds=chunk_rounds, s_rows=s_rows,
-                    rounds_fn=rounds_fn)
-            return transport_rounds(cfg, work_ph, frame, index, work_t, sub,
-                                    xsec_table=xsec_table, stokes_on=stokes_on,
-                                    max_rounds=chunk_rounds)
+                with telemetry.span("transport.select_variant"):
+                    setup = select_variant(cfg, frame, index, xsec_table)
+                key = None
+            elif key is None:
+                key = Key.from_seed(draw_seed(generator) & MASK32, device=photons.device)
 
-        t_rem = frame_time(photons, dt_max) if t_rem0 is None else t_rem0
-    else:
-        t_rem = t_rem0
-    n_scatt_total = 0
-    rounds_total = 0
-    work_ph, work_t = photons, t_rem
-    slots = None  # None => the working set is the full population
-    result_ph = photons
-    rebin_pending = False
-    n_cs = None
+            def step_fn(work_ph, work_t, sub):
+                if fused:
+                    return transport_rounds_fused(
+                        cfg, work_ph, frame, index, work_t, base_seed=draw_seed(generator),
+                        setup=setup, stokes_on=stokes_on, max_rounds=chunk_rounds, s_rows=s_rows,
+                        rounds_fn=rounds_fn)
+                return transport_rounds(cfg, work_ph, frame, index, work_t, sub,
+                                        xsec_table=xsec_table, stokes_on=stokes_on,
+                                        max_rounds=chunk_rounds)
 
-    while True:
-        sub = None
-        if key is not None:
-            key, sub = key.split()
-        res = step_fn(work_ph, work_t, sub)
-        work_ph, work_t = res.photons, res.t_rem
-        # ONE batched host fetch per chunk
-        fetch = [res.n_scatt.to(torch.int64), res.all_done.to(torch.int64),
-                 res.n_active.to(torch.int64)]
-        rounds_on_device = isinstance(res.n_rounds, torch.Tensor)
-        if rounds_on_device:
-            fetch.append(res.n_rounds.to(torch.int64))
-        if cs_limit is not None:
-            fetch.append(_count_cs(work_ph) if res.n_cs is None else res.n_cs.to(torch.int64))
-        n_scatt, all_done, n_active, *rest = torch.stack(fetch).tolist()
-        n_scatt_total += n_scatt
-        rounds_total += rest.pop(0) if rounds_on_device else res.n_rounds
-        if cs_limit is not None:
-            n_cs = rest[0]
-            if n_cs > cs_limit and not all_done:
-                rebin_pending = True
+            t_rem = frame_time(photons, dt_max) if t_rem0 is None else t_rem0
+        else:
+            t_rem = t_rem0
+        n_scatt_total = 0
+        rounds_total = 0
+        work_ph, work_t = photons, t_rem
+        slots = None  # None => the working set is the full population
+        result_ph = photons
+        rebin_pending = False
+        n_cs = None
+
+        while True:
+            sub = None
+            if key is not None:
+                key, sub = key.split()
+            with telemetry.span("transport.step"):
+                res = step_fn(work_ph, work_t, sub)
+            work_ph, work_t = res.photons, res.t_rem
+            # ONE batched host fetch per chunk
+            fetch = [res.n_scatt.to(torch.int64), res.all_done.to(torch.int64),
+                     res.n_active.to(torch.int64)]
+            rounds_on_device = isinstance(res.n_rounds, torch.Tensor)
+            if rounds_on_device:
+                fetch.append(res.n_rounds.to(torch.int64))
+            if cs_limit is not None:
+                fetch.append(_count_cs(work_ph) if res.n_cs is None else res.n_cs.to(torch.int64))
+            with telemetry.span("transport.fetch"):
+                n_scatt, all_done, n_active, *rest = torch.stack(fetch).tolist()
+            n_scatt_total += n_scatt
+            rounds_total += rest.pop(0) if rounds_on_device else res.n_rounds
+            if cs_limit is not None:
+                n_cs = rest[0]
+                if n_cs > cs_limit and not all_done:
+                    rebin_pending = True
+                    break
+            if all_done or chunk_rounds == 0 or rounds_total >= cfg.max_rounds_per_frame:
                 break
-        if all_done or chunk_rounds == 0 or rounds_total >= cfg.max_rounds_per_frame:
-            break
-        if work_ph.capacity > min_compact_capacity and n_active < work_ph.capacity // 4:
-            if slots is None:
-                result_ph = work_ph
-            new_cap = max(min_compact_capacity, 1 << int(np.ceil(np.log2(max(n_active, 1)))))
-            result_ph, work_ph, work_t, slots = (compact_fn or _compact_step)(
-                result_ph, slots, work_ph, work_t, new_cap)
+            if work_ph.capacity > min_compact_capacity and n_active < work_ph.capacity // 4:
+                if slots is None:
+                    result_ph = work_ph
+                new_cap = max(min_compact_capacity, 1 << int(np.ceil(np.log2(max(n_active, 1)))))
+                with telemetry.span("transport.compact"):
+                    result_ph, work_ph, work_t, slots = (compact_fn or _compact_step)(
+                        result_ph, slots, work_ph, work_t, new_cap)
+                telemetry.count("transport.compactions")
 
-    if slots is None:
-        result_ph, result_t = work_ph, work_t
-    else:
-        result_ph, result_t = (finish_fn or _write_back)(result_ph, slots, work_ph, work_t)
-    return FrameResult(photons=result_ph, n_scatt=n_scatt_total, n_rounds=rounds_total,
-                       t_rem=result_t, rebin_pending=rebin_pending, n_cs=n_cs,
-                       engine="kernel" if fused else "xla")
+        if slots is None:
+            result_ph, result_t = work_ph, work_t
+        else:
+            with telemetry.span("transport.write_back"):
+                result_ph, result_t = (finish_fn or _write_back)(result_ph, slots, work_ph, work_t)
+        return FrameResult(photons=result_ph, n_scatt=n_scatt_total, n_rounds=rounds_total,
+                           t_rem=result_t, rebin_pending=rebin_pending, n_cs=n_cs,
+                           engine="kernel" if fused else "xla")
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "mcrat_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_frames.py",
+    ROOT / "chip_smoke.py", ROOT / "tools" / "frame_spans.py",
     ROOT / "tools" / "kernel_ab.py", ROOT / "tools" / "sass_counts.py",
     ROOT / "tools" / "mesh_seeds.py"]
 ALLOWED_FROM_JAX_PACKAGE = set()
@@ -42,10 +42,11 @@ def test_no_jax_and_only_config_constants(path):
 def test_package_sources_found():
     names = {p.name for p in SOURCES}
     assert {"transport.py", "grid.py", "fused_round.py", "config.py", "constants.py",
-            "chip_smoke.py", "profile_torch_frames.py", "kernel_ab.py", "sass_counts.py",
+            "chip_smoke.py", "frame_spans.py", "kernel_ab.py", "sass_counts.py",
             "driver.py", "cli.py", "checkpoint.py", "photons_h5.py", "mcpar.py",
             "analysis.py", "prng.py", "stokes.py", "compton.py", "electrons.py", "pluto.py",
-            "pluto_chombo.py", "riken.py", "mesh.py", "dryrun.py", "serial.py"} <= names
+            "pluto_chombo.py", "riken.py", "mesh.py", "dryrun.py", "serial.py",
+            "telemetry.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
