@@ -78,9 +78,14 @@ off) -- and checks them:
      3.; before them the AMR frame's cell lookup (find_cell_rows, the index
      search and the cached-cell pin) on the card against the same lookup on
      the CPU, on the injected photons, 2^20 random points and points on
-     block seams and level boundaries; after them amr_cyl2's mean energy,
-     mean scatterings and mean Q against the flagship's, within 4 sigma
-     (the same uniform outflow);
+     block seams and level boundaries; then the carried search's kernel
+     (csrc/binned_search.cu) against its plain version on the card at the
+     benchmark's amr_jet size (167,936 cells, ~237k lanes moved off their
+     cells), cell for cell, with the kernel's device ms a call and the plain
+     version's ms at the same shapes (binned_search_check); after them
+     amr_cyl2's mean energy, mean scatterings and mean Q against the
+     flagship's, within 4 sigma (the same uniform outflow), and the search
+     kernel's launches on amr_cyl2's main path;
   7. every other frame of 2. once through the kernel with Stokes on and once
      with Stokes off, with the frame checks (the aux cases through
      transport_frame on their BinnedIndex: the carried path on every
@@ -161,7 +166,8 @@ off) -- and checks them:
      registers, local memory a thread -- spills and stack, as the CUDA
      runtime reports them -- and shared memory, and its launches in the
      driver run, in the cyclo-synchrotron run, in the PLUTO and RIKEN runs
-     and in phase 8d's in-process mesh runs, ``mesh_launches``), then
+     and in phase 8d's in-process mesh runs, ``mesh_launches``), the search
+     kernel's line (its launches on amr_cyl2's main path), then
      {"ok": true, "device": {...}} last.
 
 Each path's launch counts (the driver runs' too) are set to 0 just before it
@@ -178,6 +184,7 @@ import json
 import logging
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -1075,6 +1082,59 @@ def amr_lookup_check(prob):
           f"{index.max_slab}", flush=True)
     if differ:
         raise RuntimeError("the AMR cell lookup on the card differs from the CPU's")
+
+
+# lanes of one carried lookup's search in the benchmark's amr_jet.frame
+# (~237k, PERF.md section 5)
+SEARCH_LANES = 237_000
+
+
+def binned_search_check(prob, k=50):
+    """The search kernel (``grid.BinnedIndex.find`` on the card) against its
+    plain version (``find_reference``) on the AMR frame: ``SEARCH_LANES`` of
+    the injected photons moved by up to 8 finest cells along r0 and r1 (the
+    lanes a lookup searches have left their cells).  Prints the kernel's
+    device ms a call (CUDA events around each of ``k`` launches, a spin
+    kernel holding the stream), the plain version's ms a call at the same
+    shapes (host clock ending in a synchronize, median of 5) and the lanes
+    found; fails unless the two give the same cells.  Returns (kernel ms,
+    None on the CPU, plain ms)."""
+    from mcrat_tpu_torch import geometry as geo
+
+    cfg, frame, index, ph = prob.cfg, prob.frame, prob.index, prob.photons
+    pos = ph.pos[:SEARCH_LANES]
+    n = pos.shape[0]
+    r0, r1, r2 = geo.mcrat_to_hydro(cfg, pos[:, 0], pos[:, 1], pos[:, 2])
+    step = torch.as_tensor(np.random.default_rng(7).uniform(-8e9, 8e9, (2, n)), dtype=r0.dtype,
+                           device=r0.device)
+    r0, r1, r2 = (r0 + step[0]).contiguous(), (r1 + step[1]).contiguous(), r2.contiguous()
+    got = index.find(r0, r1, r2, frame)
+    want = index.find_reference(r0, r1, r2, frame)
+    differ = int((got != want).sum())
+    device = r0.device
+    plain_ms = statistics.median(
+        timed(lambda: index.find_reference(r0, r1, r2, frame), device) for _ in range(5))
+    if device.type == "cuda":
+        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(k)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        for a, b in ev:
+            a.record()
+            index.find(r0, r1, r2, frame)
+            b.record()
+        torch.cuda.synchronize()
+        k_ms = statistics.median(a.elapsed_time(b) for a, b in ev)
+        kernel = f"kernel {k_ms:.4f} ms a call (device, median of {k})"
+    else:
+        k_ms, kernel = None, "no kernel on the CPU (find runs the plain version)"
+    print(f"[binned search] {n} lanes on {frame.num_elements} cells (index dims {index.dims}, "
+          f"max_slab {index.max_slab}): {int((want >= 0).sum())} found, cells differing kernel "
+          f"vs plain version {differ}; {kernel}, plain version {plain_ms:.3f} ms (host clock, "
+          f"median of 5)", flush=True)
+    if differ:
+        raise RuntimeError("the search kernel's cells differ from its plain version's")
+    return k_ms, plain_ms
 
 
 def frame_cols(res):
@@ -2370,6 +2430,7 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
 
     from mcrat_tpu_torch import Config, _build
     from mcrat_tpu_torch.ops import fused_round as fr
+    from mcrat_tpu_torch.ops.binned_search import binned_search
 
     # 1. build, tables, F6
     resources = {}  # instantiation -> threads, registers, local memory, shared memory
@@ -2434,6 +2495,7 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
                 None, stokes_on, call=call)
             errs[inst] = max(errs[inst], err)
     amr_lookup_check(mains["amr_cyl2", "direct"])
+    binned_search_check(mains["amr_cyl2", "direct"])
 
     # 3.-6b. the main paths: flagship, 2-D spherical, TABLE, nonthermal, AMR
     launches, owner = {}, {}  # instantiation -> launches, the path they come from
@@ -2446,8 +2508,15 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
     results = {}
     for (name, mode), prob in mains.items():
         path = name if mode == "direct" else f"{name} ({mode})"
+        searched = binned_search.launches
         lk, results[name, mode] = main_path(path, prob, card, device)
         count(f"{path} main path", lk)
+        if (name, mode) == ("amr_cyl2", "direct"):
+            search_launches = binned_search.launches - searched
+            print(f"[{path}] search kernel launches on the main path: {search_launches}",
+                  flush=True)
+            if device.type == "cuda" and not search_launches:
+                raise RuntimeError("the AMR main path never launched the search kernel")
     same_outflow_check(("flagship", frame_cols(results["flagship", "direct"])),
                        ("amr_cyl2", frame_cols(results["amr_cyl2", "direct"])))
 
@@ -2513,6 +2582,9 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
             "smem_bytes": resources[n]["dyn_smem"] + resources[n]["static_smem"]}
            if n in resources else {}),
     } for n in names]}), flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "binned_search", "route": "cuda", "source": "mcrat_tpu_torch/csrc/binned_search.cu",
+        "replaces": None, "launches": search_launches}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu" if device.type == "cuda" else device.type,
         "kind": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu",

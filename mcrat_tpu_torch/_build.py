@@ -21,16 +21,18 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "mcrat_tpu_torch"
 FUSED_ROUND_SRC = PKG_DIR / "csrc" / "fused_round.cu"
+BINNED_SEARCH_SRC = PKG_DIR / "csrc" / "binned_search.cu"
 
 # FMA contraction off: the kernel keeps its plain twin's rounding, op by op
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false",
 ]
-# the source is split into translation units (csrc/fused_round.cu): compiled
-# once with each -DMCRAT_FAMILY=<code> and once without, side by side, then
-# linked
+# csrc/fused_round.cu is split into translation units: compiled once with
+# each -DMCRAT_FAMILY=<code> and once without (its entry points), side by
+# side, then linked
 N_FAMILIES = 5
+FUSED_ROUND_UNITS = tuple((f"-DMCRAT_FAMILY={k}",) for k in range(N_FAMILIES)) + ((),)
 
 _loaded: dict = {}
 
@@ -54,12 +56,13 @@ def run(cmd: list) -> subprocess.CompletedProcess:
     return proc
 
 
-def build(src: Path = FUSED_ROUND_SRC) -> dict:
+def build(src: Path = FUSED_ROUND_SRC, units=FUSED_ROUND_UNITS) -> dict:
     """Compile ``src`` unless its library exists: one nvcc for each of its
-    N_FAMILIES families' translation units (``-DMCRAT_FAMILY=<code>``) and
-    one for its entry points, all started together, then one link.  Returns
-    a dict with the library ``path``, whether it was ``built`` now and the
-    build ``seconds``."""
+    translation ``units`` (each unit's extra flags; by default the fused
+    round's N_FAMILIES families, ``-DMCRAT_FAMILY=<code>``, and its entry
+    points), all started together, then one link.  The library's name holds
+    a hash of the source and NVCC_FLAGS.  Returns a dict with the library
+    ``path``, whether it was ``built`` now and the build ``seconds``."""
     tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{src.stem}_{tag}.so"
     if lib.exists():
@@ -69,7 +72,6 @@ def build(src: Path = FUSED_ROUND_SRC) -> dict:
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         out = os.path.join(tmp, lib.name)
-        units = [[f"-DMCRAT_FAMILY={k}"] for k in range(N_FAMILIES)] + [[]]
         objs = [os.path.join(tmp, f"unit{i}.o") for i in range(len(units))]
         with concurrent.futures.ThreadPoolExecutor(len(units)) as ex:
             list(ex.map(lambda u: run([nvcc, *NVCC_FLAGS, *u[0], "-c", "-o", u[1], str(src)]),
@@ -110,3 +112,30 @@ def load_fused_round() -> ctypes.CDLL:
         _loaded["fused_round"] = bind_fused_round(
             ctypes.CDLL(str(build(FUSED_ROUND_SRC)["path"])))
     return _loaded["fused_round"]
+
+
+def bind_binned_search(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the ctypes signatures of the search library's C entry points
+    (``mcrat_binned_search``, ``mcrat_binned_search_error_string``).
+    Returns ``lib``."""
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.mcrat_binned_search.argtypes = [
+        i32, i32, i32,  # lanes in float64, test in float64, three_d
+        p, p, p, i64,  # r0, r1, r2, n
+        p, p, p, p, p, p,  # cell_ids, bin_start, bin_count, geometry rows, lo, inv
+        i32, i32, i32, i32,  # d0, d1, d2, max_slab
+        p, p,  # out, stream
+    ]
+    lib.mcrat_binned_search.restype = ctypes.c_int
+    lib.mcrat_binned_search_error_string.argtypes = [ctypes.c_int]
+    lib.mcrat_binned_search_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_binned_search() -> ctypes.CDLL:
+    """The carried AMR search's library (``csrc/binned_search.cu``, one
+    translation unit), built on first use."""
+    if "binned_search" not in _loaded:
+        _loaded["binned_search"] = bind_binned_search(
+            ctypes.CDLL(str(build(BINNED_SEARCH_SRC, units=((),))["path"])))
+    return _loaded["binned_search"]

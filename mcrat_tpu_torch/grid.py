@@ -13,7 +13,8 @@ by ``floor((x - lo) * inv_d)``, others by ``searchsorted``; cell order is the
 C-order raveled meshgrid, ``idx = (i * n1 + j) * n2 + k``.
 :class:`BinnedIndex` locates them in an unstructured cell list (AMR output):
 a uniform-bin CSR index searched over each photon's +-1 bin neighbourhood,
-behind the cached-cell pin of :func:`find_cell_rows`.
+behind the cached-cell pin of :func:`find_cell_rows`; on the card the search
+is one launch of ``csrc/binned_search.cu`` (``ops.binned_search``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from .constants import A_RAD, M_P
 from . import geometry as geo
 from . import telemetry
 from .device import resolve_device
+from .ops.binned_search import binned_search
 
 # Row layout of HydroFrame.packed (mcrat_tpu.grid.PCOL).  In 3-D, v0..v2 hold
 # the fluid velocity already in MCRaT Cartesian (to_device pre-transforms
@@ -392,6 +394,9 @@ class BinnedIndex:
     inv_bin: torch.Tensor  # (3,) 1 / bin size
     dims: tuple = (1, 1, 1)
     max_slab: int = 64  # candidates searched per bin
+    # the search kernel's tables of the last frame searched (search_tables)
+    _tables: Optional[tuple] = dataclasses.field(default=None, init=False, repr=False,
+                                                 compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -441,10 +446,19 @@ class BinnedIndex:
 
     def find(self, r0, r1, r2, frame: HydroFrame) -> torch.Tensor:
         """Containing cell (int32, -1 where no cell holds the point) of 1-D
-        hydro coordinates: an AABB test over the candidate slabs of the
-        point's +-1 bin neighbourhood (JAX's ``BinnedIndex.find``).  Runs in
-        chunks of lanes so that the (lanes, max_slab) slabs hold at most
-        :data:`SEARCH_BUDGET_BYTES`."""
+        hydro coordinates: an AABB test over the cells of the point's +-1
+        bin neighbourhood (JAX's ``BinnedIndex.find``).  CPU tensors run the
+        plain version, :meth:`find_reference`; CUDA tensors launch the
+        hand-written kernel of ``csrc/binned_search.cu`` once
+        (``ops.binned_search``), which gives its cells bit for bit."""
+        if r0.device.type == "cpu":
+            return self.find_reference(r0, r1, r2, frame)
+        return binned_search(self, r0, r1, r2, frame)
+
+    def find_reference(self, r0, r1, r2, frame: HydroFrame) -> torch.Tensor:
+        """:meth:`find` as torch ops on any device, the search kernel's plain
+        version: in chunks of lanes so that the (lanes, max_slab) candidate
+        slabs hold at most :data:`SEARCH_BUDGET_BYTES`."""
         chunk = max(1, SEARCH_BUDGET_BYTES // (_SEARCH_BYTES_PER_CANDIDATE * self.max_slab))
         n = r0.shape[0]
         telemetry.count("grid.search_chunks", max(1, -(-n // chunk)))
@@ -454,6 +468,31 @@ class BinnedIndex:
             return self._find_chunk(r0, r1, r2, frame)
         return torch.cat([self._find_chunk(r0[a:a + chunk], r1[a:a + chunk], r2[a:a + chunk],
                                            frame) for a in range(0, n, chunk)])
+
+    def search_tables(self, frame: HydroFrame, lane_dtype: torch.dtype) -> tuple:
+        """The search kernel's tables for lanes of ``lane_dtype`` on
+        ``frame``: the geometry rows in bin order, (Ncell, 4) ``[c0, c1, s0,
+        s1]`` or, with more than one bin along axis 2, (Ncell, 8) ``[c0, c1,
+        s0, s1, c2, s2, 0, 0]``, in the dtype the plain version tests in (the
+        promotion of the lanes' and the frame's), and ``grid_min`` and
+        ``inv_bin`` in ``lane_dtype``, the dtype the plain version bins in.
+        Built with no host sync and kept for the last frame and dtype
+        searched, so an index searched frame after frame builds them once;
+        the frame's columns are held meanwhile, and an in-place write to
+        one of them builds them anew."""
+        cols = (frame.r0, frame.r1, frame.dr0, frame.dr1) + (
+            (frame.r2, frame.dr2) if self.dims[2] > 1 else ())
+        if any(c.dtype != cols[0].dtype for c in cols):
+            raise ValueError("the search kernel takes a frame whose columns share one dtype")
+        key = (lane_dtype,) + tuple((id(c), c._version) for c in cols)
+        if self._tables is None or self._tables[0] != key:
+            test_dtype = torch.promote_types(lane_dtype, cols[0].dtype)
+            rows = torch.stack(cols, dim=1).to(test_dtype)[self.cell_ids.to(torch.int64)]
+            if rows.shape[1] == 6:
+                rows = torch.nn.functional.pad(rows, (0, 2))
+            self._tables = (key, cols, (rows.contiguous(), self.grid_min.to(lane_dtype),
+                                        self.inv_bin.to(lane_dtype)))
+        return self._tables[2]
 
 
 def build_binned_index(host: HydroFrameHost, target_bins: int = 1 << 20,

@@ -112,6 +112,40 @@ def test_find_identical_to_jax(kind, monkeypatch):
     np.testing.assert_array_equal(tidx.find(*args, tframe).numpy(), want)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_find_special_lanes_identical_to_jax(kind):
+    """Lanes with one coordinate at NaN, +-inf or +-1e30 (the others inside
+    the domain) and lanes on the index's outer bin edges and one bin beyond:
+    the port's plain search (the CUDA kernel's yardstick) gives JAX's cells,
+    and NaN and inf lanes find none."""
+    cfg, jhost, thost, _ = _hosts(kind)
+    jidx = jgrid.build_binned_index(jhost)
+    tidx = tgrid.build_binned_index(thost, device="cpu")
+    rs = np.random.default_rng(11)
+    axes = 3 if cfg.dims is Dims.THREE else 2
+    n = 1200
+    cols = []
+    for axis in range(3):
+        lo, hi = np.asarray(jhost.domain)[axis]
+        col = rs.uniform(lo, hi, n)
+        width = 1.0 / float(tidx.inv_bin[axis])
+        edges = float(tidx.grid_min[axis]) + width * np.arange(-1, tidx.dims[axis] + 2)
+        col[n // 2:] = rs.choice(edges, n - n // 2)
+        if axis < axes:
+            sl = slice(axis * n // 6, (axis + 1) * n // 6)
+            col[sl] = rs.choice([np.nan, np.inf, -np.inf, 1e30, -1e30], sl.stop - sl.start)
+        cols.append(col.astype(np.float32) if axis < axes else np.zeros(n, np.float32))
+    want = np.asarray(jidx.find(*(jnp.asarray(c) for c in cols),
+                                jhost.to_device(dtype=jnp.float32), None))
+    got = tidx.find(*(torch.from_numpy(c) for c in cols), thost.to_device("cpu")).numpy()
+    np.testing.assert_array_equal(got, want)
+    bad = np.zeros(n, bool)
+    for c in cols[:axes]:
+        bad |= ~np.isfinite(c)
+    assert bad.sum() > n // 10 and (got[bad] == -1).all()
+    assert (got >= 0).sum() > n // 4
+
+
 @pytest.mark.parametrize("kind", ["amr_cyl2", "cart3_cells"])
 def test_find_cell_rows_identical_to_jax(kind):
     """Cached cells right, wrong and unknown (-1): the pin keeps the right
