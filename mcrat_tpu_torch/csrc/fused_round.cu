@@ -833,10 +833,20 @@ __device__ __forceinline__ void scatter_entry(float* __restrict__ sm, int slot, 
     const float fq = st2 + m11 * q2;
     const float fu = m22 * u2;
     const float fv = m33 * v;
-    const float inv_i = 1.0f / fi;
-    q2 = fq * inv_i;
-    u2 = fu * inv_i;
-    v2 = fv * inv_i;
+    // F13 repair: normalize in double, the degree of polarization held to 1
+    // (ops.stokes.fano_normalized); in float fi rounds to 0 near 90 degrees
+    const double inv_i = 1.0 / fmax((double)fi, 1e-300);
+    double dq = (double)fq * inv_i, du = (double)fu * inv_i, dv = (double)fv * inv_i;
+    const double deg2 = dq * dq + du * du + dv * dv;
+    if (deg2 > 1.0) {
+      const double scale = 1.0 / sqrt(deg2);
+      dq = dq * scale;
+      du = du * scale;
+      dv = dv * scale;
+    }
+    q2 = (float)dq;
+    u2 = (float)du;
+    v2 = (float)dv;
     rotate_basis(nx, ny, nz, r1, r2, r3, nx, ny, nz, -ebx, -eby, -ebz, q2, u2);
   }
   // de-boost to the comoving frame, then to the lab

@@ -61,7 +61,10 @@ Differences from the JAX kernel, all deliberate:
   the z -> beta_e rotations are kept (as ``ops.stokes`` / ``transport_rounds``
   do).  Lanes with beta_f != 0 are unchanged;
 * fault F6 is repaired: the Klein-Nishina closed form is evaluated in
-  float64 and rounded once (:func:`_kn_cross_section`).
+  float64 and rounded once (:func:`_kn_cross_section`);
+* fault F13 is repaired: the Fano Stokes terms are normalized by the
+  scattered intensity in float64, the degree of polarization held to 1
+  (``ops.stokes.fano_normalized``), where a float32 division gives NaN.
 """
 from __future__ import annotations
 
@@ -78,6 +81,7 @@ from ..constants import C_LIGHT, KB_OVER_MEC2, M_P, THOM_X_SECT
 from ..grid import PCOL, PCOL_SLIM
 from . import rng
 from .hot_xsec import CHEB_DHI, CHEB_DLO, CHEB_ROWS, LOG_PH_E_MAX
+from .stokes import fano_normalized as _fano_normalized
 
 # state plane layout (f32), as pallas_round.SP_*: lab p, position, Stokes
 # q/u/v (I == 1), frame time left, scatter count, comoving p
@@ -596,8 +600,7 @@ def _single_scatter(base, k0, off: DrawOffsets, g0, e1x, e1y, e1z, c0, c1, c2, c
         fq = st2 + m11 * q2
         fu = m22 * u2
         fv = m33 * v
-        inv_i = 1.0 / fi
-        q2, u2, v2 = fq * inv_i, fu * inv_i, fv * inv_i
+        q2, u2, v2 = _fano_normalized(fi, fq, fu, fv)
         q2, u2 = _rotate_basis(nv, rv, nv, (-bx, -by, -bz), q2, u2)
     else:
         q2, u2, v2 = q, u, v

@@ -133,5 +133,22 @@ def fano_scatter_stokes(s, e0, e1, cos_theta):
     q = st2 * s[..., 0] + m11 * s[..., 1]
     u = m22 * s[..., 2]
     v = m33 * s[..., 3]
-    inv_i = 1.0 / i
-    return torch.stack([torch.ones_like(i), q * inv_i, u * inv_i, v * inv_i], dim=-1)
+    q, u, v = fano_normalized(i, q, u, v)
+    return torch.stack([torch.ones_like(i), q, u, v], dim=-1)
+
+
+def fano_normalized(fi, fq, fu, fv):
+    """(q, u, v) = (fq, fu, fv) / fi in float64 (times the float64
+    reciprocal of ``fi``, floored at 1e-300), the degree of polarization
+    held to 1, rounded once to the inputs' dtype: fault F13 repaired, in the
+    kernel's operation order (``csrc/fused_round.cu``).  ``fi``, the
+    scattered intensity, is > 0 in exact arithmetic, but in float32 it rounds
+    to 0 for a fully polarized photon scattered near 90 degrees in its
+    polarization plane, and a float32 division then gives a NaN Stokes
+    vector (the JAX package divides so, and keeps it)."""
+    dtype = fi.dtype
+    inv_i = 1.0 / torch.clamp(fi.to(torch.float64), min=1e-300)
+    q, u, v = (x.to(torch.float64) * inv_i for x in (fq, fu, fv))
+    deg2 = q * q + u * u + v * v
+    scale = torch.where(deg2 > 1.0, 1.0 / torch.sqrt(deg2), 1.0)
+    return (q * scale).to(dtype), (u * scale).to(dtype), (v * scale).to(dtype)

@@ -622,6 +622,10 @@ def select_variant(cfg: Config, frame: HydroFrame, index, xsec_table=None):
     takes the packed variant of the geometry, and in TABLE mode no
     Chebyshev rows: per-lane aux planes (:func:`aux_planes`, ``KernelFlags.
     aux``), as the JAX glue's carried path (mcrat_tpu/transport.py:713-720).
+    With tracing on, the per-frame fit of the Chebyshev rows is the span
+    ``hot_xsec.cheb_cells`` (and the counter ``hot_xsec.cells_fitted``, the
+    cells fitted), that of the subgroup-1 fit and the nonthermal constants
+    the span ``hot_xsec.nt_constants``.
     Returns (variant name, (W, Ncell) float32 table, KernelFlags)."""
     check_xsec_table(cfg, xsec_table)
     geom, dims = cfg.geometry, cfg.dims
@@ -652,12 +656,15 @@ def select_variant(cfg: Config, frame: HydroFrame, index, xsec_table=None):
     if carried:
         nt = fr.nonthermal_constants(cfg) if nonthermal else None
         return name, table, KernelFlags(nt=nt, aux=xsec_table)
-    cheb = hot_xsec.thermal_cheb_cells(xsec_table, frame.temp)
-    table = torch.cat([table, cheb.to(table.device)], dim=0).contiguous()
+    with telemetry.span("hot_xsec.cheb_cells"):
+        cheb = hot_xsec.thermal_cheb_cells(xsec_table, frame.temp)
+        table = torch.cat([table, cheb.to(table.device)], dim=0).contiguous()
+    telemetry.count("hot_xsec.cells_fitted", frame.temp.shape[0])
     nt = None
     if nonthermal:
-        sub1 = hot_xsec._sub1_cheb_static(cfg, xsec_table.log_e, xsec_table.nonthermal[:, 0])
-        nt = fr.nonthermal_constants(cfg, sub1)
+        with telemetry.span("hot_xsec.nt_constants"):
+            sub1 = hot_xsec._sub1_cheb_static(cfg, xsec_table.log_e, xsec_table.nonthermal[:, 0])
+            nt = fr.nonthermal_constants(cfg, sub1)
     return name, table, KernelFlags(fr.VARIANTS[name].width, nt)
 
 

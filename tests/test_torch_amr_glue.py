@@ -35,7 +35,7 @@ from mcrat_tpu_torch.ops import fused_round as fr
 from test_torch_amr_cases import (
     CFG, amr_hosts, inject, jax_index, numpy_photons, port_index, port_photons, torch_t,
     xsec_tables)
-from test_torch_geometry_cases import jax_f32_kn, table_cfg
+from test_torch_geometry_cases import jax_f32_fano, jax_f32_kn, table_cfg
 
 torch.set_num_threads(1)
 
@@ -45,6 +45,7 @@ S_ROWS = 8
 @pytest.mark.parametrize("mode", ["direct", "table", "powerlaw"])
 def test_carried_glue_matches_jax_fused_transport(mode, tmp_path, monkeypatch):
     cfg = CFG if mode == "direct" else table_cfg(CFG, None if mode == "table" else mode)
+    monkeypatch.setattr(fr, "_fano_normalized", jax_f32_fano)
     if mode == "direct":
         jhost, thost = amr_hosts(cfg)
         jtab = xsec = None

@@ -51,7 +51,7 @@ from mcrat_tpu_torch.config import TauCalculation as TTau
 from mcrat_tpu_torch.ops import fused_round as fr
 from mcrat_tpu_torch.ops import rng as trng
 
-from test_torch_geometry_cases import jax_f32_kn
+from test_torch_geometry_cases import jax_f32_fano, jax_f32_kn
 
 torch.set_num_threads(1)
 
@@ -143,6 +143,7 @@ def _kernel_inputs(gamma, hot):
                          ids=["cold-stokes", "cold-nostokes", "hot-stokes"])
 def test_twin_matches_jax_kernel_lane_for_lane(hot, stokes_on, monkeypatch):
     monkeypatch.setattr(fr, "_kn_cross_section", jax_f32_kn)
+    monkeypatch.setattr(fr, "_fano_normalized", jax_f32_fano)
     cfg, state, alive, pool, safe, flags, n1, phys, geom, grid = _kernel_inputs(2.0, hot)
     block_act = np.array([1, 0, 1], np.int32)
     seed = 987654321

@@ -18,6 +18,7 @@ carried AMR path's K5) they get the packed rows and the port's aux planes
 (``transport.aux_planes``) instead.
 """
 import dataclasses
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,6 +93,16 @@ def jax_f32_kn(e):
         + (1.0 + se) / ((1.0 + 2.0 * se) * (1.0 + 2.0 * se))
     )
     return torch.where(e >= 1e-3, full, 1.0 - 2.0 * e)
+
+
+def jax_f32_fano(fi, fq, fu, fv):
+    """The JAX kernel's Fano normalization transcribed: one reciprocal of
+    the scattered intensity in the working precision, fault F13 unrepaired.
+    Lane-for-lane tests put it in place of the port's float64 division
+    (monkeypatch), as ``jax_f32_kn`` for F6, so that both kernels carry the
+    same Stokes vectors into the polarized angle draws."""
+    inv_i = 1.0 / fi
+    return fq * inv_i, fu * inv_i, fv * inv_i
 
 
 def make_grid_3d(e0, e1, e2) -> dict:
@@ -362,14 +373,16 @@ def jax_kernel(d, block_act, seed, stokes_on, inner_rounds=2):
 
 
 def port_kernel(d, block_act, seed, stokes_on, inner_rounds=2):
-    """The port's ``fused_rounds`` (the twin, on CPU tensors) on ``lane_inputs``."""
+    """The port's ``fused_rounds`` (the twin, on CPU tensors) on ``lane_inputs``,
+    with the JAX kernel's Fano normalization (:func:`jax_f32_fano`)."""
     ts = torch.from_numpy(d["state"].copy())
-    out = fr.fused_rounds(ts, torch.from_numpy(d["safe"]), torch.from_numpy(d["flags"]),
-                          d["table"], torch.from_numpy(block_act), seed, d["grid"],
-                          stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=BLOCK,
-                          variant=d["variant"], cheb_base=d["kflags"].cheb_base,
-                          nt=d["kflags"].nt,
-                          aux=None if d["aux"] is None else torch.from_numpy(d["aux"]))
+    with mock.patch.object(fr, "_fano_normalized", jax_f32_fano):
+        out = fr.fused_rounds(ts, torch.from_numpy(d["safe"]), torch.from_numpy(d["flags"]),
+                              d["table"], torch.from_numpy(block_act), seed, d["grid"],
+                              stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=BLOCK,
+                              variant=d["variant"], cheb_base=d["kflags"].cheb_base,
+                              nt=d["kflags"].nt,
+                              aux=None if d["aux"] is None else torch.from_numpy(d["aux"]))
     return ts.numpy(), out.numpy()
 
 

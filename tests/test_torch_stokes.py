@@ -122,6 +122,28 @@ def test_fano_scatter_stokes():
           js.fano_scatter_stokes(J(s), J(e0), J(e1), J(ct)))
 
 
+def test_fano_normalization_holds_a_zero_intensity():
+    """F13: where the scattered intensity rounds to 0 in float32 (a fully
+    polarized photon scattered near 90 degrees in its plane) the Stokes
+    vector stays finite, of degree at most 1; elsewhere the float64 quotient
+    rounds once, within an ulp of the float32 division."""
+    f32 = torch.float32
+    fi = torch.tensor([0.0, -1e-8, 1e-30, 0.5, 2.0], dtype=f32)
+    fq = torch.tensor([-1e-8, 1e-8, 1e-30, 0.25, -1.0], dtype=f32)
+    fu = torch.tensor([0.0, 0.0, 0.0, 0.2, 0.5], dtype=f32)
+    fv = torch.tensor([0.0, 1e-9, 0.0, 0.1, 0.0], dtype=f32)
+    q, u, v = ts.fano_normalized(fi, fq, fu, fv)
+    assert q.dtype == u.dtype == v.dtype == f32
+    assert torch.isfinite(torch.stack([q, u, v])).all()
+    deg = torch.sqrt(q.double() ** 2 + u.double() ** 2 + v.double() ** 2)
+    assert (deg <= 1.0 + 1e-6).all()
+    # the float32 division's NaN and the ordinary lanes
+    inv = 1.0 / fi
+    assert torch.isnan(fq[0] * inv[0]) or torch.isinf(fq[0] * inv[0])
+    for got, num in ((q, fq), (u, fu), (v, fv)):
+        np.testing.assert_allclose(got[3:].numpy(), (num[3:] * inv[3:]).numpy(), rtol=2.4e-7)
+
+
 # ---------------------------------------------------------------------------
 # tests/test_polarization.py's physics checks on the port's single_scatter
 

@@ -9,6 +9,10 @@ on the CPU through the kernel's plain twin.
   record the span tree of the frame loop with the right parents; the
   counters agree with the twin's launches and the spans; each frame's
   result is bit-identical with tracing on and off.
+* A TABLE frame records the per-frame fit of ``select_variant`` once a
+  frame (``hot_xsec.cheb_cells``, the counter ``hot_xsec.cells_fitted`` at
+  the frame's cells) and, with nonthermal electrons, its constants
+  (``hot_xsec.nt_constants``); a DIRECT frame records neither.
 * A recording ``torch.profiler`` turns tracing on with no ``enable()``, and
   the span names appear among its events.
 * A 2-shard CPU mesh frame records its frame and chunk spans.
@@ -25,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from mcrat_tpu_torch import Config, Dims, Geometry, SimType, Spectrum, grid, telemetry
+from mcrat_tpu_torch import (Config, Dims, Geometry, NonthermalDist, SimType, Spectrum,
+                             TauCalculation, grid, telemetry)
 from mcrat_tpu_torch import transport as tt
 from mcrat_tpu_torch.io.flash import cells_from_blocks
 from mcrat_tpu_torch.models.analytic import amr_blocks_2d, cylindrical_prep, make_grid_2d
@@ -161,6 +166,38 @@ def test_tracing_off_keeps_nothing(tracing):
     only = [tracemalloc.Filter(True, telemetry.__file__)]
     grown = after.filter_traces(only).compare_to(before.filter_traces(only), "lineno")
     assert [st for st in grown if st.size_diff > 0 or st.count_diff > 0] == []
+
+
+@pytest.fixture(scope="module")
+def nt_tables():
+    from mcrat_tpu_torch.ops import hot_xsec
+
+    return hot_xsec.load_or_build(HOT_CFG["nonthermal"], None, device="cpu")
+
+
+HOT_CFG = dict(
+    direct=CFG,
+    table=dataclasses.replace(CFG, tau_calculation=TauCalculation.TABLE),
+    nonthermal=dataclasses.replace(CFG, tau_calculation=TauCalculation.TABLE,
+                                   nonthermal_e_dist=NonthermalDist.POWERLAW,
+                                   powerlaw_index=2.5, gamma_min=1.0, gamma_max=100.0))
+
+
+@pytest.mark.parametrize("mode", ["direct", "table", "nonthermal"])
+def test_hot_xsec_fit_spans(problems, tracing, nt_tables, mode):
+    frame, index, photons = problems["direct"]
+    telemetry.enable()
+    for seed in (5, 6):
+        tt.transport_frame(HOT_CFG[mode], photons, frame, index, 0.2,
+                           torch.Generator().manual_seed(seed), chunk_rounds=CHUNK, fused=True,
+                           s_rows=S_ROWS, xsec_table=None if mode == "direct" else nt_tables)
+    summ = telemetry.summary()
+    spans, counters = summ["spans"], summ["counters"]
+    assert summ["frames"] == 2
+    fit = {"direct": 0, "table": 2, "nonthermal": 2}[mode]
+    assert spans.get("hot_xsec.cheb_cells", {}).get("count", 0) == fit
+    assert counters.get("hot_xsec.cells_fitted", 0) == fit // 2 * 2 * frame.temp.shape[0]
+    assert spans.get("hot_xsec.nt_constants", {}).get("count", 0) == 2 * (mode == "nonthermal")
 
 
 @pytest.mark.parametrize("kind", ["direct", "carried"])

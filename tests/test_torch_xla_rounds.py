@@ -147,8 +147,10 @@ KINDS = ["cyl2", "sph2", "cart3", "amr"]
 
 @pytest.fixture
 def jax_f32_kn(monkeypatch):
-    """JAX's float32 Klein-Nishina form in the port's scatter (F6 left in)."""
+    """JAX's float32 Klein-Nishina form and Fano normalization in the port's
+    scatter (F6 and F13 left in)."""
     monkeypatch.setattr(tcompton, "kn_cross_section", gc.jax_f32_kn)
+    monkeypatch.setattr(tstokes, "fano_normalized", gc.jax_f32_fano)
 
 
 def _np(x):
