@@ -85,7 +85,13 @@ off) -- and checks them:
      version's ms at the same shapes (binned_search_check); after them
      amr_cyl2's mean energy, mean scatterings and mean Q against the
      flagship's, within 4 sigma (the same uniform outflow), and the search
-     kernel's launches on amr_cyl2's main path;
+     kernel's launches on amr_cyl2's main path; then the direct lookup
+     kernel (csrc/direct_lookup.cu) against its plain version on the
+     flagship's and the 2-D spherical main frames (~1M injected photons
+     moved by up to 4e9 cm), cells, in-grid flags, clamp and lane flags,
+     with the kernel's device ms a call and the plain version's ms
+     (direct_lookup_check), and the kernel's launches on the flagship's main
+     path;
   7. every other frame of 2. once through the kernel with Stokes on and once
      with Stokes off, with the frame checks (the aux cases through
      transport_frame on their BinnedIndex: the carried path on every
@@ -1134,6 +1140,65 @@ def binned_search_check(prob, k=50):
           f"median of 5)", flush=True)
     if differ:
         raise RuntimeError("the search kernel's cells differ from its plain version's")
+    return k_ms, plain_ms
+
+
+def direct_lookup_check(prob, k=50):
+    """The direct lookup kernel (``grid.find_cell_direct`` on the card)
+    against its plain version (``find_cell_direct_reference``) on a
+    rectilinear frame: the injected photons (~1M on the main paths) moved
+    by up to 4e9 cm along each axis.  Prints the kernel's device ms a call
+    (CUDA events around each of ``k`` launches, a spin kernel holding the
+    stream) and the plain version's ms a call at the same shapes (host
+    clock ending in a synchronize, median of 5), then the second entry's
+    (the cells, their clamp and the lane flags) device ms; fails unless the
+    kernel's cells, in-grid flags, clamp and flags equal the plain
+    version's.  Returns (kernel ms, None on the CPU, plain ms)."""
+    from mcrat_tpu_torch import grid as tgrid
+    from mcrat_tpu_torch import transport as tt
+
+    cfg, frame, index, ph = prob.cfg, prob.frame, prob.index, prob.photons
+    n = ph.capacity
+    step = torch.as_tensor(np.random.default_rng(8).uniform(-4e9, 4e9, (n, 3)),
+                           dtype=ph.pos.dtype, device=ph.pos.device)
+    pos = ph.pos + step
+    alive, pool = ph.alive, torch.zeros_like(ph.alive)
+    cell, in_grid = tgrid.find_cell_direct(cfg, index, frame, pos)
+    want, want_in = tgrid.find_cell_direct_reference(cfg, index, frame, pos)
+    lanes = tt.direct_lane_inputs(cfg, index, frame, pos, alive, pool)
+    differ = int((cell != want).sum()) + int((in_grid != want_in).sum()) + int(
+        (lanes[0] != want).sum()) + int(
+        (lanes[1] != torch.clamp(want, 0, frame.num_elements - 1)).sum()) + int(
+        (lanes[2] != tt.lane_flags(alive, pool, want_in)).sum())
+    device = pos.device
+    plain_ms = statistics.median(
+        timed(lambda: tgrid.find_cell_direct_reference(cfg, index, frame, pos), device)
+        for _ in range(5))
+    if device.type == "cuda":
+        times = []
+        for fn in (lambda: tgrid.find_cell_direct(cfg, index, frame, pos),
+                   lambda: tt.direct_lane_inputs(cfg, index, frame, pos, alive, pool)):
+            ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(k)]
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            for a, b in ev:
+                a.record()
+                fn()
+                b.record()
+            torch.cuda.synchronize()
+            times.append(statistics.median(a.elapsed_time(b) for a, b in ev))
+        k_ms = times[0]
+        kernel = (f"kernel {times[0]:.4f} ms a call, with the clamp and flags {times[1]:.4f} "
+                  f"(device, median of {k})")
+    else:
+        k_ms, kernel = None, "no kernel on the CPU (find_cell_direct runs the plain version)"
+    print(f"[direct lookup] {n} lanes on {frame.num_elements} cells ({cfg.dims.name} "
+          f"{cfg.geometry.name}, uniform axes {index.uniform}): {int(want_in.sum())} in the "
+          f"grid, values differing kernel vs plain version {differ}; {kernel}, plain version "
+          f"{plain_ms:.3f} ms (host clock, median of 5)", flush=True)
+    if differ:
+        raise RuntimeError("the direct lookup kernel's cells differ from its plain version's")
     return k_ms, plain_ms
 
 
@@ -2431,6 +2496,7 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
     from mcrat_tpu_torch import Config, _build
     from mcrat_tpu_torch.ops import fused_round as fr
     from mcrat_tpu_torch.ops.binned_search import binned_search
+    from mcrat_tpu_torch.ops.direct_lookup import direct_lookup
 
     # 1. build, tables, F6
     resources = {}  # instantiation -> threads, registers, local memory, shared memory
@@ -2496,6 +2562,8 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
             errs[inst] = max(errs[inst], err)
     amr_lookup_check(mains["amr_cyl2", "direct"])
     binned_search_check(mains["amr_cyl2", "direct"])
+    for name in ("flagship", "spherical"):
+        direct_lookup_check(mains[name, "direct"])
 
     # 3.-6b. the main paths: flagship, 2-D spherical, TABLE, nonthermal, AMR
     launches, owner = {}, {}  # instantiation -> launches, the path they come from
@@ -2508,9 +2576,16 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
     results = {}
     for (name, mode), prob in mains.items():
         path = name if mode == "direct" else f"{name} ({mode})"
-        searched = binned_search.launches
+        searched, looked_up = binned_search.launches, direct_lookup.launches
         lk, results[name, mode] = main_path(path, prob, card, device)
         count(f"{path} main path", lk)
+        if (name, mode) == ("flagship", "direct"):
+            lookup_launches = direct_lookup.launches - looked_up
+            print(f"[{path}] direct lookup kernel launches on the main path: {lookup_launches}",
+                  flush=True)
+            if device.type == "cuda" and not lookup_launches:
+                raise RuntimeError("the flagship main path never launched the direct lookup "
+                                   "kernel")
         if (name, mode) == ("amr_cyl2", "direct"):
             search_launches = binned_search.launches - searched
             print(f"[{path}] search kernel launches on the main path: {search_launches}",
@@ -2584,7 +2659,9 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
     } for n in names]}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "binned_search", "route": "cuda", "source": "mcrat_tpu_torch/csrc/binned_search.cu",
-        "replaces": None, "launches": search_launches}]}), flush=True)
+        "replaces": None, "launches": search_launches}, {
+        "name": "direct_lookup", "route": "cuda", "source": "mcrat_tpu_torch/csrc/direct_lookup.cu",
+        "replaces": None, "launches": lookup_launches}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu" if device.type == "cuda" else device.type,
         "kind": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu",

@@ -22,6 +22,7 @@ PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "mcrat_tpu_torch"
 FUSED_ROUND_SRC = PKG_DIR / "csrc" / "fused_round.cu"
 BINNED_SEARCH_SRC = PKG_DIR / "csrc" / "binned_search.cu"
+DIRECT_LOOKUP_SRC = PKG_DIR / "csrc" / "direct_lookup.cu"
 
 # FMA contraction off: the kernel keeps its plain twin's rounding, op by op
 NVCC_FLAGS = [
@@ -139,3 +140,32 @@ def load_binned_search() -> ctypes.CDLL:
         _loaded["binned_search"] = bind_binned_search(
             ctypes.CDLL(str(build(BINNED_SEARCH_SRC, units=((),))["path"])))
     return _loaded["binned_search"]
+
+
+def bind_direct_lookup(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the ctypes signatures of the direct lookup library's C entry
+    points (``mcrat_direct_lookup``, ``mcrat_direct_lookup_error_string``).
+    Returns ``lib``."""
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.mcrat_direct_lookup.argtypes = [
+        i32, i32, i32,  # geometry, lanes in float64, edges in float64
+        p, i64, i64, i64,  # pos, lane stride, axis stride, n
+        p, p, p, p,  # params, edges of axes 0, 1, 2
+        i32, i32, i32, i32, i32,  # n0, n1, n2, uniform axes (bits), three_d
+        p, p, p, p, p, p,  # cell, in_grid (or NULL), alive, pool, safe, flags
+        i32, i32, i32, i32,  # n_cell, flag_alive, flag_pool, flag_ingrid
+        p,  # stream
+    ]
+    lib.mcrat_direct_lookup.restype = ctypes.c_int
+    lib.mcrat_direct_lookup_error_string.argtypes = [ctypes.c_int]
+    lib.mcrat_direct_lookup_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_direct_lookup() -> ctypes.CDLL:
+    """The direct lookup's library (``csrc/direct_lookup.cu``, one
+    translation unit), built on first use."""
+    if "direct_lookup" not in _loaded:
+        _loaded["direct_lookup"] = bind_direct_lookup(
+            ctypes.CDLL(str(build(DIRECT_LOOKUP_SRC, units=((),))["path"])))
+    return _loaded["direct_lookup"]

@@ -14,7 +14,9 @@ C-order raveled meshgrid, ``idx = (i * n1 + j) * n2 + k``.
 :class:`BinnedIndex` locates them in an unstructured cell list (AMR output):
 a uniform-bin CSR index searched over each photon's +-1 bin neighbourhood,
 behind the cached-cell pin of :func:`find_cell_rows`; on the card the search
-is one launch of ``csrc/binned_search.cu`` (``ops.binned_search``).
+is one launch of ``csrc/binned_search.cu`` (``ops.binned_search``), and
+:func:`find_cell_direct` one launch of ``csrc/direct_lookup.cu``
+(``ops.direct_lookup``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from . import geometry as geo
 from . import telemetry
 from .device import resolve_device
 from .ops.binned_search import binned_search
+from .ops.direct_lookup import direct_lookup
 
 # Row layout of HydroFrame.packed (mcrat_tpu.grid.PCOL).  In 3-D, v0..v2 hold
 # the fluid velocity already in MCRaT Cartesian (to_device pre-transforms
@@ -305,6 +308,9 @@ class RectilinearIndex:
     inv_d: torch.Tensor
     uniform: tuple = (False, False, False)
     three_d: bool = False
+    # the direct lookup kernel's tables of the last frame looked up (lookup_tables)
+    _tables: Optional[tuple] = dataclasses.field(default=None, init=False, repr=False,
+                                                 compare=False)
 
     @property
     def shape(self) -> tuple:
@@ -337,6 +343,27 @@ class RectilinearIndex:
         else:
             idx = i * n1 + j
         return torch.where(inside, idx, -1)
+
+    def lookup_tables(self, frame: HydroFrame, lane_dtype: torch.dtype) -> tuple:
+        """The direct lookup kernel's tables for lanes of ``lane_dtype`` on
+        ``frame``: (params, edges).  ``params`` (18,) in ``lane_dtype``, the
+        dtype the plain version compares and bins in: the frame's domain
+        bounds (lo, hi) per axis, ``lo`` and ``inv_d`` per axis, then each
+        axis's first and last edge.  ``edges`` the three edge arrays in the
+        dtype searchsorted compares in (the promotion of the lanes' and the
+        index's).  Built with no host sync and kept for the last frame and
+        dtype looked up; the domain is held meanwhile, and an in-place write
+        to it builds them anew."""
+        key = (lane_dtype, id(frame.domain), frame.domain._version)
+        if self._tables is None or self._tables[0] != key:
+            edges = (self.edges0, self.edges1, self.edges2)
+            ends = torch.stack([v for e in edges for v in (e[0], e[-1])]).to(lane_dtype)
+            params = torch.cat([frame.domain.to(lane_dtype).reshape(-1), self.lo.to(lane_dtype),
+                                self.inv_d.to(lane_dtype), ends])
+            edge_dtype = torch.promote_types(lane_dtype, self.edges0.dtype)
+            self._tables = (key, frame.domain, (params.contiguous(), tuple(
+                e.to(edge_dtype).contiguous() for e in edges)))
+        return self._tables[2]
 
 
 def _axis_uniform(edges: np.ndarray) -> bool:
@@ -619,8 +646,20 @@ def find_cell_direct(cfg: Config, index: RectilinearIndex, frame: HydroFrame, po
 
     findContainingHydroCell (reference: Src/mclib.c:436-615): out-of-domain
     photons get cell = -1.  ``pos`` is (N, 3) MCRaT Cartesian.  Returns
-    (cell int32, in_grid bool).
+    (cell int32, in_grid bool).  CPU tensors run the plain version,
+    :func:`find_cell_direct_reference`; CUDA tensors launch the hand-written
+    kernel of ``csrc/direct_lookup.cu`` once (``ops.direct_lookup``), which
+    gives its cells bit for bit.
     """
+    telemetry.count("grid.lookup_lanes", pos.shape[0])
+    if pos.device.type == "cpu":
+        return find_cell_direct_reference(cfg, index, frame, pos)
+    return direct_lookup(cfg, index, frame, pos)
+
+
+def find_cell_direct_reference(cfg: Config, index: RectilinearIndex, frame: HydroFrame, pos):
+    """:func:`find_cell_direct` as torch ops on any device, the direct
+    lookup kernel's plain version."""
     r0, r1, r2, inside = _hydro_inside(cfg, frame, pos)
     cell = torch.where(inside, index.find(r0, r1, r2), -1).to(torch.int32)
     return cell, inside & (cell >= 0)

@@ -54,6 +54,7 @@ from .grid import (PCOL, BinnedIndex, HydroFrame, HydroFrameHost, RectilinearInd
 from .ops import compton, electrons
 from .ops import fused_round as fr
 from .ops import hot_xsec
+from .ops.direct_lookup import direct_lookup_flags
 from .ops.fourvec import lorentz_boost
 from .ops.prng import MASK32, Key
 from .ops.stokes import stokes_rotation
@@ -748,6 +749,23 @@ def lane_flags(alive, pool, in_grid) -> torch.Tensor:
             + in_grid.to(torch.int32) * fr.FLAG_INGRID)
 
 
+def direct_lane_inputs(cfg: Config, index: RectilinearIndex, frame: HydroFrame, pos, alive,
+                       pool):
+    """One fused-round call's lane inputs on the direct branch: (cell, safe,
+    flags), the lanes' containing cells (``find_cell_direct``), the cells
+    clamped to a valid index and the :func:`lane_flags` word.  CPU tensors
+    run those three as torch ops; CUDA tensors launch the direct lookup
+    kernel once (``ops.direct_lookup.direct_lookup_flags``), which gives the
+    same values bit for bit."""
+    if pos.device.type == "cpu":
+        cell, in_grid = find_cell_direct(cfg, index, frame, pos)
+        safe = torch.clamp(cell, 0, frame.num_elements - 1).to(torch.int32)
+        return cell, safe, lane_flags(alive, pool, in_grid)
+    telemetry.count("grid.lookup_lanes", pos.shape[0])
+    return direct_lookup_flags(cfg, index, frame, pos, alive, pool,
+                               (fr.FLAG_ALIVE, fr.FLAG_POOL, fr.FLAG_INGRID))
+
+
 _NO_FLOAT64_KERNEL = ("the fused-round kernel runs float32 photons only (as the JAX "
                       "package's); float64 runs take the XLA engine (fused=None or False)")
 
@@ -777,7 +795,8 @@ def transport_rounds_fused(
     Two branches, as JAX's glue:
 
     * direct (:class:`~mcrat_tpu_torch.grid.RectilinearIndex`): every call
-      looks every lane up (``find_cell_direct``); the active-first row
+      looks every lane up (:func:`direct_lane_inputs`: ``find_cell_direct``,
+      the clamp and the lane flags, on the card one launch); the active-first row
       partition is redone only when the active-row count dropped by >= 1/8;
     * carried (:class:`~mcrat_tpu_torch.grid.BinnedIndex`, AMR): each lane
       carries its cell, ``find_cell_rows`` re-resolves only the lanes that
@@ -857,18 +876,21 @@ def transport_rounds_fused(
             block_act = (block_iota < -(-n_act // s_rows)).to(torch.int32)
             with telemetry.span("grid.lookup"):
                 cell, in_grid = find_cell_rows(cfg, index, frame, pos(state), cell)
+            safe = torch.clamp(cell, 0, n_cell - 1).to(torch.int32)
+            flags = None  # the lane flags, inside the call's span
         else:
             block_act = act_row.view(n_blocks, s_rows).any(dim=1).to(torch.int32)
             with telemetry.span("grid.lookup"):
-                cell, in_grid = find_cell_direct(cfg, index, frame, pos(state))
-        safe = torch.clamp(cell, 0, n_cell - 1).to(torch.int32)
+                cell, safe, flags = direct_lane_inputs(cfg, index, frame, pos(state), alive,
+                                                       pool)
         aux = None
         if kflags.aux is not None:
             with telemetry.span("transport.aux_planes"):
                 aux = aux_planes(cfg, kflags.aux, frame, safe, state[fr.SP_C0]).contiguous()
         with telemetry.span("fused_round.call"):
             out = rounds_fn(
-                state, safe, lane_flags(alive, pool, in_grid), table, block_act,
+                state, safe, lane_flags(alive, pool, in_grid) if flags is None else flags,
+                table, block_act,
                 fr.rng_seed_i32(base_seed + rounds * 7919), grid,
                 stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=block_lanes,
                 variant=variant, cheb_base=kflags.cheb_base, nt=kflags.nt, aux=aux,
@@ -881,6 +903,9 @@ def transport_rounds_fused(
         promoted_any = promoted_any | promoted
         rounds += inner_rounds
 
+    # the last call's lane inputs go before the planes are copied back, the
+    # frame's peak of device memory
+    safe = flags = in_grid = None
     # undo the active-first partitions
     with telemetry.span("transport.unplane"):
         inv = torch.empty_like(orig)
