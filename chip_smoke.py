@@ -468,7 +468,7 @@ def problem(name, device, n_min, n_max, seed=0, hot=False, mode="direct", tables
     photons, _ = transport.photons_from_arrays(arrays, dtype=dtype, device=device)
     frame = host.to_device(device, dtype=dtype)
     if dtype == torch.float32:
-        variant = transport.select_variant(cfg, frame, index, xsec)[0]
+        variant = transport.select_variant(cfg, frame, index, xsec).variant
         if mode in ("direct", "table", *AUX_MODES) and variant != PATHS[name][2]:
             raise RuntimeError(f"{name} ({mode}) selects {variant}, not {PATHS[name][2]}")
     return Problem(cfg, photons, frame, index, xsec, PATHS[name][0])
@@ -719,15 +719,14 @@ def call_inputs(prob, stokes_on, idle_block=None, pool_lanes=False, s_rows=128,
         block_act = torch.ones(state.shape[1] // block_lanes, dtype=torch.int32, device=device)
     if idle_block is not None:
         block_act[idle_block] = 0
-    grid = transport.grid_scalars(frame, index)
-    variant, table, kflags = transport.select_variant(cfg, frame, index, prob.xsec)
-    inst = fr.instantiation(variant, kflags.cheb_base, kflags.nt, stokes_on,
-                            kflags.aux is not None)
-    aux = (None if kflags.aux is None else
-           transport.aux_planes(cfg, kflags.aux, frame, cell, state[fr.SP_C0]).contiguous())
-    kw = dict(stokes_on=stokes_on, inner_rounds=4, block_lanes=block_lanes, variant=variant,
-              cheb_base=kflags.cheb_base, nt=kflags.nt, aux=aux)
-    return Call(inst, state, alive, (cell, flags, table, block_act, seed, grid), kw)
+    setup = transport.select_variant(cfg, frame, index, prob.xsec)
+    inst = fr.instantiation(setup.variant, setup.cheb_base, setup.nt, stokes_on,
+                            setup.aux is not None)
+    aux = (None if setup.aux is None else
+           transport.aux_planes(cfg, setup.aux, frame, cell, state[fr.SP_C0]).contiguous())
+    kw = dict(stokes_on=stokes_on, inner_rounds=4, block_lanes=block_lanes,
+              variant=setup.variant, cheb_base=setup.cheb_base, nt=setup.nt, aux=aux)
+    return Call(inst, state, alive, (cell, flags, setup.table, block_act, seed, setup.grid), kw)
 
 
 # the compaction edge cases (edge_call): in CUDA blocks 0-6 of logical block
@@ -935,9 +934,9 @@ def instantiation_of(prob, stokes_on=True):
     from mcrat_tpu_torch import transport
     from mcrat_tpu_torch.ops import fused_round as fr
 
-    variant, _, kflags = transport.select_variant(prob.cfg, prob.frame, prob.index, prob.xsec)
-    return fr.instantiation(variant, kflags.cheb_base, kflags.nt, stokes_on,
-                            kflags.aux is not None)
+    setup = transport.select_variant(prob.cfg, prob.frame, prob.index, prob.xsec)
+    return fr.instantiation(setup.variant, setup.cheb_base, setup.nt, stokes_on,
+                            setup.aux is not None)
 
 
 def check_launches(name, inst, launches, twin_launches, device, engine="kernel"):

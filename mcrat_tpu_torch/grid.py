@@ -33,7 +33,7 @@ from . import geometry as geo
 from . import telemetry
 from .device import resolve_device
 from .ops.binned_search import binned_search
-from .ops.direct_lookup import direct_lookup
+from .ops.direct_lookup import direct_lookup, direct_lookup_flags
 
 # Row layout of HydroFrame.packed (mcrat_tpu.grid.PCOL).  In 3-D, v0..v2 hold
 # the fluid velocity already in MCRaT Cartesian (to_device pre-transforms
@@ -488,9 +488,6 @@ class BinnedIndex:
         slabs hold at most :data:`SEARCH_BUDGET_BYTES`."""
         chunk = max(1, SEARCH_BUDGET_BYTES // (_SEARCH_BYTES_PER_CANDIDATE * self.max_slab))
         n = r0.shape[0]
-        telemetry.count("grid.search_chunks", max(1, -(-n // chunk)))
-        telemetry.count("grid.search_candidates",
-                        n * (27 if self.dims[2] > 1 else 9) * self.max_slab)
         if n <= chunk:
             return self._find_chunk(r0, r1, r2, frame)
         return torch.cat([self._find_chunk(r0[a:a + chunk], r1[a:a + chunk], r2[a:a + chunk],
@@ -642,19 +639,30 @@ def find_cell_rows(cfg: Config, index, frame: HydroFrame, pos, cached, all_lanes
 
 
 def find_cell_direct(cfg: Config, index: RectilinearIndex, frame: HydroFrame, pos):
-    """Containing-cell lookup for the rectilinear index.
-
-    findContainingHydroCell (reference: Src/mclib.c:436-615): out-of-domain
-    photons get cell = -1.  ``pos`` is (N, 3) MCRaT Cartesian.  Returns
-    (cell int32, in_grid bool).  CPU tensors run the plain version,
-    :func:`find_cell_direct_reference`; CUDA tensors launch the hand-written
-    kernel of ``csrc/direct_lookup.cu`` once (``ops.direct_lookup``), which
-    gives its cells bit for bit.
-    """
+    """Containing-cell lookup for the rectilinear index
+    (findContainingHydroCell, reference: Src/mclib.c:436-615) of (N, 3)
+    MCRaT Cartesian ``pos``: (cell int32, -1 outside the domain; in_grid
+    bool).  CPU tensors run the plain version, :func:`find_cell_direct_reference`;
+    CUDA tensors one launch of ``csrc/direct_lookup.cu`` (``ops.direct_lookup``),
+    bit for bit the same."""
     telemetry.count("grid.lookup_lanes", pos.shape[0])
     if pos.device.type == "cpu":
         return find_cell_direct_reference(cfg, index, frame, pos)
     return direct_lookup(cfg, index, frame, pos)
+
+
+def find_cell_direct_flags(cfg: Config, index: RectilinearIndex, frame: HydroFrame, pos, alive,
+                           pool, bits):
+    """:func:`find_cell_direct` with a fused-round call's lane inputs, as
+    ``ops.direct_lookup.direct_lookup_flags`` gives them (one launch) on
+    CUDA tensors: (cell, safe, flags), bit for bit the plain version's."""
+    telemetry.count("grid.lookup_lanes", pos.shape[0])
+    if pos.device.type != "cpu":
+        return direct_lookup_flags(cfg, index, frame, pos, alive, pool, bits)
+    cell, in_grid = find_cell_direct_reference(cfg, index, frame, pos)
+    safe = torch.clamp(cell, 0, frame.num_elements - 1).to(torch.int32)
+    return cell, safe, (alive.to(torch.int32) * bits[0] + pool.to(torch.int32) * bits[1]
+                        + in_grid.to(torch.int32) * bits[2])
 
 
 def find_cell_direct_reference(cfg: Config, index: RectilinearIndex, frame: HydroFrame, pos):

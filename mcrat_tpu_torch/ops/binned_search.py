@@ -6,16 +6,13 @@ plain version, torch ops in lane chunks) bit for bit, in one launch on the
 current stream, with no host sync and no temporaries beyond its int32
 output.  It adapts to what the call brings: the lanes' dtype (float32 or
 float64) and the frame's, and whether the index has more than one bin along
-axis 2.  ``binned_search.launches`` counts its launches; the telemetry
-counter ``grid.search_kernel_lanes`` the lanes it searched.
+axis 2.  ``binned_search.launches`` counts its launches.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
-
-from .. import telemetry
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -56,7 +53,6 @@ def binned_search(index, r0, r1, r2, frame) -> torch.Tensor:
         raise RuntimeError(f"binned_search kernel launch failed: "
                            f"{lib.mcrat_binned_search_error_string(err).decode()}")
     binned_search.launches += 1
-    telemetry.count("grid.search_kernel_lanes", n)
     return out
 
 

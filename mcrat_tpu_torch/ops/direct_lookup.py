@@ -10,14 +10,12 @@ Each is one launch on the current stream, with no host sync and no
 temporaries beyond its outputs.  They adapt to what the call brings: the
 configuration's dims and geometry, the index's uniform axes and dtype, and
 the positions' dtype (float32 or float64) and strides.
-``direct_lookup.launches`` counts the launches of both; the telemetry
-counter ``grid.lookup_kernel_lanes`` the lanes they looked up.
+``direct_lookup.launches`` counts the launches of both.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import telemetry
 from ..config import Dims, Geometry
 
 _DTYPES = (torch.float32, torch.float64)
@@ -74,7 +72,6 @@ def _launch(cfg, index, frame, pos, cell, in_grid=None, alive=None, pool=None, s
         raise RuntimeError(f"direct_lookup kernel launch failed: "
                            f"{lib.mcrat_direct_lookup_error_string(err).decode()}")
     direct_lookup.launches += 1
-    telemetry.count("grid.lookup_kernel_lanes", n)
 
 
 def direct_lookup(cfg, index, frame, pos):

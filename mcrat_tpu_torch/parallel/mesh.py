@@ -33,7 +33,6 @@ collectives: every process makes them at the same point.
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import datetime
 from typing import List, Optional, Sequence
@@ -45,7 +44,7 @@ import torch.distributed as dist
 from .. import transport as tr
 from ..config import Config
 from ..ops import fused_round as fr
-from ..ops.prng import MASK32, Key
+from ..ops.prng import Key
 
 # the backend of each device type; nothing picks another by itself
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -484,12 +483,6 @@ def gather_live(sp: Sharded, n_out: int) -> tr.Photons:
 # ---------------------------------------------------------------------------
 
 
-def _device_scope(dev: torch.device):
-    """The shard's card made current around its calls (the kernel launches
-    on the current device's stream)."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-
-
 def _reduce_chunk(mesh: Mesh, results: list) -> torch.Tensor:
     """The shards' chunk results summed over the process's shards, then over
     every process in one collective: [n_scatt, n_active, n_cs, shards done,
@@ -577,8 +570,8 @@ def sharded_transport_frame(
     the same value on every process, sharded here), ``frame`` and ``index``
     replicated to the shards' devices here.
 
-    The engine is chosen on one shard (``fused=None``:
-    ``fused_transport_available`` on shard 0's slab).  The kernel's chunks
+    The engine is ``transport.frame_engine``'s, chosen on shard 0's slab
+    (the kernel's setup built once a device).  The kernel's chunks
     each draw ``n_shards`` seeds from ``generator`` in global shard order,
     shard ``i`` taking seed ``i`` (every process draws all of them, so the
     generators stay in step; a one-shard mesh draws what
@@ -595,53 +588,23 @@ def sharded_transport_frame(
     n = mesh.n_shards
     if not isinstance(photons, Sharded):
         photons = shard_photons(photons, mesh)
-    tr.check_xsec_table(cfg, xsec_table)
-    frames, indexes = replicate(frame, mesh), replicate(index, mesh)
-    reason = tr.unsupported_reason(cfg, frames[0], indexes[0])
-    if reason is not None:
-        raise NotImplementedError(reason)
-    if fused is None:
-        fused = tr.fused_transport_available(cfg, photons.parts[0], frames[0], indexes[0],
-                                             xsec_table)
-    if fused and photons.parts[0].p.dtype != torch.float32:
-        raise ValueError("fused=True: " + tr._NO_FLOAT64_KERNEL)
-    if generator is None and (fused or key is None):
-        raise ValueError("sharded_transport_frame needs generator= (the kernel's seeds) or, "
-                         "on the XLA engine, key=")
-    setups = {}
-    if fused:
-        for i, dev in enumerate(mesh.devices):
-            if dev not in setups:
-                with _device_scope(dev):
-                    setups[dev] = tr.select_variant(cfg, frames[i], indexes[i], xsec_table)
-        key = None
-    elif key is None:
-        key = Key.from_seed(tr.draw_seed(generator) & MASK32, device=mesh.devices[0])
+    sites = list(zip(mesh.devices, replicate(frame, mesh), replicate(index, mesh)))
     if t_rem0 is None:
         t_rem0 = Sharded(mesh, [tr.frame_time(p, dt_max) for p in photons.parts])
 
-    def step_fn(work: Sharded, work_t: Sharded, sub: Optional[Key]) -> tr.ChunkResult:
-        if fused:
-            seeds = [tr.draw_seed(generator) for _ in range(n)]
-        else:
-            keys = sub.split(n)
+    def step(eng: tr.FrameEngine, work: Sharded, work_t: Sharded,
+             sub: Optional[Key]) -> tr.ChunkResult:
+        draws = [tr.draw_seed(generator) for _ in range(n)] if eng.fused else sub.split(n)
         results = []
         for i, (ph, t) in enumerate(zip(work.parts, work_t.parts)):
             g = mesh.first + i
-            dev = mesh.devices[i]
-            with _device_scope(dev):
-                if fused:
-                    before = fr.fused_rounds.launches
-                    res = tr.transport_rounds_fused(
-                        cfg, ph, frames[i], indexes[i], t, base_seed=seeds[g],
-                        setup=setups[dev], stokes_on=stokes_on, max_rounds=chunk_rounds,
-                        inner_rounds=inner_rounds, s_rows=s_rows, rounds_fn=rounds_fn)
+            with tr.device_scope(mesh.devices[i]):
+                before = fr.fused_rounds.launches
+                results.append(eng.step(i, ph, t, draws[g], stokes_on=stokes_on,
+                                        max_rounds=chunk_rounds, inner_rounds=inner_rounds,
+                                        s_rows=s_rows, rounds_fn=rounds_fn))
+                if eng.fused:
                     mesh.launches[g] += fr.fused_rounds.launches - before
-                else:
-                    res = tr.transport_rounds(cfg, ph, frames[i], indexes[i], t, keys[g],
-                                              xsec_table=xsec_table, stokes_on=stokes_on,
-                                              max_rounds=chunk_rounds)
-            results.append(res)
         red = _reduce_chunk(mesh, results)
         return tr.ChunkResult(
             photons=Sharded(mesh, [r.photons for r in results]),
@@ -651,6 +614,6 @@ def sharded_transport_frame(
 
     return tr.transport_frame(
         cfg, photons, None, None, dt_max, generator, stokes_on=stokes_on,
-        chunk_rounds=chunk_rounds, fused=fused, t_rem0=t_rem0, cs_limit=cs_limit, key=key,
-        step_fn=step_fn, compact_fn=_compact_sharded, finish_fn=_finish_sharded,
-        min_compact_capacity=max(tr.MIN_COMPACT_CAPACITY, n * 128))
+        chunk_rounds=chunk_rounds, fused=fused, xsec_table=xsec_table, t_rem0=t_rem0,
+        cs_limit=cs_limit, key=key, min_compact_capacity=max(tr.MIN_COMPACT_CAPACITY, n * 128),
+        shards=tr.Shards(sites, step, _compact_sharded, _finish_sharded))

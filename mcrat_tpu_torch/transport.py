@@ -6,7 +6,7 @@ the frame's time window, concurrently with all others:
     while any photon has frame-time left:
         lookup cell -> tau-rate -> sample dt -> move -> attempt KN scatter
 
-Two engines run the rounds, chosen per frame by :func:`transport_frame` as
+Two engines run the rounds, chosen once a frame by :func:`frame_engine` as
 the JAX package chooses (``fused_transport_available``):
 
 * the fused-round kernel (``ops.fused_round``): a hand-written CUDA kernel
@@ -34,8 +34,9 @@ without a host sync.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,12 +50,11 @@ from . import geometry as geo
 from . import telemetry
 from .device import resolve_device
 from .grid import (PCOL, BinnedIndex, HydroFrame, HydroFrameHost, RectilinearIndex,
-                   find_cell_direct, find_cell_rows, fluid_beta_from_rows,
-                   gather_rows)
+                   find_cell_direct, find_cell_direct_flags, find_cell_rows,
+                   fluid_beta_from_rows, gather_rows)
 from .ops import compton, electrons
 from .ops import fused_round as fr
 from .ops import hot_xsec
-from .ops.direct_lookup import direct_lookup_flags
 from .ops.fourvec import lorentz_boost
 from .ops.prng import MASK32, Key
 from .ops.stokes import stokes_rotation
@@ -579,10 +579,8 @@ def transport_rounds(
 def fused_transport_available(cfg: Config, photons: Photons, frame: HydroFrame,
                               index, xsec_table=None) -> bool:
     """True when the CUDA fused-round kernel covers this run: CUDA float32
-    photons, any (dims x geometry) frame on a RectilinearIndex or a
-    BinnedIndex, DIRECT optical depth, or TABLE with its tables.  There is
-    no capacity floor: every chunk, compacted tail included, goes through
-    the kernel."""
+    photons, a frame and index :func:`unsupported_reason` takes, TABLE with
+    its tables; no capacity floor (a compacted tail runs on the kernel)."""
     return (
         photons.device.type == "cuda"
         and photons.p.dtype == torch.float32
@@ -591,22 +589,27 @@ def fused_transport_available(cfg: Config, photons: Photons, frame: HydroFrame,
     )
 
 
-class KernelFlags(NamedTuple):
-    """Optical-depth flags of a kernel call: ``cheb_base`` (0 for DIRECT,
-    else the table row where the TABLE Chebyshev rows start), ``nt`` (the
-    nonthermal constants, or None) and ``aux`` (the hot cross-section
-    tables of TABLE through per-lane aux planes, :func:`aux_planes`: the
-    carried AMR path; None otherwise)."""
+class KernelSetup(NamedTuple):
+    """What a frame's fused-round calls share (:func:`select_variant`): the
+    ``variant``, its (W, Ncell) float32 cell ``table``, ``cheb_base`` (0 for
+    DIRECT, else the row where the TABLE Chebyshev rows start), ``nt`` (the
+    nonthermal constants, or None), ``aux`` (TABLE's tables for the per-lane
+    aux planes of the carried AMR path, :func:`aux_planes`; else None) and
+    the ``grid`` scalars (:func:`grid_scalars`)."""
 
-    cheb_base: int = 0
-    nt: Optional[fr.NtConstants] = None
-    aux: Optional[hot_xsec.HotCrossSectionTable] = None
+    variant: str
+    table: torch.Tensor
+    cheb_base: int
+    nt: Optional[fr.NtConstants]
+    aux: Optional[hot_xsec.HotCrossSectionTable]
+    grid: fr.GridScalars
 
 
-def select_variant(cfg: Config, frame: HydroFrame, index, xsec_table=None):
-    """The kernel variant, its cell table and its :class:`KernelFlags` for a
-    frame (``mcrat_tpu.transport.transport_rounds_fused``'s selection,
-    without the TPU's index-bit size limits): ultra on uniform 2-D
+def select_variant(cfg: Config, frame: HydroFrame, index, xsec_table=None) -> KernelSetup:
+    """The frame's :class:`KernelSetup`, after :func:`check_xsec_table` and
+    :func:`unsupported_reason` (NotImplementedError).  The variant is
+    ``mcrat_tpu.transport.transport_rounds_fused``'s selection, without the
+    TPU's index-bit size limits: ultra on uniform 2-D
     cartesian/cylindrical/spherical frames without a phi-hat velocity and
     on uniform 3-D cartesian frames; slim on the other 2-D
     cartesian/cylindrical frames without one; packed everywhere else, and
@@ -620,15 +623,14 @@ def select_variant(cfg: Config, frame: HydroFrame, index, xsec_table=None):
     the sampler constants (``fused_round.nonthermal_constants``).
 
     A :class:`~mcrat_tpu_torch.grid.BinnedIndex` (the carried AMR path)
-    takes the packed variant of the geometry, and in TABLE mode no
-    Chebyshev rows: per-lane aux planes (:func:`aux_planes`, ``KernelFlags.
-    aux``), as the JAX glue's carried path (mcrat_tpu/transport.py:713-720).
-    With tracing on, the per-frame fit of the Chebyshev rows is the span
-    ``hot_xsec.cheb_cells`` (and the counter ``hot_xsec.cells_fitted``, the
-    cells fitted), that of the subgroup-1 fit and the nonthermal constants
-    the span ``hot_xsec.nt_constants``.
-    Returns (variant name, (W, Ncell) float32 table, KernelFlags)."""
+    takes the packed variant of the geometry, and in TABLE mode per-lane
+    aux planes, not Chebyshev rows (mcrat_tpu/transport.py:713-720).  The
+    per-frame fits are the spans ``hot_xsec.cheb_cells`` (the rows) and
+    ``hot_xsec.nt_constants`` (the subgroup-1 fit and the constants)."""
     check_xsec_table(cfg, xsec_table)
+    reason = unsupported_reason(cfg, frame, index)
+    if reason is not None:
+        raise NotImplementedError(reason)
     geom, dims = cfg.geometry, cfg.dims
     nonthermal = cfg.nonthermal_e_dist is not NonthermalDist.OFF
     cyl = geom in (Geometry.CARTESIAN, Geometry.CYLINDRICAL)
@@ -652,21 +654,21 @@ def select_variant(cfg: Config, frame: HydroFrame, index, xsec_table=None):
         name = f"packed_{'cyl' if cyl else 'sph'}{'25' if dims is Dims.TWO_POINT_FIVE else '2'}"
     if table is None:
         table = frame.packed
+    grid = grid_scalars(frame, index)
     if cfg.tau_calculation is not TauCalculation.TABLE:
-        return name, table, KernelFlags()
+        return KernelSetup(name, table, 0, None, None, grid)
     if carried:
         nt = fr.nonthermal_constants(cfg) if nonthermal else None
-        return name, table, KernelFlags(nt=nt, aux=xsec_table)
+        return KernelSetup(name, table, 0, nt, xsec_table, grid)
     with telemetry.span("hot_xsec.cheb_cells"):
         cheb = hot_xsec.thermal_cheb_cells(xsec_table, frame.temp)
         table = torch.cat([table, cheb.to(table.device)], dim=0).contiguous()
-    telemetry.count("hot_xsec.cells_fitted", frame.temp.shape[0])
     nt = None
     if nonthermal:
         with telemetry.span("hot_xsec.nt_constants"):
             sub1 = hot_xsec._sub1_cheb_static(cfg, xsec_table.log_e, xsec_table.nonthermal[:, 0])
             nt = fr.nonthermal_constants(cfg, sub1)
-    return name, table, KernelFlags(fr.VARIANTS[name].width, nt)
+    return KernelSetup(name, table, fr.VARIANTS[name].width, nt, None, grid)
 
 
 def grid_scalars(frame: HydroFrame, index) -> fr.GridScalars:
@@ -751,19 +753,10 @@ def lane_flags(alive, pool, in_grid) -> torch.Tensor:
 
 def direct_lane_inputs(cfg: Config, index: RectilinearIndex, frame: HydroFrame, pos, alive,
                        pool):
-    """One fused-round call's lane inputs on the direct branch: (cell, safe,
-    flags), the lanes' containing cells (``find_cell_direct``), the cells
-    clamped to a valid index and the :func:`lane_flags` word.  CPU tensors
-    run those three as torch ops; CUDA tensors launch the direct lookup
-    kernel once (``ops.direct_lookup.direct_lookup_flags``), which gives the
-    same values bit for bit."""
-    if pos.device.type == "cpu":
-        cell, in_grid = find_cell_direct(cfg, index, frame, pos)
-        safe = torch.clamp(cell, 0, frame.num_elements - 1).to(torch.int32)
-        return cell, safe, lane_flags(alive, pool, in_grid)
-    telemetry.count("grid.lookup_lanes", pos.shape[0])
-    return direct_lookup_flags(cfg, index, frame, pos, alive, pool,
-                               (fr.FLAG_ALIVE, fr.FLAG_POOL, fr.FLAG_INGRID))
+    """One fused-round call's lane inputs on the direct branch, (cell, safe,
+    :func:`lane_flags` word): ``grid.find_cell_direct_flags``."""
+    return find_cell_direct_flags(cfg, index, frame, pos, alive, pool,
+                                  (fr.FLAG_ALIVE, fr.FLAG_POOL, fr.FLAG_INGRID))
 
 
 _NO_FLOAT64_KERNEL = ("the fused-round kernel runs float32 photons only (as the JAX "
@@ -777,7 +770,7 @@ def transport_rounds_fused(
     index,
     t_rem: torch.Tensor,
     base_seed: int,
-    setup: tuple,
+    setup: KernelSetup,
     stokes_on: bool = True,
     max_rounds: int = 0,
     inner_rounds: int = 4,
@@ -804,7 +797,7 @@ def transport_rounds_fused(
       before every call (the leading blocks active, ``block_act``), as
       JAX's carried loop, so the counter stream meets the same lane
       positions.  In TABLE mode the kernel reads per-lane aux planes
-      (:func:`aux_planes`, from the tables in ``KernelFlags.aux``) and
+      (:func:`aux_planes`, from the tables in ``KernelSetup.aux``) and
       stalls a lane after it scatters as well.
 
     The lanes live in (16, Npad) float32 planes (``fused_round.SP_*``), Npad
@@ -813,15 +806,11 @@ def transport_rounds_fused(
     seed is ``base_seed + rounds * 7919`` (int32 wrap).  ``rounds_fn`` is the
     round implementation: the kernel wrapper, or ``fused_rounds_reference``
     to run the plain twin on any device for comparisons.  ``setup`` is the
-    frame's :func:`select_variant` result (variant, cell table, KernelFlags),
-    built once per frame by the caller.
+    frame's :class:`KernelSetup` (:func:`select_variant`, which checked the
+    frame and index), built once a frame by the caller.
     """
-    reason = unsupported_reason(cfg, frame, index)
-    if reason is not None:
-        raise NotImplementedError(reason)
     if photons.p.dtype != torch.float32:
         raise ValueError(_NO_FLOAT64_KERNEL)
-    variant, table, kflags = setup
     carried = isinstance(index, BinnedIndex)
     dev = photons.device
     cap = photons.capacity
@@ -838,7 +827,6 @@ def transport_rounds_fused(
         block_iota = torch.arange(n_blocks, device=dev)
         orig = row_iota.clone()  # row -> original row, across partitions
         ns0 = state[fr.SP_NS].to(torch.int64).sum()
-        grid = grid_scalars(frame, index)
         n_cell = frame.num_elements
         cell = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
         cell[:cap] = photons.cell
@@ -871,7 +859,6 @@ def transport_rounds_fused(
                 orig = orig[perm]
                 act_row = row_iota < n_act
             n_last = n_act
-            telemetry.count("transport.partitions")
         if carried:
             block_act = (block_iota < -(-n_act // s_rows)).to(torch.int32)
             with telemetry.span("grid.lookup"):
@@ -884,16 +871,16 @@ def transport_rounds_fused(
                 cell, safe, flags = direct_lane_inputs(cfg, index, frame, pos(state), alive,
                                                        pool)
         aux = None
-        if kflags.aux is not None:
+        if setup.aux is not None:
             with telemetry.span("transport.aux_planes"):
-                aux = aux_planes(cfg, kflags.aux, frame, safe, state[fr.SP_C0]).contiguous()
+                aux = aux_planes(cfg, setup.aux, frame, safe, state[fr.SP_C0]).contiguous()
         with telemetry.span("fused_round.call"):
             out = rounds_fn(
                 state, safe, lane_flags(alive, pool, in_grid) if flags is None else flags,
-                table, block_act,
-                fr.rng_seed_i32(base_seed + rounds * 7919), grid,
+                setup.table, block_act,
+                fr.rng_seed_i32(base_seed + rounds * 7919), setup.grid,
                 stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=block_lanes,
-                variant=variant, cheb_base=kflags.cheb_base, nt=kflags.nt, aux=aux,
+                variant=setup.variant, cheb_base=setup.cheb_base, nt=setup.nt, aux=aux,
             )
         telemetry.count("transport.kernel_calls")
         telemetry.count("transport.rows_active", n_act)
@@ -1003,10 +990,85 @@ def _write_back(result_ph: Photons, slots: torch.Tensor, work_ph: Photons,
     return result_ph, result_t
 
 
-def _population_device(photons) -> torch.device:
-    """The device of a population, or of a sharded population's first slab."""
-    parts = getattr(photons, "parts", None)
-    return parts[0].device if parts else photons.device
+def device_scope(dev: torch.device):
+    """``dev`` made current if it is a card (a kernel launches on the current device's stream)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+class FrameEngine(NamedTuple):
+    """A frame's engine (:func:`frame_engine`): ``fused`` (the kernel, else
+    the XLA engine), ``key`` (the XLA engine's; None on the kernel) and each
+    shard's (frame, index, :class:`KernelSetup` or None) in ``sites``."""
+
+    cfg: Config
+    xsec_table: Optional[hot_xsec.HotCrossSectionTable]
+    fused: bool
+    key: Optional[Key]
+    sites: list
+
+    def step(self, shard: int, photons: Photons, t_rem: torch.Tensor, draw, stokes_on=True,
+             max_rounds=0, inner_rounds=4, s_rows=128, rounds_fn=fr.fused_rounds) -> ChunkResult:
+        """One chunk of shard ``shard`` (0 on a plain frame): the kernel with
+        base seed ``draw`` (:func:`transport_rounds_fused`) or the XLA
+        engine with key ``draw`` (:func:`transport_rounds`)."""
+        frame, index, setup = self.sites[shard]
+        if self.fused:
+            return transport_rounds_fused(
+                self.cfg, photons, frame, index, t_rem, base_seed=draw, setup=setup,
+                stokes_on=stokes_on, max_rounds=max_rounds, inner_rounds=inner_rounds,
+                s_rows=s_rows, rounds_fn=rounds_fn)
+        return transport_rounds(self.cfg, photons, frame, index, t_rem, draw,
+                                xsec_table=self.xsec_table, stokes_on=stokes_on,
+                                max_rounds=max_rounds)
+
+
+def frame_engine(cfg: Config, photons: Photons, sites, xsec_table=None,
+                 fused: Optional[bool] = None, generator: Optional[torch.Generator] = None,
+                 key: Optional[Key] = None) -> FrameEngine:
+    """The engine of a frame whose shards are ``sites`` (each a (device,
+    frame, index); one on a plain frame), chosen and checked once a frame on
+    ``photons`` (the first shard's) and the first site, as
+    :func:`transport_frame` says.  The kernel gets one :class:`KernelSetup`
+    a device (:func:`select_variant`, in the span
+    ``transport.select_variant``); the XLA engine ``key`` or, without one,
+    a key seeded by one draw of ``generator``."""
+    dev0, frame, index = sites[0]
+    check_xsec_table(cfg, xsec_table)
+    reason = unsupported_reason(cfg, frame, index)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    if fused is None:
+        fused = fused_transport_available(cfg, photons, frame, index, xsec_table)
+    if fused and photons.p.dtype != torch.float32:
+        raise ValueError("fused=True: " + _NO_FLOAT64_KERNEL)
+    if generator is None and (fused or key is None):
+        raise ValueError("a frame needs generator= (on the XLA engine generator= or key=)")
+    setups = {}
+    if fused:
+        key = None
+        with telemetry.span("transport.select_variant"):
+            for dev, f, ix in sites:
+                if dev not in setups:
+                    with device_scope(dev):
+                        setups[dev] = select_variant(cfg, f, ix, xsec_table)
+    elif key is None:
+        key = Key.from_seed(draw_seed(generator) & MASK32, device=dev0)
+    return FrameEngine(cfg, xsec_table, fused, key,
+                       [(f, ix, setups.get(dev)) for dev, f, ix in sites])
+
+
+class Shards(NamedTuple):
+    """The hooks through which ``parallel.mesh`` shards :func:`transport_frame`'s
+    chunk loop (the JAX package's): ``sites`` for :func:`frame_engine`;
+    ``step(engine, work_ph, work_t, sub)``, a chunk of every shard (``sub``
+    the chunk's key split; ``n_rounds`` a tensor and ``n_cs`` a count may
+    ride in the chunk's fetch); ``compact`` and ``finish`` for
+    :func:`_compact_step` (``new_cap`` may grow) and :func:`_write_back`."""
+
+    sites: list
+    step: Callable
+    compact: Callable
+    finish: Callable
 
 
 def transport_frame(
@@ -1025,22 +1087,22 @@ def transport_frame(
     t_rem0: Optional[torch.Tensor] = None,
     cs_limit: Optional[int] = None,
     key: Optional[Key] = None,
-    step_fn=None,
-    compact_fn=None,
-    finish_fn=None,
+    shards: Optional[Shards] = None,
     min_compact_capacity: Optional[int] = None,
 ) -> FrameResult:
     """Advance the whole population through one hydro-frame time window.
 
-    The engine (``FrameResult.engine``), as the JAX package chooses it:
-    ``fused=None`` takes the fused-round kernel (:func:`transport_rounds_fused`)
-    exactly when :func:`fused_transport_available` holds (CUDA float32 photons,
-    the tables a TABLE run needs) and the XLA engine (:func:`transport_rounds`)
+    The engine (``FrameResult.engine``, :func:`frame_engine`), as the JAX
+    package chooses it: ``fused=None`` takes the fused-round kernel
+    (:func:`transport_rounds_fused`) exactly when
+    :func:`fused_transport_available` holds (CUDA float32 photons, the
+    tables a TABLE run needs) and the XLA engine (:func:`transport_rounds`)
     otherwise; ``fused=True`` takes the kernel on any device (the plain twin
     on CPU tensors) and raises ValueError for float64 photons, which no
     kernel runs; ``fused=False`` takes the XLA engine on any device and
-    dtype.  A kernel that fails to build or launch raises: no run moves to
-    the other engine by itself.
+    dtype.  NotImplementedError for a frame no engine runs
+    (:func:`unsupported_reason`).  A kernel that fails to build or launch
+    raises: no run moves to the other engine by itself.
 
     The engines run in bounded-round chunks when ``chunk_rounds`` > 0, with
     one batched host fetch per chunk.  Once fewer than a quarter of the lanes
@@ -1056,7 +1118,7 @@ def transport_frame(
     key, starts from one seeded by ``generator``.  ``rounds_fn`` is passed to
     :func:`transport_rounds_fused`.  TABLE mode needs ``xsec_table``
     (``ops.hot_xsec.load_or_build``; ValueError without); the kernel's
-    per-cell Chebyshev rows are built once per frame, here.
+    setup, its per-cell Chebyshev rows included, is built once per frame.
 
     ``t_rem0`` resumes a frame left early (each photon's frame time, as a
     ``FrameResult.t_rem`` gives it).  ``cs_limit`` arms the mid-frame rebin
@@ -1066,57 +1128,29 @@ def transport_frame(
     the frame exits with ``rebin_pending`` and the whole population's
     ``t_rem``, so the driver can rebin and re-enter.
 
-    The JAX package's hooks (``parallel.mesh`` runs this one chunk loop
-    with every step sharded over a device mesh):
-    ``step_fn(work_ph, work_t, sub) -> ChunkResult`` replaces the engine
-    (``sub`` the chunk's split of ``key``, None without a key; ``fused`` then
-    names the engine it runs, and ``t_rem0`` is required); ``compact_fn``
-    replaces :func:`_compact_step` (same arguments and returns; it may round
-    ``new_cap`` up); ``finish_fn`` replaces :func:`_write_back`.  A step's
-    ``n_rounds`` may be a tensor and its ``n_cs`` a count; both then ride in
-    the chunk's one fetch.
-
-    The frame is a :func:`telemetry.frame` scope: with tracing on, its steps
-    (the hooks' calls among them) are spans and its counts counters.
+    ``shards`` (:class:`Shards`) shards every step over a device mesh
+    (``photons`` then sharded, ``t_rem0`` required, ``frame`` and ``index``
+    unused).  The frame is a :func:`telemetry.frame` scope: with tracing
+    on, its steps are spans and its counts counters.
     """
     if min_compact_capacity is None:
         min_compact_capacity = MIN_COMPACT_CAPACITY
-    with telemetry.frame(telemetry.FRAME, _population_device(photons)):
-        if step_fn is None:
-            check_xsec_table(cfg, xsec_table)
-            reason = unsupported_reason(cfg, frame, index)
-            if reason is not None:
-                raise NotImplementedError(reason)
-            if fused is None:
-                fused = fused_transport_available(cfg, photons, frame, index, xsec_table)
-            if fused and photons.p.dtype != torch.float32:
-                raise ValueError("fused=True: " + _NO_FLOAT64_KERNEL)
-            if generator is None and (fused or key is None):
-                raise ValueError("transport_frame needs generator= (the kernel's seeds) or, on the "
-                                 "XLA engine, key=")
-            if fused:
-                with telemetry.span("transport.select_variant"):
-                    setup = select_variant(cfg, frame, index, xsec_table)
-                key = None
-            elif key is None:
-                key = Key.from_seed(draw_seed(generator) & MASK32, device=photons.device)
+    first = photons if shards is None else photons.parts[0]  # the engine's checks and choice
+    with telemetry.frame(telemetry.FRAME, first.device):
+        if shards is None:
+            def step(eng, work_ph, work_t, sub):
+                return eng.step(0, work_ph, work_t, draw_seed(generator) if eng.fused else sub,
+                                stokes_on=stokes_on, max_rounds=chunk_rounds, s_rows=s_rows,
+                                rounds_fn=rounds_fn)
 
-            def step_fn(work_ph, work_t, sub):
-                if fused:
-                    return transport_rounds_fused(
-                        cfg, work_ph, frame, index, work_t, base_seed=draw_seed(generator),
-                        setup=setup, stokes_on=stokes_on, max_rounds=chunk_rounds, s_rows=s_rows,
-                        rounds_fn=rounds_fn)
-                return transport_rounds(cfg, work_ph, frame, index, work_t, sub,
-                                        xsec_table=xsec_table, stokes_on=stokes_on,
-                                        max_rounds=chunk_rounds)
-
-            t_rem = frame_time(photons, dt_max) if t_rem0 is None else t_rem0
-        else:
-            t_rem = t_rem0
+            shards = Shards([(photons.device, frame, index)], step, _compact_step, _write_back)
+        eng = frame_engine(cfg, first, shards.sites, xsec_table, fused, generator, key)
+        key = eng.key
+        if t_rem0 is None:  # after the setup, whose TABLE fit is a frame's peak of memory
+            t_rem0 = frame_time(photons, dt_max)
         n_scatt_total = 0
         rounds_total = 0
-        work_ph, work_t = photons, t_rem
+        work_ph, work_t = photons, t_rem0
         slots = None  # None => the working set is the full population
         result_ph = photons
         rebin_pending = False
@@ -1127,7 +1161,7 @@ def transport_frame(
             if key is not None:
                 key, sub = key.split()
             with telemetry.span("transport.step"):
-                res = step_fn(work_ph, work_t, sub)
+                res = shards.step(eng, work_ph, work_t, sub)
             work_ph, work_t = res.photons, res.t_rem
             # ONE batched host fetch per chunk
             fetch = [res.n_scatt.to(torch.int64), res.all_done.to(torch.int64),
@@ -1153,18 +1187,17 @@ def transport_frame(
                     result_ph = work_ph
                 new_cap = max(min_compact_capacity, 1 << int(np.ceil(np.log2(max(n_active, 1)))))
                 with telemetry.span("transport.compact"):
-                    result_ph, work_ph, work_t, slots = (compact_fn or _compact_step)(
+                    result_ph, work_ph, work_t, slots = shards.compact(
                         result_ph, slots, work_ph, work_t, new_cap)
-                telemetry.count("transport.compactions")
 
         if slots is None:
             result_ph, result_t = work_ph, work_t
         else:
             with telemetry.span("transport.write_back"):
-                result_ph, result_t = (finish_fn or _write_back)(result_ph, slots, work_ph, work_t)
+                result_ph, result_t = shards.finish(result_ph, slots, work_ph, work_t)
         return FrameResult(photons=result_ph, n_scatt=n_scatt_total, n_rounds=rounds_total,
                            t_rem=result_t, rebin_pending=rebin_pending, n_cs=n_cs,
-                           engine="kernel" if fused else "xla")
+                           engine="kernel" if eng.fused else "xla")
 
 
 # ---------------------------------------------------------------------------

@@ -69,7 +69,7 @@ def test_carried_glue_matches_jax_fused_transport(mode, tmp_path, monkeypatch):
     tcfg = convert.config_from_reference(cfg)
     tframe, tidx = thost.to_device("cpu"), port_index(jidx)
     setup = tt.select_variant(tcfg, tframe, tidx, xsec)
-    assert setup[0] == "packed_cyl2" and setup[2].aux is xsec
+    assert setup.variant == "packed_cyl2" and setup.aux is xsec
     launches = (fr.fused_rounds.launches, fr.fused_rounds_reference.launches)
     tres = tt.transport_rounds_fused(tcfg, port_photons(photons), tframe, tidx, torch_t(t_rem),
                                      base_seed=base_seed, setup=setup, max_rounds=8,

@@ -5,7 +5,7 @@ mode) against the JAX kernel, lane for lane: the 2-D and 2.5-D spherical packed 
 and the port's ``fused_rounds`` (the plain twin on CPU tensors) get the same
 float32 packed rows and the same aux planes (``transport.aux_planes`` of the
 port: the biased total tau coefficient and the thermal probability at each
-lane's comoving energy), with the variant and KernelFlags the port selects
+lane's comoving energy), with the variant and setup the port selects
 for a ``BinnedIndex`` over the frame's cells.  The frames are
 ``test_torch_geometry_cases.frame_case``'s thinned Gamma = 2 frames at
 T' = 5e8 K; AUX with thermal electrons, AUX_NT with bench.py's power law.

@@ -192,7 +192,7 @@ def test_one_launch_no_sync_and_counters(card):
         telemetry.reset()
     assert dl.direct_lookup.launches == before + 2
     assert empty.shape == (0,) and empty.dtype == torch.int32 and empty_in.dtype == torch.bool
-    assert counters["grid.lookup_lanes"] == counters["grid.lookup_kernel_lanes"] == 2 * len(pos)
+    assert counters["grid.lookup_lanes"] == 2 * len(pos)
     assert torch.equal(cell, tgrid.find_cell_direct_reference(cfg, index, frame, pos)[0])
 
 
@@ -216,16 +216,17 @@ def test_direct_branch_frame_unchanged_by_the_kernel(card, monkeypatch):
                                          max_rounds=8, s_rows=8,
                                          rounds_fn=fr.fused_rounds_reference)
 
+    before = dl.direct_lookup.launches
     telemetry.reset()
     telemetry.enable()
     try:
         with telemetry.frame("transport.frame", card):
             got = run()
-        counters = telemetry.summary()["counters"]
+        spans = telemetry.summary()["spans"]
     finally:
         telemetry.enable(False)
         telemetry.reset()
-    assert counters["grid.lookup_kernel_lanes"] == counters["grid.lookup_lanes"] > 0
+    assert dl.direct_lookup.launches - before == spans["grid.lookup"]["count"] > 0
 
     def plain(cfg, index, frame, pos, alive, pool):
         cell, in_grid = tgrid.find_cell_direct_reference(cfg, index, frame, pos)
@@ -242,7 +243,7 @@ def test_direct_branch_frame_unchanged_by_the_kernel(card, monkeypatch):
 
 def test_cpu_tensors_take_the_plain_version(monkeypatch):
     """CPU tensors run the plain version and never reach the kernel's
-    wrapper; the lookups are counted, none as the kernel's."""
+    wrapper; the lookups are counted, none launched."""
     cfg, frame, index, lanes = _problem(Dims.TWO, Geometry.CYLINDRICAL, True, torch.float32,
                                         "cpu")
     pos = torch.as_tensor(lanes, dtype=torch.float32)
@@ -253,7 +254,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
         raise AssertionError("the kernel's wrapper was called on CPU tensors")
 
     monkeypatch.setattr(tgrid, "direct_lookup", no_kernel)
-    monkeypatch.setattr(tt, "direct_lookup_flags", no_kernel)
+    monkeypatch.setattr(tgrid, "direct_lookup_flags", no_kernel)
     before = dl.direct_lookup.launches
     telemetry.reset()
     telemetry.enable()
@@ -271,7 +272,6 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     assert torch.equal(got[1], torch.clamp(want_cell, 0, frame.num_elements - 1))
     assert torch.equal(got[2], tt.lane_flags(alive, pool, want_in))
     assert counters["grid.lookup_lanes"] == 2 * len(pos)
-    assert "grid.lookup_kernel_lanes" not in counters
     assert dl.direct_lookup.launches == before and index._tables is None
     with pytest.raises(ValueError, match="cuda"):
         dl.direct_lookup(cfg, index, frame, pos)

@@ -281,7 +281,7 @@ def test_unported_configurations_raise():
     nonuniform = convert.index_from_edges(edges[0], np.geomspace(1.8e12, 2.9e12, 65),
                                          device="cpu")
     assert tt.unsupported_reason(cfg, frame, nonuniform) is None
-    assert tt.select_variant(cfg, frame, nonuniform)[0] == "slim_cyl2"
+    assert tt.select_variant(cfg, frame, nonuniform).variant == "slim_cyl2"
     sph = TConfig(dims=TDims.TWO, geometry=TGeometry.SPHERICAL)
     assert tt.unsupported_reason(sph, frame, index) is None
     # cyclo-synchrotron is ported (test_torch_cyclosynch*), float64 runs on
@@ -292,8 +292,7 @@ def test_unported_configurations_raise():
         dims=TDims.TWO, geometry=TGeometry.CYLINDRICAL, cyclosynchrotron=True), frame, index) is None
     assert "not a spatial index" in tt.unsupported_reason(cfg, frame, object())
     with pytest.raises(NotImplementedError, match="not a spatial index"):
-        tt.transport_rounds_fused(cfg, ph, frame, object(), tt.frame_time(ph, 0.05),
-                                  base_seed=0, setup=tt.select_variant(cfg, frame, index))
+        tt.select_variant(cfg, frame, object())
     ph64 = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()},
                                       dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="float32 photons only"):

@@ -332,20 +332,21 @@ def lane_inputs(name, seed=7, gamma=2.0, temp=1e5, xsec=None, dist=None, aux=Fal
     if aux:
         tidx = tgrid.build_binned_index(convert.frame_from_numpy_fields(cfg, vars(host)),
                                         device="cpu")
-    tname, ttable, kflags = tt.select_variant(tcfg, tframe, tidx, xsec)
-    assert tname == name, (tname, name)
+    setup = tt.select_variant(tcfg, tframe, tidx, xsec)
+    ttable = setup.table
+    assert setup.variant == name, (setup.variant, name)
     width = var.width
     np.testing.assert_array_equal(ttable.numpy()[:width], np.asarray(table, np.float32))
     aux_planes = None
     if aux:
-        assert kflags.cheb_base == 0 and kflags.aux is xsec and ttable.shape[0] == width
-        assert (kflags.nt is not None) == bool(dist)
+        assert setup.cheb_base == 0 and setup.aux is xsec and ttable.shape[0] == width
+        assert (setup.nt is not None) == bool(dist)
         kw["nonthermal"] = bool(dist)
         aux_planes = tt.aux_planes(tcfg, xsec, tframe, torch.from_numpy(safe),
                                    torch.from_numpy(state[fr.SP_C0])).numpy()
     elif xsec is not None:
         # the port's float32 Chebyshev rows (and subgroup-1 fit) go to both
-        assert kflags.cheb_base == width and ttable.shape[0] == width + thx.CHEB_ROWS
+        assert setup.cheb_base == width and ttable.shape[0] == width + thx.CHEB_ROWS
         table = ttable.numpy()
         kw["cheb_base"] = width
         if dist:
@@ -354,7 +355,7 @@ def lane_inputs(name, seed=7, gamma=2.0, temp=1e5, xsec=None, dist=None, aux=Fal
     rows = np.ascontiguousarray(table[:, safe])
     return dict(cfg=cfg, state=state, alive=alive, pool=pool, safe=safe, flags=flags,
                 jflags=jflags, rows=rows, geom=geom, jax_kw=kw, table=ttable,
-                kflags=kflags, grid=tt.grid_scalars(tframe, tidx), variant=name,
+                setup=setup, grid=setup.grid, variant=name,
                 aux=aux_planes)
 
 
@@ -380,8 +381,8 @@ def port_kernel(d, block_act, seed, stokes_on, inner_rounds=2):
         out = fr.fused_rounds(ts, torch.from_numpy(d["safe"]), torch.from_numpy(d["flags"]),
                               d["table"], torch.from_numpy(block_act), seed, d["grid"],
                               stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=BLOCK,
-                              variant=d["variant"], cheb_base=d["kflags"].cheb_base,
-                              nt=d["kflags"].nt,
+                              variant=d["variant"], cheb_base=d["setup"].cheb_base,
+                              nt=d["setup"].nt,
                               aux=None if d["aux"] is None else torch.from_numpy(d["aux"]))
     return ts.numpy(), out.numpy()
 

@@ -50,7 +50,7 @@ def test_transport_frame_matches_xla(kind, variant):
                                jnp.float32(dt), make_key(1), fused=False)
     tframe, tidx, tph = to_port(cfg, host, edges, photons)
     tcfg = convert.config_from_reference(cfg)
-    assert tt.select_variant(tcfg, tframe, tidx)[0] == variant
+    assert tt.select_variant(tcfg, tframe, tidx).variant == variant
     launches = fr.fused_rounds.launches
     res_t = tt.transport_frame(tcfg, tph, tframe, tidx, dt, torch.Generator().manual_seed(1),
                                fused=True, chunk_rounds=8, s_rows=8)
@@ -98,7 +98,7 @@ def test_f1_zero_velocity_polarization_3d_matches_xla():
                                 make_key(3), max_rounds=1)
     tframe, tidx, tph = to_port(cfg, host, edges, photons)
     tcfg = convert.config_from_reference(cfg)
-    assert tt.select_variant(tcfg, tframe, tidx)[0] == "ultra_cart3"
+    assert tt.select_variant(tcfg, tframe, tidx).variant == "ultra_cart3"
     res_t = tt.transport_rounds_fused(tcfg, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
                                       base_seed=77, setup=tt.select_variant(tcfg, tframe, tidx),
                                       max_rounds=1, inner_rounds=1, s_rows=8)

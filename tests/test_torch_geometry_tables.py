@@ -62,10 +62,10 @@ def test_cell_tables_match_jax(name):
             np.testing.assert_array_equal(tdev.phys.numpy(), np.asarray(jdev.packed_slim)[4:8])
         else:
             assert tdev.phys is None
-    variant, table, kflags = tt.select_variant(tcfg, tframe_conv, tidx)
-    assert variant == name
-    assert table.shape[0] == fr.VARIANTS[name].width
-    assert kflags == tt.KernelFlags()  # DIRECT
+    setup = tt.select_variant(tcfg, tframe_conv, tidx)
+    assert setup.variant == name
+    assert setup.table.shape[0] == fr.VARIANTS[name].width
+    assert (setup.cheb_base, setup.nt, setup.aux) == (0, None, None)  # DIRECT
     assert tt.unsupported_reason(tcfg, tframe_conv, tidx) is None
 
 

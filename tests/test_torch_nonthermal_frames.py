@@ -61,8 +61,7 @@ def test_nonthermal_rounds_match_xla(tmp_path):
     tph = convert.photons_from_numpy({k: np.asarray(v) for k, v in vars(photons).items()}, device="cpu")
     tframe, tidx = thost.to_device("cpu"), convert.index_from_edges(*edges, device="cpu")
     setup = tt.select_variant(tcfg, tframe, tidx, xsec)
-    name, _, kflags = setup
-    assert name == "packed_sph2" and kflags.cheb_base == 16 and kflags.nt is not None
+    assert setup.variant == "packed_sph2" and setup.cheb_base == 16 and setup.nt is not None
     res_t = tt.transport_rounds_fused(tcfg, tph, tframe, tidx, torch.from_numpy(np.array(t_rem)),
                                       base_seed=13, setup=setup, max_rounds=20, inner_rounds=2,
                                       s_rows=8)

@@ -74,12 +74,13 @@ def test_table_rounds_match_xla(hot_frame):
                                 build_rectilinear_index(*EDGES, dtype="float32"), t_rem,
                                 make_key(9), xsec_table=tab32, max_rounds=16)
     tph, tframe, tidx = _port(host, photons)
-    name, table, kflags = tt.select_variant(TCFG, tframe, tidx, xsec)
-    assert name == "ultra_cyl2" and kflags.cheb_base == 4 and table.shape[0] == 4 + 16
+    setup = tt.select_variant(TCFG, tframe, tidx, xsec)
+    assert setup.variant == "ultra_cyl2" and setup.cheb_base == 4
+    assert setup.table.shape[0] == 4 + 16
     launches = fr.fused_rounds.launches
     t0 = torch.from_numpy(np.array(t_rem))
     res_t = tt.transport_rounds_fused(TCFG, tph, tframe, tidx, t0, base_seed=9,
-                                      setup=(name, table, kflags), max_rounds=16,
+                                      setup=setup, max_rounds=16,
                                       inner_rounds=2, s_rows=8)
     assert fr.fused_rounds.launches == launches  # CPU: the twin, never the kernel
     a = _stats({k: np.asarray(v) for k, v in vars(res_x.photons).items()}, res_x.n_scatt)

@@ -10,12 +10,13 @@ on the CPU through the kernel's plain twin.
   counters agree with the twin's launches and the spans; each frame's
   result is bit-identical with tracing on and off.
 * A TABLE frame records the per-frame fit of ``select_variant`` once a
-  frame (``hot_xsec.cheb_cells``, the counter ``hot_xsec.cells_fitted`` at
-  the frame's cells) and, with nonthermal electrons, its constants
-  (``hot_xsec.nt_constants``); a DIRECT frame records neither.
+  frame (``hot_xsec.cheb_cells``) and, with nonthermal electrons, its
+  constants (``hot_xsec.nt_constants``); a DIRECT frame records neither.
+  A chunked frame fetches its grid scalars once, in its setup.
 * A recording ``torch.profiler`` turns tracing on with no ``enable()``, and
   the span names appear among its events.
-* A 2-shard CPU mesh frame records its frame and chunk spans.
+* A 2-shard CPU mesh frame records its frame and chunk spans; a one-shard
+  mesh frame records its setup inside its frame, as ``transport_frame``.
 * The driver's frames nest the transport frames; ``cli run --trace-json``
   writes them; ``timed`` feeds its sink whether tracing is on or not.
 """
@@ -192,11 +193,10 @@ def test_hot_xsec_fit_spans(problems, tracing, nt_tables, mode):
                            torch.Generator().manual_seed(seed), chunk_rounds=CHUNK, fused=True,
                            s_rows=S_ROWS, xsec_table=None if mode == "direct" else nt_tables)
     summ = telemetry.summary()
-    spans, counters = summ["spans"], summ["counters"]
+    spans = summ["spans"]
     assert summ["frames"] == 2
     fit = {"direct": 0, "table": 2, "nonthermal": 2}[mode]
     assert spans.get("hot_xsec.cheb_cells", {}).get("count", 0) == fit
-    assert counters.get("hot_xsec.cells_fitted", 0) == fit // 2 * 2 * frame.temp.shape[0]
     assert spans.get("hot_xsec.nt_constants", {}).get("count", 0) == 2 * (mode == "nonthermal")
 
 
@@ -214,8 +214,8 @@ def test_span_tree_and_counters(problems, tracing, kind):
     c, spans = summ["counters"], summ["spans"]
     assert c["transport.kernel_calls"] == calls == spans["fused_round.call"]["count"] > 1
     assert 0 < c["transport.rows_active"] < c["transport.rows_total"]
-    assert c["transport.partitions"] == spans["transport.partition"]["count"]
-    assert c["transport.compactions"] == spans["transport.compact"]["count"] >= 1
+    assert spans["transport.partition"]["count"] >= 1
+    assert spans["transport.compact"]["count"] >= 1
     steps = spans["transport.step"]["count"]
     assert steps == spans["transport.fetch"]["count"] > 1
     assert spans["grid.lookup"]["count"] == calls + steps
@@ -224,10 +224,7 @@ def test_span_tree_and_counters(problems, tracing, kind):
     if kind == "direct":
         assert c.get("grid.search_lanes", 0) == 0
     else:
-        assert c["grid.search_lanes"] > 0
-        assert c["grid.search_chunks"] == spans["grid.search"]["count"]
-        index = problems[kind][1]
-        assert c["grid.search_candidates"] == c["grid.search_lanes"] * 9 * index.max_slab
+        assert c["grid.search_lanes"] > 0 and spans["grid.search"]["count"] >= 1
     # host times: each span holds its children; no device time on the CPU
     for s in spans.values():
         assert s["stream_ms"] is None and 0.0 <= s["self_ms"] <= s["host_ms"]
@@ -364,6 +361,37 @@ def test_mesh_frame_records_frame_and_steps(problems, tracing):
     # both shards' kernel calls, each under the chunk's step
     assert summ["spans"]["transport.lane_planes"]["count"] == 2 * summ["spans"][
         "transport.step"]["count"]
+
+
+def test_one_shard_mesh_frame_records_its_setup_in_its_frame(problems, tracing, nt_tables):
+    """The setup of a TABLE frame (``transport.select_variant`` and its fit,
+    ``hot_xsec.cheb_cells``) is recorded inside the frame, on a one-shard
+    mesh as in ``transport_frame``."""
+    frame, index, photons = problems["direct"]
+    cfg = HOT_CFG["table"]
+    kw = dict(chunk_rounds=CHUNK, fused=True, s_rows=S_ROWS, xsec_table=nt_tables)
+    want = {("transport.select_variant", "transport.frame"),
+            ("hot_xsec.cheb_cells", "transport.select_variant")}
+    telemetry.enable(records=True)
+    tt.transport_frame(cfg, photons, frame, index, 0.2, torch.Generator().manual_seed(5), **kw)
+    assert want <= _tree(telemetry.snapshot())
+    telemetry.reset()
+    pm.sharded_transport_frame(cfg, pm.make_mesh(devices=["cpu"]), photons, frame, index, 0.2,
+                               torch.Generator().manual_seed(5), **kw)
+    assert want <= _tree(telemetry.snapshot())
+    assert telemetry.summary()["spans"]["hot_xsec.cheb_cells"]["count"] == 1
+
+
+def test_chunked_frame_fetches_grid_scalars_once(problems, tracing, monkeypatch):
+    """A carried frame of several chunks reads the kernel's grid scalars
+    (one host fetch) once, in its setup, not once a chunk."""
+    calls = []
+    real = tt.grid_scalars
+    monkeypatch.setattr(tt, "grid_scalars", lambda *a: calls.append(a) or real(*a))
+    telemetry.enable()
+    _frame(problems, "carried")
+    assert telemetry.summary()["spans"]["transport.step"]["count"] >= 2
+    assert len(calls) == 1
 
 
 def test_summary_self_time_frames_and_timed_sinks(tracing):

@@ -1,7 +1,7 @@
 """The comparison of the ``cyl2_nt.frame`` cell with the program's
 nonthermal electrons dropped: each window runs the same frame, tables and
 packed variant with TABLE thermal electrons alone (``packed_cyl2+cheb``:
-``transport.select_variant``'s flags without the nonthermal constants),
+``transport.select_variant``'s setup without the nonthermal constants),
 held against the reference with them.  A comparison that guards the
 nonthermal mechanism fails it.
 
@@ -27,15 +27,14 @@ CELL = "cyl2_nt.frame"
 
 @contextlib.contextmanager
 def nonthermal_dropped():
-    """``transport.select_variant`` returning its variant and table with
-    the nonthermal constants taken out of its flags, while active."""
+    """``transport.select_variant`` returning its setup with the nonthermal
+    constants taken out, while active."""
     from mcrat_tpu_torch import transport
 
     real = transport.select_variant
 
     def select(*args, **kw):
-        name, table, flags = real(*args, **kw)
-        return name, table, flags._replace(nt=None)
+        return real(*args, **kw)._replace(nt=None)
 
     transport.select_variant = select
     try:
