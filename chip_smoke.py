@@ -78,14 +78,16 @@ off) -- and checks them:
      3.; before them the AMR frame's cell lookup (find_cell_rows, the index
      search and the cached-cell pin) on the card against the same lookup on
      the CPU, on the injected photons, 2^20 random points and points on
-     block seams and level boundaries; then the carried search's kernel
-     (csrc/binned_search.cu) against its plain version on the card at the
-     benchmark's amr_jet size (167,936 cells, ~237k lanes moved off their
-     cells), cell for cell, with the kernel's device ms a call and the plain
-     version's ms at the same shapes (binned_search_check); after them
+     block seams and level boundaries; then the carried lookup kernel
+     (csrc/binned_search.cu: the pin, the search of the lanes that left
+     their cell, the clamp and the lane flags in one launch) against its
+     plain path, torch ops throughout, at amr_cyl2's main-path lanes (~237k
+     of them moved off their cells), values and lanes searched, with its
+     device ms, the plain path's ms and its HBM bound beside the search's L2
+     reads (carried_lookup_check); after them
      amr_cyl2's mean energy, mean scatterings and mean Q against the
-     flagship's, within 4 sigma (the same uniform outflow), and the search
-     kernel's launches on amr_cyl2's main path; then the direct lookup
+     flagship's, within 4 sigma (the same uniform outflow), and the carried
+     lookup kernel's launches on amr_cyl2's main path; then the direct lookup
      kernel (csrc/direct_lookup.cu) against its plain version on the
      flagship's and the 2-D spherical main frames (~1M injected photons
      moved by up to 4e9 cm), cells, in-grid flags, clamp and lane flags,
@@ -1090,35 +1092,98 @@ def amr_lookup_check(prob):
 
 
 # lanes of one carried lookup's search in the benchmark's amr_jet.frame
-# (~237k, PERF.md section 5)
+# (~237k, PERF.md section 5): carried_lookup_check moves this many off their
+# cells
 SEARCH_LANES = 237_000
 
 
-def binned_search_check(prob, k=50):
-    """The search kernel (``grid.BinnedIndex.find`` on the card) against its
-    plain version (``find_reference``) on the AMR frame: ``SEARCH_LANES`` of
-    the injected photons moved by up to 8 finest cells along r0 and r1 (the
-    lanes a lookup searches have left their cells).  Prints the kernel's
-    device ms a call (CUDA events around each of ``k`` launches, a spin
-    kernel holding the stream), the plain version's ms a call at the same
-    shapes (host clock ending in a synchronize, median of 5) and the lanes
-    found; fails unless the two give the same cells.  Returns (kernel ms,
-    None on the CPU, plain ms)."""
-    from mcrat_tpu_torch import geometry as geo
+# bytes a lane of the carried lookup moves to or from HBM in float32: the
+# position (12), the cached cell (4) and the alive and pool masks (2) in;
+# the cell, its clamp and the flag word (12) out
+CARRIED_LANE_BYTES = 30
+
+
+def search_reads(index, r, found, row_bytes):
+    """L2 bytes the carried lookup's search reads for the lanes at hydro coordinates
+    ``r`` (three tensors) that found ``found``: each bin header it visits (8
+    B), a geometry row of ``row_bytes`` per candidate up to its first hit,
+    and the cell id of the hit (4 B)."""
+    d0, d1, d2 = index.dims
+    b = [index._bin(x, a) for a, x in enumerate(r)]
+    ncell = index.cell_ids.shape[0]
+    slot = torch.empty(ncell, dtype=torch.int64, device=found.device)
+    slot[index.cell_ids.to(torch.int64)] = torch.arange(ncell, device=found.device)
+    s_hit = slot[found.clamp(min=0).to(torch.int64)]
+    hit_bin = torch.searchsorted(index.bin_start.to(torch.int64), s_hit, right=True) - 1
+    reads = torch.zeros_like(s_hit)
+    done = found < 0
+    missing = found < 0
+    for dz in ((-1, 0, 1) if d2 > 1 else (0,)):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                flat = ((b[2] + dz).clamp(0, d2 - 1) * d1 + (b[1] + dy).clamp(0, d1 - 1)) * d0 + (
+                    b[0] + dx).clamp(0, d0 - 1)
+                start = index.bin_start[flat].to(torch.int64)
+                count = index.bin_count[flat].to(torch.int64).clamp(max=index.max_slab)
+                here = ~done & (flat == hit_bin)
+                part = torch.where(here, (s_hit - start + 1) * row_bytes + 4, count * row_bytes)
+                reads += torch.where(done & ~missing, 0, 8 + part)
+                done = done | here
+    return int(reads.sum())
+
+
+def carried_lookup_check(prob, k=50):
+    """The carried lookup kernel (``grid.find_cell_rows_flags`` on the card:
+    the cached-cell pin, the search of the lanes that left their cell, the
+    clamp and the lane flags in one launch) against its plain path
+    (``find_cell_rows_reference``, the clamp and ``lane_flags``) on the AMR
+    frame: the injected photons (~1M at the main path's size) with their
+    injection cells cached, the first ``SEARCH_LANES`` moved by up to 8
+    finest cells along x and z.  Prints the kernel's device ms a call (CUDA
+    events around each of ``k`` launches, a spin kernel holding the stream),
+    the plain path's ms a call at the same shapes (host clock ending in a
+    synchronize, median of 5), the lanes searched, and the bound: HBM bytes
+    (CARRIED_LANE_BYTES a lane) over 3.35 TB/s, beside the search's L2 reads
+    (``search_reads``); fails unless the kernel's cells, clamp, flags and
+    lanes searched equal the plain path's.  Returns (kernel ms, None on the
+    CPU, plain ms)."""
+    from mcrat_tpu_torch import grid as tgrid
+    from mcrat_tpu_torch import transport as tt
 
     cfg, frame, index, ph = prob.cfg, prob.frame, prob.index, prob.photons
-    pos = ph.pos[:SEARCH_LANES]
-    n = pos.shape[0]
-    r0, r1, r2 = geo.mcrat_to_hydro(cfg, pos[:, 0], pos[:, 1], pos[:, 2])
-    step = torch.as_tensor(np.random.default_rng(7).uniform(-8e9, 8e9, (2, n)), dtype=r0.dtype,
-                           device=r0.device)
-    r0, r1, r2 = (r0 + step[0]).contiguous(), (r1 + step[1]).contiguous(), r2.contiguous()
-    got = index.find(r0, r1, r2, frame)
-    want = index.find_reference(r0, r1, r2, frame)
-    differ = int((got != want).sum())
-    device = r0.device
-    plain_ms = statistics.median(
-        timed(lambda: index.find_reference(r0, r1, r2, frame), device) for _ in range(5))
+    n = ph.capacity
+    step = np.zeros((n, 3))
+    m = min(SEARCH_LANES, n)
+    step[:m, [0, 2]] = np.random.default_rng(9).uniform(-8e9, 8e9, (m, 2))
+    pos = ph.pos + torch.as_tensor(step, dtype=ph.pos.dtype, device=ph.pos.device)
+    cached, alive = ph.cell, ph.alive
+    pool = torch.zeros_like(alive)
+    pool[::7] = True
+    device = pos.device
+
+    def plain(searched=None):
+        cell, in_grid = tgrid.find_cell_rows_reference(cfg, index, frame, pos, cached,
+                                                       searched=searched)
+        return cell, tgrid._clamp(frame, cell), tt.lane_flags(alive, pool, in_grid)
+
+    def kernel(searched=None):
+        return tt.carried_lane_inputs(cfg, index, frame, pos, cached, alive, pool, searched)
+
+    counts = [torch.zeros((), dtype=torch.int64, device=device) for _ in range(2)]
+    want, got = plain(counts[0]), kernel(counts[1])
+    differ = sum(int((a != b).sum()) for a, b in zip(got, want))
+    searched = int(counts[0])
+    differ += abs(int(counts[1]) - searched)
+    plain_ms = statistics.median(timed(plain, device) for _ in range(5))
+    *r, inside = tgrid._hydro_inside(cfg, frame, pos)
+    rows = index.search_tables(frame, pos.dtype)[0]
+    # the lanes searched: inside the domain and off their cached cell (the
+    # pin's test would pass on a cell the search found)
+    lanes = torch.nonzero(inside & ((want[0] != cached) | (cached < 0))).flatten()
+    l2 = search_reads(index, [x[lanes] for x in r], want[0][lanes],
+                      rows.shape[1] * rows.element_size())
+    hbm = CARRIED_LANE_BYTES * n
+    bound_ms = 1e3 * hbm / 3.35e12
     if device.type == "cuda":
         ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(k)]
@@ -1126,19 +1191,22 @@ def binned_search_check(prob, k=50):
         torch.cuda._sleep(SPIN_CYCLES)
         for a, b in ev:
             a.record()
-            index.find(r0, r1, r2, frame)
+            kernel()
             b.record()
         torch.cuda.synchronize()
         k_ms = statistics.median(a.elapsed_time(b) for a, b in ev)
-        kernel = f"kernel {k_ms:.4f} ms a call (device, median of {k})"
+        kernel_s = (f"kernel {k_ms:.4f} ms a call (device, median of {k}), {100 * bound_ms / k_ms:.1f} "
+                    f"% of its HBM bound")
     else:
-        k_ms, kernel = None, "no kernel on the CPU (find runs the plain version)"
-    print(f"[binned search] {n} lanes on {frame.num_elements} cells (index dims {index.dims}, "
-          f"max_slab {index.max_slab}): {int((want >= 0).sum())} found, cells differing kernel "
-          f"vs plain version {differ}; {kernel}, plain version {plain_ms:.3f} ms (host clock, "
-          f"median of 5)", flush=True)
+        k_ms, kernel_s = None, "no kernel on the CPU (the plain path runs)"
+    print(f"[carried lookup] {n} lanes on {frame.num_elements} cells (index dims {index.dims}, "
+          f"max_slab {index.max_slab}): {searched} searched, {int((want[0] >= 0).sum())} in a "
+          f"cell, values differing kernel vs plain path {differ}; {kernel_s}; plain path "
+          f"{plain_ms:.3f} ms (host clock, median of 5); bound {hbm / 1e6:.1f} MB of HBM = "
+          f"{bound_ms:.4f} ms at 3.35 TB/s, beside {l2 / 1e6:.1f} MB of search reads from L2 "
+          f"({l2 / max(len(lanes), 1):.0f} B a lane that left its cell)", flush=True)
     if differ:
-        raise RuntimeError("the search kernel's cells differ from its plain version's")
+        raise RuntimeError("the carried lookup kernel's values differ from its plain path's")
     return k_ms, plain_ms
 
 
@@ -2494,7 +2562,7 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
 
     from mcrat_tpu_torch import Config, _build
     from mcrat_tpu_torch.ops import fused_round as fr
-    from mcrat_tpu_torch.ops.binned_search import binned_search
+    from mcrat_tpu_torch.ops.binned_search import carried_lookup
     from mcrat_tpu_torch.ops.direct_lookup import direct_lookup
 
     # 1. build, tables, F6
@@ -2560,7 +2628,7 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
                 None, stokes_on, call=call)
             errs[inst] = max(errs[inst], err)
     amr_lookup_check(mains["amr_cyl2", "direct"])
-    binned_search_check(mains["amr_cyl2", "direct"])
+    carried_lookup_check(mains["amr_cyl2", "direct"])
     for name in ("flagship", "spherical"):
         direct_lookup_check(mains[name, "direct"])
 
@@ -2575,7 +2643,7 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
     results = {}
     for (name, mode), prob in mains.items():
         path = name if mode == "direct" else f"{name} ({mode})"
-        searched, looked_up = binned_search.launches, direct_lookup.launches
+        searched, looked_up = carried_lookup.launches, direct_lookup.launches
         lk, results[name, mode] = main_path(path, prob, card, device)
         count(f"{path} main path", lk)
         if (name, mode) == ("flagship", "direct"):
@@ -2586,11 +2654,11 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
                 raise RuntimeError("the flagship main path never launched the direct lookup "
                                    "kernel")
         if (name, mode) == ("amr_cyl2", "direct"):
-            search_launches = binned_search.launches - searched
-            print(f"[{path}] search kernel launches on the main path: {search_launches}",
-                  flush=True)
-            if device.type == "cuda" and not search_launches:
-                raise RuntimeError("the AMR main path never launched the search kernel")
+            carried_launches = carried_lookup.launches - searched
+            print(f"[{path}] carried lookup kernel launches on the main path: "
+                  f"{carried_launches}", flush=True)
+            if device.type == "cuda" and not carried_launches:
+                raise RuntimeError("the AMR main path never launched the carried lookup kernel")
     same_outflow_check(("flagship", frame_cols(results["flagship", "direct"])),
                        ("amr_cyl2", frame_cols(results["amr_cyl2", "direct"])))
 
@@ -2657,8 +2725,9 @@ def main(device_name="cuda", n_min=600_000, n_max=1_400_000, hot_n=(150_000, 300
            if n in resources else {}),
     } for n in names]}), flush=True)
     print(json.dumps({"kernels": [{
-        "name": "binned_search", "route": "cuda", "source": "mcrat_tpu_torch/csrc/binned_search.cu",
-        "replaces": None, "launches": search_launches}, {
+        "name": "carried_lookup", "route": "cuda",
+        "source": "mcrat_tpu_torch/csrc/binned_search.cu", "replaces": None,
+        "launches": carried_launches}, {
         "name": "direct_lookup", "route": "cuda", "source": "mcrat_tpu_torch/csrc/direct_lookup.cu",
         "replaces": None, "launches": lookup_launches}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -57,14 +58,23 @@ def run(cmd: list) -> subprocess.CompletedProcess:
     return proc
 
 
+def source_bytes(src: Path) -> bytes:
+    """``src`` followed by each header beside it that it includes
+    (``#include "name.cuh"``), in the order it includes them."""
+    text = src.read_bytes()
+    headers = re.findall(rb'^#include "([\w.]+)"', text, flags=re.M)
+    return text + b"".join((src.parent / h.decode()).read_bytes() for h in headers)
+
+
 def build(src: Path = FUSED_ROUND_SRC, units=FUSED_ROUND_UNITS) -> dict:
     """Compile ``src`` unless its library exists: one nvcc for each of its
     translation ``units`` (each unit's extra flags; by default the fused
     round's N_FAMILIES families, ``-DMCRAT_FAMILY=<code>``, and its entry
     points), all started together, then one link.  The library's name holds
-    a hash of the source and NVCC_FLAGS.  Returns a dict with the library
+    a hash of the source, the headers it includes (:func:`source_bytes`) and
+    NVCC_FLAGS.  Returns a dict with the library
     ``path``, whether it was ``built`` now and the build ``seconds``."""
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(source_bytes(src) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{src.stem}_{tag}.so"
     if lib.exists():
         return dict(path=lib, built=False, seconds=0.0)
@@ -116,25 +126,28 @@ def load_fused_round() -> ctypes.CDLL:
 
 
 def bind_binned_search(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the ctypes signatures of the search library's C entry points
-    (``mcrat_binned_search``, ``mcrat_binned_search_error_string``).
+    """Set the ctypes signatures of the carried lookup library's C entry
+    points (``mcrat_carried_lookup``, ``mcrat_binned_search_error_string``).
     Returns ``lib``."""
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-    lib.mcrat_binned_search.argtypes = [
-        i32, i32, i32,  # lanes in float64, test in float64, three_d
-        p, p, p, i64,  # r0, r1, r2, n
-        p, p, p, p, p, p,  # cell_ids, bin_start, bin_count, geometry rows, lo, inv
+    lib.mcrat_carried_lookup.argtypes = [
+        i32, i32, i32, i32,  # geometry, lanes in float64, frame in float64, three_d
+        p, i64, i64, i64, p,  # pos, lane stride, axis stride, n, cached
+        p, p, p, p, p, p, i32,  # the frame's r0, r1, r2, dr0, dr1, dr2, n_cell
+        p, p, p, p, p,  # params, cell_ids, bin_start, bin_count, geometry rows
         i32, i32, i32, i32,  # d0, d1, d2, max_slab
-        p, p,  # out, stream
+        p, p, p, p, p, p,  # cell, in_grid (or NULL), alive, pool, safe, flags
+        i32, i32, i32,  # flag_alive, flag_pool, flag_ingrid
+        p, p,  # searched (or NULL), stream
     ]
-    lib.mcrat_binned_search.restype = ctypes.c_int
+    lib.mcrat_carried_lookup.restype = ctypes.c_int
     lib.mcrat_binned_search_error_string.argtypes = [ctypes.c_int]
     lib.mcrat_binned_search_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def load_binned_search() -> ctypes.CDLL:
-    """The carried AMR search's library (``csrc/binned_search.cu``, one
+    """The carried AMR lookup's library (``csrc/binned_search.cu``, one
     translation unit), built on first use."""
     if "binned_search" not in _loaded:
         _loaded["binned_search"] = bind_binned_search(

@@ -17,10 +17,10 @@
 // build turns off FMA contraction).
 //
 // For each lane (one thread), in the lanes' dtype T:
-//   1. the hydro coordinates (geometry.mcrat_to_hydro) of the MCRaT position
-//      (x, y, z), read through a lane stride and an axis stride, so that the
-//      kernel's (16, Npad) state planes and an (N, 3) position tensor both go
-//      in without a copy;
+//   1. the hydro coordinates (geometry.mcrat_to_hydro; hydro_coords.cuh) of
+//      the MCRaT position (x, y, z), read through a lane stride and an axis
+//      stride, so that the kernel's (16, Npad) state planes and an (N, 3)
+//      position tensor both go in without a copy;
 //   2. the strict domain test (grid._hydro_inside) against the frame's
 //      bounds rounded to T, on axis 2 too in 3-D;
 //   3. RectilinearIndex.find: along each axis floor((x - lo) * inv_d)
@@ -49,78 +49,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hydro_coords.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 
-// geometry.mcrat_to_hydro's cases: 2-D and 2.5-D cartesian or cylindrical,
-// 2-D and 2.5-D spherical, 3-D cartesian, spherical and polar
-enum Geo { CYL2 = 0, SPH2 = 1, CART3 = 2, SPH3 = 3, POL3 = 4 };
-
 // the table's entries (the wrapper's RectilinearIndex.lookup_tables):
 // domain (lo, hi) per axis, lo and inv_d per axis, outer edges per axis
 enum Param { P_DOM = 0, P_LO = 6, P_INV = 9, P_EDGE = 12, N_PARAM = 18 };
-
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
-__device__ __forceinline__ float acos_(float a) { return acosf(a); }
-__device__ __forceinline__ double acos_(double a) { return acos(a); }
-__device__ __forceinline__ float atan2_(float y, float x) { return atan2f(y, x); }
-__device__ __forceinline__ double atan2_(double y, double x) { return atan2(y, x); }
-__device__ __forceinline__ float fmod_(float a, float b) { return fmodf(a, b); }
-__device__ __forceinline__ double fmod_(double a, double b) { return fmod(a, b); }
-__device__ __forceinline__ float floor_(float a) { return floorf(a); }
-__device__ __forceinline__ double floor_(double a) { return floor(a); }
-
-// torch.clamp(v, -1, 1): NaN passes through
-template <typename T>
-__device__ __forceinline__ T clamp_unit(T v) {
-  return v != v ? v : (v < T(-1) ? T(-1) : (v > T(1) ? T(1) : v));
-}
-
-// torch.remainder(atan2(y, x) + 2 pi, 2 pi): 2 pi rounded to T, as torch
-// rounds the Python scalar; fmod, plus the divisor where the sign differs
-template <typename T>
-__device__ __forceinline__ T azimuth(T y, T x) {
-  const T two_pi = T(6.283185307179586);
-  const T a = add_rn(atan2_(y, x), two_pi);
-  T m = fmod_(a, two_pi);
-  if (m != T(0) && (m < T(0)) != (two_pi < T(0))) m = add_rn(m, two_pi);
-  return m;
-}
-
-// x * x + y * y (+ z * z), each product and sum rounded
-template <typename T>
-__device__ __forceinline__ T norm2(T x, T y) { return add_rn(mul_rn(x, x), mul_rn(y, y)); }
-
-template <typename T, int G>
-__device__ __forceinline__ void to_hydro(T x, T y, T z, T& r0, T& r1, T& r2) {
-  if (G == CYL2) {
-    r0 = sqrt_rn(norm2(x, y));
-    r1 = z;
-    r2 = T(0);
-  } else if (G == SPH2 || G == SPH3) {
-    r0 = sqrt_rn(add_rn(norm2(x, y), mul_rn(z, z)));
-    r1 = acos_(clamp_unit(div_rn(z, r0)));
-    r2 = G == SPH3 ? azimuth(y, x) : T(0);
-  } else if (G == CART3) {
-    r0 = x;
-    r1 = y;
-    r2 = z;
-  } else {  // POL3
-    r0 = sqrt_rn(norm2(x, y));
-    r1 = azimuth(y, x);
-    r2 = z;
-  }
-}
 
 // RectilinearIndex.axis_index: clamped to [0, n - 1]
 template <typename T, typename TE>
@@ -175,9 +112,7 @@ __global__ void __launch_bounds__(THREADS) direct_lookup_kernel(const Args<T, TE
   T r0, r1, r2;
   to_hydro<T, G>(p[0], p[a.s_axis], p[2 * a.s_axis], r0, r1, r2);
   const T* q = a.params;
-  bool inside = r0 > __ldg(q + P_DOM) && r0 < __ldg(q + P_DOM + 1) && r1 > __ldg(q + P_DOM + 2) &&
-                r1 < __ldg(q + P_DOM + 3);
-  if (D3) inside = inside && r2 > __ldg(q + P_DOM + 4) && r2 < __ldg(q + P_DOM + 5);
+  const bool inside = in_domain<T, D3>(r0, r1, r2, q + P_DOM);
   const int ii = axis_index(r0, a.uniform & 1, __ldg(q + P_LO), __ldg(q + P_INV), a.e0, a.n0);
   const int jj = axis_index(r1, (a.uniform >> 1) & 1, __ldg(q + P_LO + 1), __ldg(q + P_INV + 1),
                             a.e1, a.n1);

@@ -13,8 +13,9 @@ by ``floor((x - lo) * inv_d)``, others by ``searchsorted``; cell order is the
 C-order raveled meshgrid, ``idx = (i * n1 + j) * n2 + k``.
 :class:`BinnedIndex` locates them in an unstructured cell list (AMR output):
 a uniform-bin CSR index searched over each photon's +-1 bin neighbourhood,
-behind the cached-cell pin of :func:`find_cell_rows`; on the card the search
-is one launch of ``csrc/binned_search.cu`` (``ops.binned_search``), and
+behind the cached-cell pin of :func:`find_cell_rows`; on the card the whole
+carried lookup, pin and search, is one launch of ``csrc/binned_search.cu``
+(``ops.binned_search``), and
 :func:`find_cell_direct` one launch of ``csrc/direct_lookup.cu``
 (``ops.direct_lookup``).
 """
@@ -32,7 +33,7 @@ from .constants import A_RAD, M_P
 from . import geometry as geo
 from . import telemetry
 from .device import resolve_device
-from .ops.binned_search import binned_search
+from .ops.binned_search import carried_lookup, carried_lookup_flags
 from .ops.direct_lookup import direct_lookup, direct_lookup_flags
 
 # Row layout of HydroFrame.packed (mcrat_tpu.grid.PCOL).  In 3-D, v0..v2 hold
@@ -421,7 +422,7 @@ class BinnedIndex:
     inv_bin: torch.Tensor  # (3,) 1 / bin size
     dims: tuple = (1, 1, 1)
     max_slab: int = 64  # candidates searched per bin
-    # the search kernel's tables of the last frame searched (search_tables)
+    # the carried lookup kernel's tables of the last frame searched (search_tables)
     _tables: Optional[tuple] = dataclasses.field(default=None, init=False, repr=False,
                                                  compare=False)
 
@@ -474,18 +475,10 @@ class BinnedIndex:
     def find(self, r0, r1, r2, frame: HydroFrame) -> torch.Tensor:
         """Containing cell (int32, -1 where no cell holds the point) of 1-D
         hydro coordinates: an AABB test over the cells of the point's +-1
-        bin neighbourhood (JAX's ``BinnedIndex.find``).  CPU tensors run the
-        plain version, :meth:`find_reference`; CUDA tensors launch the
-        hand-written kernel of ``csrc/binned_search.cu`` once
-        (``ops.binned_search``), which gives its cells bit for bit."""
-        if r0.device.type == "cpu":
-            return self.find_reference(r0, r1, r2, frame)
-        return binned_search(self, r0, r1, r2, frame)
-
-    def find_reference(self, r0, r1, r2, frame: HydroFrame) -> torch.Tensor:
-        """:meth:`find` as torch ops on any device, the search kernel's plain
-        version: in chunks of lanes so that the (lanes, max_slab) candidate
-        slabs hold at most :data:`SEARCH_BUDGET_BYTES`."""
+        bin neighbourhood (JAX's ``BinnedIndex.find``), as torch ops on any
+        device, the carried lookup kernel's plain search: in chunks of lanes
+        so that the (lanes, max_slab) candidate slabs hold at most
+        :data:`SEARCH_BUDGET_BYTES`."""
         chunk = max(1, SEARCH_BUDGET_BYTES // (_SEARCH_BYTES_PER_CANDIDATE * self.max_slab))
         n = r0.shape[0]
         if n <= chunk:
@@ -494,28 +487,32 @@ class BinnedIndex:
                                            frame) for a in range(0, n, chunk)])
 
     def search_tables(self, frame: HydroFrame, lane_dtype: torch.dtype) -> tuple:
-        """The search kernel's tables for lanes of ``lane_dtype`` on
-        ``frame``: the geometry rows in bin order, (Ncell, 4) ``[c0, c1, s0,
-        s1]`` or, with more than one bin along axis 2, (Ncell, 8) ``[c0, c1,
-        s0, s1, c2, s2, 0, 0]``, in the dtype the plain version tests in (the
-        promotion of the lanes' and the frame's), and ``grid_min`` and
-        ``inv_bin`` in ``lane_dtype``, the dtype the plain version bins in.
-        Built with no host sync and kept for the last frame and dtype
-        searched, so an index searched frame after frame builds them once;
-        the frame's columns are held meanwhile, and an in-place write to
-        one of them builds them anew."""
+        """The carried lookup kernel's tables for lanes of ``lane_dtype`` on
+        ``frame``: (rows, params).  ``rows`` the geometry rows in bin order,
+        (Ncell, 4) ``[c0, c1, s0, s1]`` or, with more than one bin along
+        axis 2, (Ncell, 8) ``[c0, c1, s0, s1, c2, s2, 0, 0]``, in the dtype
+        the plain version tests in (the promotion of the lanes' and the
+        frame's); ``params`` (12,) in ``lane_dtype``, the dtype the plain
+        version bins and tests the domain in: the frame's domain bounds (lo,
+        hi) per axis, ``grid_min`` and ``inv_bin``.  Built with no host sync
+        and kept for the last frame and dtype searched, so an index searched
+        frame after frame builds them once; the frame's columns and domain
+        are held meanwhile, and an in-place write to one of them builds them
+        anew."""
         cols = (frame.r0, frame.r1, frame.dr0, frame.dr1) + (
             (frame.r2, frame.dr2) if self.dims[2] > 1 else ())
         if any(c.dtype != cols[0].dtype for c in cols):
-            raise ValueError("the search kernel takes a frame whose columns share one dtype")
-        key = (lane_dtype,) + tuple((id(c), c._version) for c in cols)
+            raise ValueError("the carried lookup takes a frame whose columns share one dtype")
+        held = cols + (frame.domain,)
+        key = (lane_dtype,) + tuple((id(c), c._version) for c in held)
         if self._tables is None or self._tables[0] != key:
             test_dtype = torch.promote_types(lane_dtype, cols[0].dtype)
             rows = torch.stack(cols, dim=1).to(test_dtype)[self.cell_ids.to(torch.int64)]
             if rows.shape[1] == 6:
                 rows = torch.nn.functional.pad(rows, (0, 2))
-            self._tables = (key, cols, (rows.contiguous(), self.grid_min.to(lane_dtype),
-                                        self.inv_bin.to(lane_dtype)))
+            params = torch.cat([frame.domain.to(lane_dtype).reshape(-1),
+                                self.grid_min.to(lane_dtype), self.inv_bin.to(lane_dtype)])
+            self._tables = (key, held, (rows.contiguous(), params.contiguous()))
         return self._tables[2]
 
 
@@ -595,25 +592,64 @@ def gather_rows(frame: HydroFrame, cell) -> torch.Tensor:
     return frame.packed[:, safe]
 
 
-def find_cell_rows(cfg: Config, index, frame: HydroFrame, pos, cached, all_lanes=False):
+def find_cell_rows(cfg: Config, index, frame: HydroFrame, pos, cached, all_lanes=False,
+                   searched=None):
     """Containing-cell lookup behind the cached-cell pin
     (mcrat_tpu.grid.find_cell_rows and find_cell, findContainingHydroCell,
     reference: Src/mclib.c:436-615): a photon still inside its cached cell's
     box keeps it (this also pins the choice on overlapping seams); the index
     searches the others.  Out-of-domain photons get -1.
 
-    The index searches only the lanes that left their cell (one host sync
-    for their count), or with ``all_lanes`` every lane, with no sync: the
-    XLA engine's choice, whose round would otherwise sync once more.  JAX's
-    find_cell guards the search with ``lax.cond`` on any lane needing it,
-    and JAX's own measurement found the unconditional search faster in both
-    regimes (mcrat_tpu/grid.py:542-546); either way the cells are the same.
+    On a :class:`BinnedIndex` with CUDA tensors, one launch of
+    ``csrc/binned_search.cu`` (``ops.binned_search.carried_lookup``) pins,
+    searches the lanes that left their cell and writes the cells, bit for
+    bit the plain version's, with no host sync; ``searched`` (an int64 on
+    the card, or None) gains the lanes searched, which with None go
+    uncounted: on the card ``grid.search_lanes`` counts only the lanes of
+    callers that pass a counter and add it up (the fused engine's carried
+    branch).  Otherwise the plain
+    version, :func:`find_cell_rows_reference`, with ``all_lanes`` as it
+    says.
 
     The JAX package carries each lane's (16, N) packed rows beside its cell;
     the port's kernel reads a cell's rows by its index, and on every in-grid
     lane JAX's carried rows equal ``frame.packed[:, cell]``, so only the cell
-    is carried.  Works on either index.  ``pos`` is (N, 3) MCRaT Cartesian,
-    ``cached`` (N,) int32.  Returns (cell int32, in_grid bool)."""
+    is carried.  ``pos`` is (N, 3) MCRaT Cartesian, ``cached`` (N,) int32.
+    Returns (cell int32, in_grid bool)."""
+    telemetry.count("grid.lookup_lanes", pos.shape[0])
+    if isinstance(index, BinnedIndex) and pos.device.type == "cuda":
+        return carried_lookup(cfg, index, frame, pos, cached, searched=searched)
+    return find_cell_rows_reference(cfg, index, frame, pos, cached, all_lanes, searched)
+
+
+def find_cell_rows_flags(cfg: Config, index: BinnedIndex, frame: HydroFrame, pos, cached,
+                         alive, pool, bits, searched=None):
+    """:func:`find_cell_rows` with a fused-round call's lane inputs, the
+    carried counterpart of :func:`find_cell_direct_flags`: (cell, safe,
+    flags), ``safe`` the cell clamped to a valid index and ``flags``
+    ``alive * bits[0] + pool * bits[1] + in_grid * bits[2]``; on CUDA
+    tensors one launch (``ops.binned_search.carried_lookup_flags``), bit for
+    bit the plain version's."""
+    telemetry.count("grid.lookup_lanes", pos.shape[0])
+    if pos.device.type != "cpu":
+        return carried_lookup_flags(cfg, index, frame, pos, cached, alive, pool, bits,
+                                    searched=searched)
+    cell, in_grid = find_cell_rows_reference(cfg, index, frame, pos, cached, searched=searched)
+    return cell, _clamp(frame, cell), flags_word(alive, pool, in_grid, bits)
+
+
+def find_cell_rows_reference(cfg: Config, index, frame: HydroFrame, pos, cached,
+                             all_lanes=False, searched=None):
+    """:func:`find_cell_rows` as torch ops on any device and either index,
+    the carried lookup kernel's plain version.  The index searches only the
+    lanes that left their cell (one host sync for their count,
+    ``grid.miss_count``), or with ``all_lanes`` every lane, with no sync:
+    the XLA engine's choice, whose round would otherwise sync once more.
+    JAX's find_cell guards the search with ``lax.cond`` on any lane needing
+    it, and JAX's own measurement found the unconditional search faster in
+    both regimes (mcrat_tpu/grid.py:542-546); either way the cells are the
+    same.  The lanes searched go to ``searched`` (a tensor) where given,
+    else to the counter ``grid.search_lanes``."""
     r0, r1, r2, inside = _hydro_inside(cfg, frame, pos)
     safe = torch.clamp(cached, 0, frame.num_elements - 1).to(torch.int64)
     in_cached = (cached >= 0) & geo.in_block(
@@ -621,7 +657,10 @@ def find_cell_rows(cfg: Config, index, frame: HydroFrame, pos, cached, all_lanes
         frame.dr0[safe], frame.dr1[safe], frame.dr2[safe], use_r2=cfg.dims is Dims.THREE)
 
     def search(*r):
-        telemetry.count("grid.search_lanes", r[0].numel())
+        if searched is None:
+            telemetry.count("grid.search_lanes", r[0].numel())
+        else:
+            searched.add_(r[0].numel())
         with telemetry.span("grid.search"):
             found = index.find(*r, frame) if isinstance(index, BinnedIndex) else index.find(*r)
         return found.to(torch.int32)
@@ -636,6 +675,18 @@ def find_cell_rows(cfg: Config, index, frame: HydroFrame, pos, cached, all_lanes
             cell[miss] = search(r0[miss], r1[miss], r2[miss])
     cell = torch.where(inside, cell, -1)
     return cell, inside & (cell >= 0)
+
+
+def _clamp(frame: HydroFrame, cell) -> torch.Tensor:
+    """The cells clamped to a valid index (int32)."""
+    return torch.clamp(cell, 0, frame.num_elements - 1).to(torch.int32)
+
+
+def flags_word(alive, pool, in_grid, bits) -> torch.Tensor:
+    """``alive * bits[0] + pool * bits[1] + in_grid * bits[2]`` (int32), the
+    fused-round call's ``FLAG_*`` word (``transport.lane_flags``)."""
+    return (alive.to(torch.int32) * bits[0] + pool.to(torch.int32) * bits[1]
+            + in_grid.to(torch.int32) * bits[2])
 
 
 def find_cell_direct(cfg: Config, index: RectilinearIndex, frame: HydroFrame, pos):
@@ -660,9 +711,7 @@ def find_cell_direct_flags(cfg: Config, index: RectilinearIndex, frame: HydroFra
     if pos.device.type != "cpu":
         return direct_lookup_flags(cfg, index, frame, pos, alive, pool, bits)
     cell, in_grid = find_cell_direct_reference(cfg, index, frame, pos)
-    safe = torch.clamp(cell, 0, frame.num_elements - 1).to(torch.int32)
-    return cell, safe, (alive.to(torch.int32) * bits[0] + pool.to(torch.int32) * bits[1]
-                        + in_grid.to(torch.int32) * bits[2])
+    return cell, _clamp(frame, cell), flags_word(alive, pool, in_grid, bits)
 
 
 def find_cell_direct_reference(cfg: Config, index: RectilinearIndex, frame: HydroFrame, pos):

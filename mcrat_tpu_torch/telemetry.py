@@ -206,6 +206,12 @@ def count(name: str, n: int = 1) -> None:
         _counters[name] = _counters.get(name, 0) + n
 
 
+def tracing() -> bool:
+    """Tracing is on for the frame being run: a caller that gathers a
+    count on the device for a counter does so only then."""
+    return _on
+
+
 def _profiling() -> bool:
     """A torch profiler is recording on this thread."""
     return torch.autograd._profiler_enabled()

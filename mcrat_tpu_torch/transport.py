@@ -51,7 +51,7 @@ from . import telemetry
 from .device import resolve_device
 from .grid import (PCOL, BinnedIndex, HydroFrame, HydroFrameHost, RectilinearIndex,
                    find_cell_direct, find_cell_direct_flags, find_cell_rows,
-                   fluid_beta_from_rows, gather_rows)
+                   find_cell_rows_flags, flags_word, fluid_beta_from_rows, gather_rows)
 from .ops import compton, electrons
 from .ops import fused_round as fr
 from .ops import hot_xsec
@@ -358,6 +358,8 @@ class ChunkResult(NamedTuple):
     all_done: torch.Tensor  # bool scalar: no active photons remain
     n_active: torch.Tensor  # int64 scalar: alive photons with time left
     n_cs: Optional[torch.Tensor] = None  # live scattered-CS count (a mesh step's)
+    # lanes the carried lookups searched (int64 on the device; traced frames only)
+    n_searched: Optional[torch.Tensor] = None
 
 
 def _count_cs(photons: Photons) -> torch.Tensor:
@@ -490,7 +492,9 @@ def transport_rounds(
     engine (``mcrat_tpu.transport.transport_rounds``; the frame loop of
     Src/mcrat.c:761-846): per round, each active photon's cell
     (:func:`~mcrat_tpu_torch.grid.find_cell_rows`, the cached-cell pin then
-    the index search on every lane), its optical depth (:func:`_tau_rate`), an exponential free
+    the index search: on every lane on the plain path, on the lanes that
+    left their cell in the card's one launch; the same cells either way),
+    its optical depth (:func:`_tau_rate`), an exponential free
     path, the move (pool photons stay), and for photons whose free path ends
     inside the frame window a polarized Klein-Nishina scatter off a drawn
     electron (``ops.compton.single_scatter``); rejected scatters are null
@@ -745,18 +749,29 @@ def aux_planes(cfg: Config, xsec_table, frame: HydroFrame, cell: torch.Tensor,
     return torch.stack([total, tau0 / torch.clamp(total, min=tiny)])
 
 
+# the kernel's per-lane FLAG_* bits of the alive, pool and in-grid masks
+_FLAG_BITS = (fr.FLAG_ALIVE, fr.FLAG_POOL, fr.FLAG_INGRID)
+
+
 def lane_flags(alive, pool, in_grid) -> torch.Tensor:
     """The kernel's per-lane FLAG_* bits."""
-    return (alive.to(torch.int32) * fr.FLAG_ALIVE + pool.to(torch.int32) * fr.FLAG_POOL
-            + in_grid.to(torch.int32) * fr.FLAG_INGRID)
+    return flags_word(alive, pool, in_grid, _FLAG_BITS)
 
 
 def direct_lane_inputs(cfg: Config, index: RectilinearIndex, frame: HydroFrame, pos, alive,
                        pool):
     """One fused-round call's lane inputs on the direct branch, (cell, safe,
     :func:`lane_flags` word): ``grid.find_cell_direct_flags``."""
-    return find_cell_direct_flags(cfg, index, frame, pos, alive, pool,
-                                  (fr.FLAG_ALIVE, fr.FLAG_POOL, fr.FLAG_INGRID))
+    return find_cell_direct_flags(cfg, index, frame, pos, alive, pool, _FLAG_BITS)
+
+
+def carried_lane_inputs(cfg: Config, index: BinnedIndex, frame: HydroFrame, pos, cached, alive,
+                        pool, searched=None):
+    """One fused-round call's lane inputs on the carried branch, (cell,
+    safe, :func:`lane_flags` word), behind the lanes' cached cells:
+    ``grid.find_cell_rows_flags``; ``searched`` gains the lanes searched."""
+    return find_cell_rows_flags(cfg, index, frame, pos, cached, alive, pool, _FLAG_BITS,
+                                searched=searched)
 
 
 _NO_FLOAT64_KERNEL = ("the fused-round kernel runs float32 photons only (as the JAX "
@@ -792,8 +807,10 @@ def transport_rounds_fused(
       the clamp and the lane flags, on the card one launch); the active-first row
       partition is redone only when the active-row count dropped by >= 1/8;
     * carried (:class:`~mcrat_tpu_torch.grid.BinnedIndex`, AMR): each lane
-      carries its cell, ``find_cell_rows`` re-resolves only the lanes that
-      left it, before every call and once at the end; the partition runs
+      carries its cell, and before every call :func:`carried_lane_inputs`
+      (``find_cell_rows``, the clamp and the lane flags, on the card one
+      launch) re-resolves only the lanes that left it, as does a
+      ``find_cell_rows`` once at the end; the partition runs
       before every call (the leading blocks active, ``block_act``), as
       JAX's carried loop, so the counter stream meets the same lane
       positions.  In TABLE mode the kernel reads per-lane aux planes
@@ -827,9 +844,11 @@ def transport_rounds_fused(
         block_iota = torch.arange(n_blocks, device=dev)
         orig = row_iota.clone()  # row -> original row, across partitions
         ns0 = state[fr.SP_NS].to(torch.int64).sum()
-        n_cell = frame.num_elements
         cell = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
         cell[:cap] = photons.cell
+        # the carried lookups' searched lanes, for the counter grid.search_lanes
+        searched = (torch.zeros((), dtype=torch.int64, device=dev)
+                    if carried and telemetry.tracing() else None)
 
     def rows(x):
         return x.view(-1, r_pad, lanes)
@@ -862,9 +881,8 @@ def transport_rounds_fused(
         if carried:
             block_act = (block_iota < -(-n_act // s_rows)).to(torch.int32)
             with telemetry.span("grid.lookup"):
-                cell, in_grid = find_cell_rows(cfg, index, frame, pos(state), cell)
-            safe = torch.clamp(cell, 0, n_cell - 1).to(torch.int32)
-            flags = None  # the lane flags, inside the call's span
+                cell, safe, flags = carried_lane_inputs(cfg, index, frame, pos(state), cell,
+                                                        alive, pool, searched)
         else:
             block_act = act_row.view(n_blocks, s_rows).any(dim=1).to(torch.int32)
             with telemetry.span("grid.lookup"):
@@ -876,8 +894,7 @@ def transport_rounds_fused(
                 aux = aux_planes(cfg, setup.aux, frame, safe, state[fr.SP_C0]).contiguous()
         with telemetry.span("fused_round.call"):
             out = rounds_fn(
-                state, safe, lane_flags(alive, pool, in_grid) if flags is None else flags,
-                setup.table, block_act,
+                state, safe, flags, setup.table, block_act,
                 fr.rng_seed_i32(base_seed + rounds * 7919), setup.grid,
                 stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=block_lanes,
                 variant=setup.variant, cheb_base=setup.cheb_base, nt=setup.nt, aux=aux,
@@ -892,7 +909,7 @@ def transport_rounds_fused(
 
     # the last call's lane inputs go before the planes are copied back, the
     # frame's peak of device memory
-    safe = flags = in_grid = None
+    safe = flags = None
     # undo the active-first partitions
     with telemetry.span("transport.unplane"):
         inv = torch.empty_like(orig)
@@ -903,7 +920,7 @@ def transport_rounds_fused(
     with telemetry.span("grid.lookup"):
         if carried:
             cell, _ = find_cell_rows(cfg, index, frame, pos(state),
-                                     rows(cell)[0, inv].reshape(-1))
+                                     rows(cell)[0, inv].reshape(-1), searched=searched)
         else:
             cell, _ = find_cell_direct(cfg, index, frame, pos(state))
 
@@ -926,7 +943,7 @@ def transport_rounds_fused(
         active = ph.alive & (t_out > 0)
     return ChunkResult(
         photons=ph, t_rem=t_out, n_scatt=n_scatt, n_rounds=rounds,
-        all_done=~active.any(), n_active=active.sum(),
+        all_done=~active.any(), n_active=active.sum(), n_searched=searched,
     )
 
 
@@ -1171,8 +1188,12 @@ def transport_frame(
                 fetch.append(res.n_rounds.to(torch.int64))
             if cs_limit is not None:
                 fetch.append(_count_cs(work_ph) if res.n_cs is None else res.n_cs.to(torch.int64))
+            if res.n_searched is not None:
+                fetch.append(res.n_searched)
             with telemetry.span("transport.fetch"):
                 n_scatt, all_done, n_active, *rest = torch.stack(fetch).tolist()
+            if res.n_searched is not None:
+                telemetry.count("grid.search_lanes", rest.pop())
             n_scatt_total += n_scatt
             rounds_total += rest.pop(0) if rounds_on_device else res.n_rounds
             if cs_limit is not None:

@@ -247,6 +247,34 @@ def test_result_bit_identical_with_tracing_on_and_off(problems, tracing, kind):
         assert torch.equal(getattr(on.photons, k), v), k
 
 
+def test_search_lanes_count_the_lanes_that_left_their_cell(problems, tracing, monkeypatch):
+    """A carried frame's ``grid.search_lanes`` are the lanes its lookups
+    searched (the plain search's lanes here; on the card the kernel's
+    device counter), carried in each chunk's one fetch; ``grid.lookup_lanes``
+    the lanes of every lookup, the chunk's last included."""
+    searched, looked_up = [], []
+    find, lookup = grid.BinnedIndex.find, grid.find_cell_rows_reference
+
+    def spy_find(self, r0, *rest):
+        searched.append(r0.shape[0])
+        return find(self, r0, *rest)
+
+    def spy_lookup(cfg, index, frame, pos, *rest, **kw):
+        looked_up.append(pos.shape[0])
+        return lookup(cfg, index, frame, pos, *rest, **kw)
+
+    monkeypatch.setattr(grid.BinnedIndex, "find", spy_find)
+    monkeypatch.setattr(grid, "find_cell_rows_reference", spy_lookup)
+    telemetry.enable()
+    _frame(problems, "carried")
+    summ = telemetry.summary()
+    c, spans = summ["counters"], summ["spans"]
+    assert c["grid.search_lanes"] == sum(searched) > 0
+    assert len(searched) == spans["grid.search"]["count"]
+    assert len(looked_up) == spans["grid.lookup"]["count"]
+    assert c["grid.lookup_lanes"] == sum(looked_up) > sum(searched)
+
+
 @pytest.mark.parametrize("records", [False, True])
 def test_enable_keeps_totals_and_records_only_on_request(problems, tracing, records):
     """``enable()`` keeps running totals by span name; the records of the
