@@ -1,0 +1,28 @@
+"""The active-first partition's stream milliseconds a traced frame window
+in the spherical fireball's cell: the time the card's stream took between
+the CUDA events at the ends of the program's ``transport.partition`` spans
+(the argsort of the rows and the gathers of the 16 lane planes and the
+masks), over the ``transport.frame`` spans recorded.  Stream time, as the
+other ``_stream_ms`` metrics: the device work the spans queued and the
+device's idle time inside them.  None where the program records no such
+span (no ``mcrat_tpu_torch.telemetry``, no traced window on the card, or no
+partition in the frames traced)."""
+
+
+def summary():
+    try:
+        from mcrat_tpu_torch import telemetry
+    except ImportError:
+        return None
+    return telemetry.summary()
+
+
+def value(s):
+    if not s or not s.get("frames"):
+        return None
+    ms = s["spans"].get("transport.partition", {}).get("stream_ms")
+    return None if ms is None else ms / s["frames"]
+
+
+def read(rec):
+    return value(summary())
