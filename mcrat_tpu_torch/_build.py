@@ -94,12 +94,13 @@ def build(src: Path = FUSED_ROUND_SRC, units=FUSED_ROUND_UNITS) -> dict:
 
 def bind_fused_round(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the ctypes signatures of a fused-round library's C entry points
-    (``mcrat_fused_rounds``, ``mcrat_kn_cross_section``,
-    ``mcrat_error_string``; ``fused_round.kernel_attributes`` declares
-    ``mcrat_fused_rounds_attrs``, which older builds lack), so that
-    any build of ``fused_round.cu`` loads the same way.  Returns ``lib``."""
+    (``mcrat_fused_rounds``, ``mcrat_fused_rounds_mapped`` where the build
+    has it, ``mcrat_kn_cross_section``, ``mcrat_error_string``;
+    ``fused_round.kernel_attributes`` declares ``mcrat_fused_rounds_attrs``,
+    which older builds lack), so that any build of ``fused_round.cu`` loads
+    the same way.  Returns ``lib``."""
     p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
-    lib.mcrat_fused_rounds.argtypes = [
+    call = [
         i32, i32,  # variant code, optical-depth family
         p, i64, p, p, p, i64, p, p, i32,  # state, n, cell, flags, table, ncell, block_act, out, seed
         *[f32] * 6,  # domain
@@ -107,9 +108,13 @@ def bind_fused_round(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32, i32, i32,  # stokes_on, inner_rounds, el_iters, kn_iters, block_lanes
         f32, f32, f32, f32, f32,  # kb_over_mec2, thom, c_light, inv_c, inv_mp
         i32, ctypes.POINTER(f32), i32,  # cheb_base, NtConsts floats (host), their count
-        p, p,  # aux planes (device, or NULL), stream
+        p,  # aux planes (device, or NULL)
     ]
+    lib.mcrat_fused_rounds.argtypes = [*call, p]  # stream
     lib.mcrat_fused_rounds.restype = ctypes.c_int
+    if hasattr(lib, "mcrat_fused_rounds_mapped"):  # builds since the row map
+        lib.mcrat_fused_rounds_mapped.argtypes = [*call, p, p]  # row map (device), stream
+        lib.mcrat_fused_rounds_mapped.restype = ctypes.c_int
     lib.mcrat_kn_cross_section.argtypes = [p, p, i64, p]  # energies, out, n, stream
     lib.mcrat_kn_cross_section.restype = ctypes.c_int
     lib.mcrat_error_string.argtypes = [ctypes.c_int]

@@ -110,6 +110,17 @@
 //     from and written to device memory once a call, coalesced; the lane
 //     reads its own cell's rows by index once a call (not coalesced, a few
 //     words a lane; the largest table, 17 MB, stays in the 50 MB L2);
+//   * a row map (row_map, optional): the caller's active-first partition
+//     reorders 128-lane rows by a map instead of moving the planes.  A
+//     thread's logical lane keeps the roles of its position (its logical
+//     block's block_act, the counter stream's base, the scatter queue's
+//     owner); every per-lane load and store (state, cell, flags, aux,
+//     out-flags) goes to the physical lane row_map[lane / 128] * 128 +
+//     lane % 128, so a warp's 32 lanes still read 32 consecutive floats of a
+//     plane.  It costs ~1.5 % on a call over every row and ~11 % on a call
+//     after a partition, whose active rows lie among idle ones (DRAM
+//     locality; 9.5M lanes on an H100, PERF.md section 6), against the
+//     gathers of every plane that it replaces;
 //   * idle lanes (past n, idle logical block, dead, out of time, stalled)
 //     take part in the barriers and nothing else; a block with no running
 //     lane returns at once, and a block whose lanes all stop leaves the round
@@ -764,6 +775,15 @@ struct Cell {
   }
 };
 
+// the physical lane of a logical lane through the caller's row map of
+// 128-lane rows (the identity without one)
+constexpr int LANES = 128;
+
+__device__ __forceinline__ int64_t physical_lane(const int* __restrict__ row_map,
+                                                 int64_t lane) {
+  return row_map == nullptr ? lane : (int64_t)row_map[lane / LANES] * LANES + lane % LANES;
+}
+
 // the counter stream's per-lane base (ops/rng.lane_base)
 __device__ __forceinline__ uint32_t lane_base(int64_t lane, int block_lanes, int seed) {
   const int64_t pid = lane / block_lanes;
@@ -889,7 +909,8 @@ __device__ __forceinline__ void scatter_entry(float* __restrict__ sm, int slot, 
 //            to the owner's column;
 //   barrier.
 // Idle lanes (past n, idle logical block, dead, out of time, stalled) take
-// part in the barriers and in nothing else.
+// part in the barriers and in nothing else.  A thread's lane is logical: its
+// per-lane data lives at physical_lane(row_map, lane).
 
 template <bool STOKES, int GEO, int SRC, bool V2, int TAU, int THREADS>
 __global__ void __launch_bounds__(THREADS, RESIDENT_THREADS / THREADS)
@@ -898,7 +919,8 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
                     int64_t ncell, const int* __restrict__ block_act,
                     int* __restrict__ out_flags, int seed, Grid g, Consts cst,
                     int inner_rounds, int el_iters, int kn_iters, int block_lanes,
-                    int cheb_base, NtConsts ntc, const float* __restrict__ aux) {
+                    int cheb_base, NtConsts ntc, const float* __restrict__ aux,
+                    const int* __restrict__ row_map) {
   using L = Layout<GEO, SRC, V2, TAU>;
   constexpr bool IS_AUX = TAU == AUX || TAU == AUX_NT;
   constexpr bool NT = TAU == CHEB_NT || TAU == AUX_NT;
@@ -908,13 +930,14 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
   __shared__ float gcos[N_GCOS];
   const int tid = threadIdx.x;
   const int64_t lane = (int64_t)blockIdx.x * THREADS + tid;
+  const int64_t phys = lane < n ? physical_lane(row_map, lane) : lane;
 
   // the lanes a round can touch: alive with time left, in an active block
   int fl = 0;
   bool live = false;
   if (lane < n && block_act[lane / block_lanes] != 0) {
-    fl = flags[lane];
-    live = (fl & FLAG_ALIVE) != 0 && state[SP_TREM * n + lane] > 0.0f;
+    fl = flags[phys];
+    live = (fl & FLAG_ALIVE) != 0 && state[SP_TREM * n + phys] > 0.0f;
   }
   if (tid == 0) {
     qcount[0] = 0;
@@ -933,7 +956,7 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
     }
   }
   if (!__syncthreads_or(live)) {  // no lane of this block runs
-    if (lane < n) out_flags[lane] = 0;
+    if (lane < n) out_flags[phys] = 0;
     return;
   }
 
@@ -945,14 +968,14 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
   const Cell<GEO, SRC, V2, TAU, THREADS> cc{s, gcos};
   if (ran) {
 #pragma unroll
-    for (int p = 0; p < N_STATE; ++p) S(p) = state[p * n + lane];
-    int cl = cell[lane];
+    for (int p = 0; p < N_STATE; ++p) S(p) = state[p * n + phys];
+    int cl = cell[phys];
     cl = cl < 0 ? 0 : (cl >= ncell ? (int)(ncell - 1) : cl);
     cc.load(table, ncell, cl, g, cst, cheb_base, ntc);
     // AUX: the biased total tau coefficient and the thermal probability,
     // fixed for the call (the lane stalls once they go stale)
-    if (IS_AUX) S(L::NSIG) = aux[lane];
-    if (TAU == AUX_NT) S(L::PTH) = aux[n + lane];
+    if (IS_AUX) S(L::NSIG) = aux[phys];
+    if (TAU == AUX_NT) S(L::PTH) = aux[n + phys];
   }
   const uint32_t base = lane_base(lane, block_lanes, seed);
   const Offsets off = draw_offsets(el_iters, kn_iters, NT);
@@ -1119,9 +1142,9 @@ fused_rounds_kernel(float* __restrict__ state, int64_t n, const int* __restrict_
 
   if (ran) {
 #pragma unroll
-    for (int p = 0; p < N_STATE; ++p) state[p * n + lane] = S(p);
+    for (int p = 0; p < N_STATE; ++p) state[p * n + phys] = S(p);
   }
-  if (lane < n) out_flags[lane] = (stalled ? OUT_STALLED : 0) | (promoted ? OUT_PROMOTED : 0);
+  if (lane < n) out_flags[phys] = (stalled ? OUT_STALLED : 0) | (promoted ? OUT_PROMOTED : 0);
 #undef S
 }
 
@@ -1140,6 +1163,7 @@ struct Launch {
   int inner_rounds, el_iters, kn_iters, block_lanes, cheb_base;
   NtConsts ntc;
   const float* aux;
+  const int* row_map;
 };
 
 // an instantiation's launch shape and what the CUDA runtime reports of it
@@ -1172,7 +1196,7 @@ int launch_one(const Launch* a, Attrs* q, cudaStream_t s) {
   kern<<<blocks, THREADS, smem, s>>>(a->state, a->n, a->cell, a->flags, a->table, a->ncell,
                                      a->block_act, a->out_flags, a->seed, a->g, a->cst,
                                      a->inner_rounds, a->el_iters, a->kn_iters, a->block_lanes,
-                                     a->cheb_base, a->ntc, a->aux);
+                                     a->cheb_base, a->ntc, a->aux, a->row_map);
   return 0;
 }
 
@@ -1275,10 +1299,41 @@ extern "C" int mcrat_kn_cross_section(const float* e, float* out, int64_t n, voi
 // variant codes as in mcrat_tpu_torch/ops/fused_round.py::VARIANTS, tau the
 // optical-depth family (fused_round.TAU_*), nt the host array of the n_nt
 // NtConsts floats, aux the (2, n) device planes of the AUX families (else
-// unused); returns cudaGetLastError() after the launch
+// unused), row_map the (n / 128,) device map of logical to physical 128-lane
+// rows (NULL: the identity); returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for an unknown code or family, an NtConsts of
 // another size, an ultra/slim variant in a packed-only family, or an AUX
 // family without aux planes)
+extern "C" int mcrat_fused_rounds_mapped(int variant, int tau, float* state, int64_t n,
+                                         const int* cell, const int* flags,
+                                         const float* table, int64_t ncell,
+                                         const int* block_act, int* out_flags, int seed,
+                                         float dom0, float dom1, float dom2, float dom3,
+                                         float dom4, float dom5, float lo0, float d0,
+                                         float lo1, float d1, float lo2, float d2, int n1,
+                                         int n2, int stokes_on, int inner_rounds,
+                                         int el_iters, int kn_iters, int block_lanes,
+                                         float kb_over_mec2, float thom, float c_light,
+                                         float inv_c, float inv_mp, int cheb_base,
+                                         const float* nt, int n_nt, const float* aux,
+                                         const int* row_map, void* stream) {
+  if (n_nt * sizeof(float) != sizeof(NtConsts) || nt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if ((tau == AUX || tau == AUX_NT) && aux == nullptr) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  Launch a{state, n, cell, flags, table, ncell, block_act, out_flags, seed,
+           Grid{dom0, dom1, dom2, dom3, dom4, dom5, lo0, d0, lo1, d1, lo2, d2, n1, n2},
+           Consts{kb_over_mec2, thom, c_light, inv_c, inv_mp},
+           inner_rounds, el_iters, kn_iters, block_lanes, cheb_base, NtConsts{}, aux, row_map};
+  memcpy(&a.ntc, nt, sizeof(NtConsts));
+  const int rc = dispatch(variant, tau, &a, nullptr, stokes_on, stream);
+  if (rc < 0) return (int)cudaErrorInvalidValue;
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
+// mcrat_fused_rounds_mapped without a row map: the entry point of every build
+// of this source, older ones included (tools/kernel_ab.py loads them alike)
 extern "C" int mcrat_fused_rounds(int variant, int tau, float* state, int64_t n,
                                   const int* cell, const int* flags, const float* table,
                                   int64_t ncell, const int* block_act, int* out_flags,
@@ -1289,19 +1344,12 @@ extern "C" int mcrat_fused_rounds(int variant, int tau, float* state, int64_t n,
                                   int block_lanes, float kb_over_mec2, float thom,
                                   float c_light, float inv_c, float inv_mp, int cheb_base,
                                   const float* nt, int n_nt, const float* aux, void* stream) {
-  if (n_nt * sizeof(float) != sizeof(NtConsts) || nt == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if ((tau == AUX || tau == AUX_NT) && aux == nullptr) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  Launch a{state, n, cell, flags, table, ncell, block_act, out_flags, seed,
-           Grid{dom0, dom1, dom2, dom3, dom4, dom5, lo0, d0, lo1, d1, lo2, d2, n1, n2},
-           Consts{kb_over_mec2, thom, c_light, inv_c, inv_mp},
-           inner_rounds, el_iters, kn_iters, block_lanes, cheb_base, NtConsts{}, aux};
-  memcpy(&a.ntc, nt, sizeof(NtConsts));
-  const int rc = dispatch(variant, tau, &a, nullptr, stokes_on, stream);
-  if (rc < 0) return (int)cudaErrorInvalidValue;
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  return mcrat_fused_rounds_mapped(variant, tau, state, n, cell, flags, table, ncell,
+                                   block_act, out_flags, seed, dom0, dom1, dom2, dom3, dom4,
+                                   dom5, lo0, d0, lo1, d1, lo2, d2, n1, n2, stokes_on,
+                                   inner_rounds, el_iters, kn_iters, block_lanes, kb_over_mec2,
+                                   thom, c_light, inv_c, inv_mp, cheb_base, nt, n_nt, aux,
+                                   nullptr, stream);
 }
 
 // one instantiation's launch shape and resources into out[5]: threads a

@@ -1026,7 +1026,7 @@ def _rounds(st, alive, is_pool, in_grid, cell: _Cell, base, stokes_on, inner_rou
 
 
 def _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt,
-                aux=None):
+                aux=None, row_map=None):
     if variant not in VARIANTS:
         raise ValueError(f"unknown kernel variant {variant!r}; one of {sorted(VARIANTS)}")
     var = VARIANTS[variant]
@@ -1061,12 +1061,18 @@ def _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb
                             or aux.dtype != torch.float32 or not aux.is_contiguous()):
         raise ValueError(f"aux must be a contiguous (2, {n}) float32 tensor, got "
                          f"{tuple(aux.shape)} {aux.dtype}")
+    if row_map is not None and (row_map.dim() != 1 or row_map.shape[0] != n // LANES
+                                or row_map.dtype != torch.int32
+                                or not row_map.is_contiguous()):
+        raise ValueError(f"row_map must be a contiguous ({n // LANES},) int32 tensor, got "
+                         f"{tuple(row_map.shape)} {row_map.dtype}")
     if (table.dim() != 2 or table.shape[0] != width or table.dtype != torch.float32
             or not table.is_contiguous() or table.shape[1] == 0):
         raise ValueError(f"the {variant} cell table (phys/packed) must be a contiguous "
                          f"({width}, Ncell) float32 tensor, got {tuple(table.shape)} "
                          f"{table.dtype}")
-    devs = {t.device for t in (state, cell, flags, table, block_act, aux) if t is not None}
+    devs = {t.device for t in (state, cell, flags, table, block_act, aux, row_map)
+            if t is not None}
     if len(devs) != 1:
         raise ValueError(f"all inputs must be on one device, got {devs}")
 
@@ -1075,7 +1081,7 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
                            grid: GridScalars, stokes_on: bool = True,
                            inner_rounds: int = 4, block_lanes: int = 16384,
                            variant: str = "ultra_cyl2", cheb_base: int = 0,
-                           nt: NtConstants = None, aux=None):
+                           nt: NtConstants = None, aux=None, row_map=None):
     """Plain PyTorch twin of the fused-round kernel.
 
     ``state`` (16, Npad) f32 is updated IN PLACE on the lanes of active
@@ -1087,10 +1093,16 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
     Chebyshev rows appended to the table; ``aux`` (2, Npad) float32 runs
     TABLE mode from per-lane aux planes instead (packed variants,
     ``cheb_base`` 0); ``nt`` adds nonthermal electrons (packed variants,
-    TABLE mode only).  Returns the (Npad,) int32 out-flags
+    TABLE mode only).  ``row_map`` (Npad / LANES,) int32, a permutation of
+    the 128-lane rows (None: the identity), puts logical lane ``l`` at the
+    physical lane ``row_map[l // LANES] * LANES + l % LANES``: a logical
+    lane keeps its logical block's ``block_act`` and its counter stream,
+    and reads and writes its state, ``cell``, ``flags``, ``aux`` and
+    out-flag at its physical lane.  Returns the (Npad,) int32 out-flags
     (OUT_STALLED | OUT_PROMOTED; 0 on idle blocks).
     """
-    _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt, aux)
+    _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt, aux,
+                row_map)
     fused_rounds_reference.launches += 1
     n = state.shape[1]
     out = torch.zeros(n, dtype=torch.int32, device=state.device)
@@ -1098,20 +1110,21 @@ def fused_rounds_reference(state, cell, flags, table, block_act, seed: int,
     lanes = torch.nonzero(lane_on).flatten()
     if lanes.numel() == 0:
         return out
-    sub = state[:, lanes]
-    fl = flags[lanes]
-    cl = torch.clamp(cell[lanes].long(), 0, table.shape[1] - 1)
+    phys = lanes if row_map is None else row_map[lanes // LANES].long() * LANES + lanes % LANES
+    sub = state[:, phys]
+    fl = flags[phys]
+    cl = torch.clamp(cell[phys].long(), 0, table.shape[1] - 1)
     base = rng.lane_base(seed, lanes, block_lanes)
     planes, stalled, promoted = _rounds(
         tuple(sub[i] for i in range(N_STATE)),
         (fl & FLAG_ALIVE) != 0, (fl & FLAG_POOL) != 0, (fl & FLAG_INGRID) != 0,
         _Cell(VARIANTS[variant], table, cl, grid, cheb_base, nt is not None), base,
-        stokes_on, inner_rounds, nt, None if aux is None else aux[:, lanes],
+        stokes_on, inner_rounds, nt, None if aux is None else aux[:, phys],
         fused_rounds_reference.work, lanes,
         cuda_block(variant, tau_family(cheb_base, nt, aux is not None), stokes_on),
     )
-    state[:, lanes] = torch.stack(planes)
-    out[lanes] = stalled.to(torch.int32) * OUT_STALLED + promoted.to(torch.int32) * OUT_PROMOTED
+    state[:, phys] = torch.stack(planes)
+    out[phys] = stalled.to(torch.int32) * OUT_STALLED + promoted.to(torch.int32) * OUT_PROMOTED
     return out
 
 
@@ -1218,7 +1231,7 @@ def fused_rounds(state, cell, flags, table, block_act, seed: int,
                  grid: GridScalars, stokes_on: bool = True,
                  inner_rounds: int = 4, block_lanes: int = 16384,
                  variant: str = "ultra_cyl2", cheb_base: int = 0,
-                 nt: NtConstants = None, aux=None):
+                 nt: NtConstants = None, aux=None, row_map=None):
     """Run ``inner_rounds`` fused transport rounds over the lane planes.
 
     Same contract as :func:`fused_rounds_reference` (``state`` updated in
@@ -1232,15 +1245,16 @@ def fused_rounds(state, cell, flags, table, block_act, seed: int,
     if state.device.type == "cpu":
         return fused_rounds_reference(
             state, cell, flags, table, block_act, seed, grid, stokes_on,
-            inner_rounds, block_lanes, variant, cheb_base, nt, aux)
+            inner_rounds, block_lanes, variant, cheb_base, nt, aux, row_map)
     if state.device.type != "cuda":
         raise ValueError(f"fused_rounds runs on cpu or cuda tensors, not {state.device}")
-    _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt, aux)
+    _check_args(state, cell, flags, table, block_act, block_lanes, variant, cheb_base, nt, aux,
+                row_map)
     from .._build import load_fused_round
 
     out = launch(load_fused_round(), torch.cuda.current_stream(state.device).cuda_stream,
                  state, cell, flags, table, block_act, seed, grid, stokes_on, inner_rounds,
-                 block_lanes, variant, cheb_base, nt, aux)
+                 block_lanes, variant, cheb_base, nt, aux, row_map)
     fused_rounds.launches += 1
     fused_rounds.variant_launches[instantiation(variant, cheb_base, nt, stokes_on,
                                                 aux is not None)] += 1
@@ -1249,10 +1263,11 @@ def fused_rounds(state, cell, flags, table, block_act, seed: int,
 
 def launch(lib, stream, state, cell, flags, table, block_act, seed: int, grid: GridScalars,
            stokes_on: bool, inner_rounds: int, block_lanes: int, variant: str,
-           cheb_base: int, nt: NtConstants, aux):
+           cheb_base: int, nt: NtConstants, aux, row_map=None):
     """One call of ``lib.mcrat_fused_rounds`` (a library bound by
-    ``_build.bind_fused_round``) on ``stream``, on arguments that
-    :func:`_check_args` accepts; raises if the call returns an error.
+    ``_build.bind_fused_round``; ``mcrat_fused_rounds_mapped`` with a
+    ``row_map``) on ``stream``, on arguments that :func:`_check_args`
+    accepts; raises if the call returns an error.
     Counts nothing: :func:`fused_rounds` is the port's entry point, and this
     is the call it makes, shared with tools that load another build of the
     same source (``tools/kernel_ab.py``)."""
@@ -1260,7 +1275,7 @@ def launch(lib, stream, state, cell, flags, table, block_act, seed: int, grid: G
     out = torch.empty(n, dtype=torch.int32, device=state.device)
     f = ctypes.c_float
     consts = (f * N_NT_CONSTS)(*(nt.as_floats() if nt is not None else [0.0] * N_NT_CONSTS))
-    err = lib.mcrat_fused_rounds(
+    args = (
         ctypes.c_int32(VARIANTS[variant].code),
         ctypes.c_int32(tau_family(cheb_base, nt, aux is not None)),
         state.data_ptr(), ctypes.c_int64(n), cell.data_ptr(), flags.data_ptr(),
@@ -1273,8 +1288,12 @@ def launch(lib, stream, state, cell, flags, table, block_act, seed: int, grid: G
         ctypes.c_int32(KN_ITERS), ctypes.c_int32(block_lanes),
         f(KB_OVER_MEC2), f(THOM_X_SECT), f(C_LIGHT), f(_INV_C), f(_INV_MP),
         ctypes.c_int32(cheb_base), consts, ctypes.c_int32(N_NT_CONSTS),
-        None if aux is None else aux.data_ptr(), stream,
+        None if aux is None else aux.data_ptr(),
     )
+    if row_map is None:
+        err = lib.mcrat_fused_rounds(*args, stream)
+    else:
+        err = lib.mcrat_fused_rounds_mapped(*args, row_map.data_ptr(), stream)
     if err != 0:
         name = instantiation(variant, cheb_base, nt, stokes_on, aux is not None)
         msg = lib.mcrat_error_string(err).decode()

@@ -606,13 +606,15 @@ def sharded_transport_frame(
                 if eng.fused:
                     mesh.launches[g] += fr.fused_rounds.launches - before
         red = _reduce_chunk(mesh, results)
-        # the process's own shards' searched lanes, for its counter
+        # the process's own shards' searched lanes and remapped rows, for its counters
         searched = [r.n_searched.to(red.device) for r in results if r.n_searched is not None]
+        remapped = [r.n_remapped.to(red.device) for r in results if r.n_remapped is not None]
         return tr.ChunkResult(
             photons=Sharded(mesh, [r.photons for r in results]),
             t_rem=Sharded(mesh, [r.t_rem for r in results]),
             n_scatt=red[0], n_rounds=red[4], all_done=red[3] == n, n_active=red[1],
-            n_cs=red[2], n_searched=sum(searched) if searched else None)
+            n_cs=red[2], n_searched=sum(searched) if searched else None,
+            n_remapped=sum(remapped) if remapped else None)
 
     return tr.transport_frame(
         cfg, photons, None, None, dt_max, generator, stokes_on=stokes_on,

@@ -360,6 +360,10 @@ class ChunkResult(NamedTuple):
     n_cs: Optional[torch.Tensor] = None  # live scattered-CS count (a mesh step's)
     # lanes the carried lookups searched (int64 on the device; traced frames only)
     n_searched: Optional[torch.Tensor] = None
+    # rows the kernel calls reached through the row map, each call's rows whose
+    # logical place is not their physical one (int64 on the device; traced
+    # frames only)
+    n_remapped: Optional[torch.Tensor] = None
 
 
 def _count_cs(photons: Photons) -> torch.Tensor:
@@ -818,11 +822,16 @@ def transport_rounds_fused(
       stalls a lane after it scatters as well.
 
     The lanes live in (16, Npad) float32 planes (``fused_round.SP_*``), Npad
-    a multiple of ``s_rows * 128``, in the JAX (R, 128) C order; the kernel
-    updates them in place.  ``photons`` is not modified.  The per-invocation
-    seed is ``base_seed + rounds * 7919`` (int32 wrap).  ``rounds_fn`` is the
-    round implementation: the kernel wrapper, or ``fused_rounds_reference``
-    to run the plain twin on any device for comparisons.  ``setup`` is the
+    a multiple of ``s_rows * 128``, in the JAX (R, 128) C order, in the
+    population's order throughout; the kernel updates them in place.  The
+    active-first partition reorders a row map (logical 128-lane row ->
+    physical row) that the kernel reads through, never the planes, the lane
+    masks or the cells: a logical lane meets the counter stream and the
+    ``block_act`` that JAX's partitioned lane meets.  ``photons`` is not
+    modified.  The per-invocation seed is ``base_seed + rounds * 7919``
+    (int32 wrap).  ``rounds_fn`` is the round implementation: the kernel
+    wrapper, or ``fused_rounds_reference`` to run the plain twin on any
+    device for comparisons.  ``setup`` is the
     frame's :class:`KernelSetup` (:func:`select_variant`, which checked the
     frame and index), built once a frame by the caller.
     """
@@ -840,18 +849,18 @@ def transport_rounds_fused(
         r_pad = n_pad // lanes
         n_blocks = r_pad // s_rows
         promoted_any = torch.zeros(n_pad, dtype=torch.bool, device=dev)
-        row_iota = torch.arange(r_pad, device=dev)
+        row_iota = torch.arange(r_pad, dtype=torch.int32, device=dev)
         block_iota = torch.arange(n_blocks, device=dev)
-        orig = row_iota.clone()  # row -> original row, across partitions
+        row_map = row_iota  # logical row -> physical row, across partitions
         ns0 = state[fr.SP_NS].to(torch.int64).sum()
         cell = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
         cell[:cap] = photons.cell
-        # the carried lookups' searched lanes, for the counter grid.search_lanes
+        # the carried lookups' searched lanes, for the counter grid.search_lanes,
+        # and each call's row map, for transport.rows_remapped
+        tracing = telemetry.tracing()
         searched = (torch.zeros((), dtype=torch.int64, device=dev)
-                    if carried and telemetry.tracing() else None)
-
-    def rows(x):
-        return x.view(-1, r_pad, lanes)
+                    if carried and tracing else None)
+        maps = [] if tracing else None
 
     def pos(state):
         return state[fr.SP_X: fr.SP_Z + 1].T
@@ -865,17 +874,14 @@ def transport_rounds_fused(
             n_act = int(act_row.sum())
         if n_act == 0:
             break
+        act_row = act_row[row_map]  # in logical order
         if carried or n_act * 8 < n_last * 7:
-            # stable active-first permutation of 128-lane rows; the direct
+            # stable active-first permutation of the logical rows; the direct
             # branch redoes it only when the active-row count dropped by
             # >= 1/8 and skips idle blocks in place through block_act between
             with telemetry.span("transport.partition"):
                 perm = torch.argsort((~act_row).to(torch.int8), stable=True)
-                state = rows(state)[:, perm].reshape(fr.N_STATE, n_pad)
-                alive, pool, promoted_any = (
-                    rows(x)[0, perm].reshape(-1) for x in (alive, pool, promoted_any))
-                cell = rows(cell)[0, perm].reshape(-1)
-                orig = orig[perm]
+                row_map = row_map[perm]
                 act_row = row_iota < n_act
             n_last = n_act
         if carried:
@@ -898,31 +904,31 @@ def transport_rounds_fused(
                 fr.rng_seed_i32(base_seed + rounds * 7919), setup.grid,
                 stokes_on=stokes_on, inner_rounds=inner_rounds, block_lanes=block_lanes,
                 variant=setup.variant, cheb_base=setup.cheb_base, nt=setup.nt, aux=aux,
+                row_map=row_map,
             )
         telemetry.count("transport.kernel_calls")
         telemetry.count("transport.rows_active", n_act)
         telemetry.count("transport.rows_total", r_pad)
+        if maps is not None:
+            maps.append(row_map)
         promoted = (out & fr.OUT_PROMOTED) != 0
         pool = pool & ~promoted
         promoted_any = promoted_any | promoted
         rounds += inner_rounds
 
-    # the last call's lane inputs go before the planes are copied back, the
-    # frame's peak of device memory
-    safe = flags = None
-    # undo the active-first partitions
-    with telemetry.span("transport.unplane"):
-        inv = torch.empty_like(orig)
-        inv[orig] = row_iota
-        state = rows(state)[:, inv].reshape(fr.N_STATE, n_pad)
-        promoted_any = rows(promoted_any)[0, inv].reshape(-1)
+    # the last call's lane inputs and out-flags and the lane masks go before
+    # the planes are copied back, the frame's peak of device memory
+    safe = flags = aux = out = promoted = alive = pool = None
     # final cell sync for the photons that moved in the last kernel call
     with telemetry.span("grid.lookup"):
         if carried:
-            cell, _ = find_cell_rows(cfg, index, frame, pos(state),
-                                     rows(cell)[0, inv].reshape(-1), searched=searched)
+            cell, _ = find_cell_rows(cfg, index, frame, pos(state), cell, searched=searched)
         else:
             cell, _ = find_cell_direct(cfg, index, frame, pos(state))
+    remapped = None
+    if maps is not None:
+        remapped = ((torch.stack(maps) != row_iota).sum() if maps else
+                    torch.zeros((), dtype=torch.int64, device=dev))
 
     def unplane(lo, hi):
         return state[lo:hi, :cap].T.contiguous()
@@ -944,6 +950,7 @@ def transport_rounds_fused(
     return ChunkResult(
         photons=ph, t_rem=t_out, n_scatt=n_scatt, n_rounds=rounds,
         all_done=~active.any(), n_active=active.sum(), n_searched=searched,
+        n_remapped=remapped,
     )
 
 
@@ -1190,8 +1197,12 @@ def transport_frame(
                 fetch.append(_count_cs(work_ph) if res.n_cs is None else res.n_cs.to(torch.int64))
             if res.n_searched is not None:
                 fetch.append(res.n_searched)
+            if res.n_remapped is not None:
+                fetch.append(res.n_remapped)
             with telemetry.span("transport.fetch"):
                 n_scatt, all_done, n_active, *rest = torch.stack(fetch).tolist()
+            if res.n_remapped is not None:
+                telemetry.count("transport.rows_remapped", rest.pop())
             if res.n_searched is not None:
                 telemetry.count("grid.search_lanes", rest.pop())
             n_scatt_total += n_scatt

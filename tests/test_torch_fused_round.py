@@ -245,6 +245,11 @@ def test_fused_rounds_wrapper_checks_inputs():
                         grid, block_lanes=BLOCK)
     with pytest.raises(ValueError, match="phys"):
         fr.fused_rounds(state, ints, ints, phys.double(), act, 0, grid, block_lanes=BLOCK)
+    rows = BLOCK // fr.LANES
+    for bad in (torch.arange(rows - 1, dtype=torch.int32), torch.arange(rows)):
+        with pytest.raises(ValueError, match="row_map"):
+            fr.fused_rounds(state, ints, ints, phys, act, 0, grid, block_lanes=BLOCK,
+                            row_map=bad)
     out = fr.fused_rounds(state, ints, ints, phys, act, 0, grid, block_lanes=BLOCK)
     assert out.dtype == torch.int32 and not out.any()
 

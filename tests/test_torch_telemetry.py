@@ -8,7 +8,9 @@ on the CPU through the kernel's plain twin.
   grid) and a small carried frame (the same outflow as FLASH AMR blocks)
   record the span tree of the frame loop with the right parents; the
   counters agree with the twin's launches and the spans; each frame's
-  result is bit-identical with tracing on and off.
+  result is bit-identical with tracing on and off.  ``transport.rows_remapped``
+  is 0 on a frame that never partitions and counts, over the kernel calls,
+  the rows whose logical place differs from their physical one.
 * A TABLE frame records the per-frame fit of ``select_variant`` once a
   frame (``hot_xsec.cheb_cells``) and, with nonthermal electrons, its
   constants (``hot_xsec.nt_constants``); a DIRECT frame records neither.
@@ -45,6 +47,10 @@ CFG = Config(dims=Dims.TWO, geometry=Geometry.CYLINDRICAL,
 BAND = (1.8e12, 2.9e12)
 S_ROWS = 8
 CHUNK = 16
+# a frame that never partitions: two full logical blocks of photons, whose
+# window is over before any leaves its cell, in one kernel call
+STILL_LANES = 2 * S_ROWS * fr.LANES
+DT_MAX = dict(unpartitioned=1e-6)
 
 # (span, the span it opens inside) of every frame of the kernel path
 TREE = {
@@ -84,10 +90,13 @@ def _host(kind):
 @pytest.fixture(scope="module")
 def problems():
     out = {}
-    for kind in ("direct", "carried"):
-        host, index = _host(kind)
-        arrays, _ = tt.inject_photons(host, 2e12, 1e50, 1500, 3000, Spectrum.BLACKBODY, 0.0,
+    for kind in ("direct", "carried", "unpartitioned"):
+        host, index = _host("carried" if kind == "carried" else "direct")
+        n_min = STILL_LANES if kind == "unpartitioned" else 1500
+        arrays, _ = tt.inject_photons(host, 2e12, 1e50, n_min, 3000, Spectrum.BLACKBODY, 0.0,
                                       0.1047, 5.0, np.random.default_rng(3))
+        if kind == "unpartitioned":
+            arrays = {k: v[:STILL_LANES] for k, v in arrays.items()}
         photons, _ = tt.photons_from_arrays(arrays, device="cpu")
         out[kind] = (host.to_device("cpu"), index, photons)
     return out
@@ -95,7 +104,7 @@ def problems():
 
 def _frame(problems, kind, seed=5):
     frame, index, photons = problems[kind]
-    return tt.transport_frame(CFG, photons, frame, index, 0.2,
+    return tt.transport_frame(CFG, photons, frame, index, DT_MAX.get(kind, 0.2),
                               torch.Generator().manual_seed(seed), chunk_rounds=CHUNK,
                               fused=True, s_rows=S_ROWS)
 
@@ -219,7 +228,7 @@ def test_span_tree_and_counters(problems, tracing, kind):
     steps = spans["transport.step"]["count"]
     assert steps == spans["transport.fetch"]["count"] > 1
     assert spans["grid.lookup"]["count"] == calls + steps
-    assert spans["transport.unplane"]["count"] == 2 * steps
+    assert spans["transport.unplane"]["count"] == steps
     assert res.n_rounds > 0
     if kind == "direct":
         assert c.get("grid.search_lanes", 0) == 0
@@ -235,7 +244,7 @@ def test_span_tree_and_counters(problems, tracing, kind):
             assert p["start_ns"] <= r["start_ns"] <= r["end_ns"] <= p["end_ns"]
 
 
-@pytest.mark.parametrize("kind", ["direct", "carried"])
+@pytest.mark.parametrize("kind", ["direct", "carried", "unpartitioned"])
 def test_result_bit_identical_with_tracing_on_and_off(problems, tracing, kind):
     off = _frame(problems, kind, seed=11)
     telemetry.enable()
@@ -245,6 +254,41 @@ def test_result_bit_identical_with_tracing_on_and_off(problems, tracing, kind):
     assert torch.equal(on.t_rem, off.t_rem)
     for k, v in off.photons.fields().items():
         assert torch.equal(getattr(on.photons, k), v), k
+
+
+@pytest.mark.parametrize("kind", ["unpartitioned", "carried"])
+def test_rows_remapped_counts_the_rows_read_through_the_map(problems, tracing, kind):
+    """``transport.rows_remapped`` is the sum over the kernel calls of the
+    rows whose logical place is not their physical one (each call's
+    ``row_map != row_iota``), carried in each chunk's one fetch: 0 on a
+    frame that never partitions, and on a carried frame, which partitions
+    before every call, the count of the maps its calls read through.  The
+    carried frame's odd 128-lane rows start with no time left, so its
+    partitions move rows from the first call on."""
+    moved = []
+
+    def spy(*args, row_map=None, **kw):
+        moved.append(int((row_map != torch.arange(row_map.numel())).sum()))
+        return fr.fused_rounds_reference(*args, row_map=row_map, **kw)
+
+    telemetry.enable()
+    frame, index, photons = problems[kind]
+    dt = DT_MAX.get(kind, 0.2)
+    t_rem0 = tt.frame_time(photons, dt)
+    if kind == "carried":
+        t_rem0[(torch.arange(photons.capacity) // fr.LANES) % 2 == 1] = 0.0
+    tt.transport_frame(CFG, photons, frame, index, dt, torch.Generator().manual_seed(5),
+                       chunk_rounds=CHUNK, fused=True, s_rows=S_ROWS, rounds_fn=spy,
+                       t_rem0=t_rem0)
+    summ = telemetry.summary()
+    c, spans = summ["counters"], summ["spans"]
+    assert c["transport.kernel_calls"] == len(moved) >= 1
+    assert c["transport.rows_remapped"] == sum(moved)
+    if kind == "unpartitioned":
+        assert "transport.partition" not in spans and sum(moved) == 0
+    else:
+        assert spans["transport.partition"]["count"] == len(moved) > 1
+        assert sum(moved) > 0
 
 
 def test_search_lanes_count_the_lanes_that_left_their_cell(problems, tracing, monkeypatch):
