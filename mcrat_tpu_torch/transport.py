@@ -898,6 +898,7 @@ def transport_rounds_fused(
         if setup.aux is not None:
             with telemetry.span("transport.aux_planes"):
                 aux = aux_planes(cfg, setup.aux, frame, safe, state[fr.SP_C0]).contiguous()
+            telemetry.count("transport.aux_lanes", n_pad)
         with telemetry.span("fused_round.call"):
             out = rounds_fn(
                 state, safe, flags, setup.table, block_act,
